@@ -1,0 +1,25 @@
+"""starch3-tpu-torch: the Starch codec's device path on PyTorch and CUDA.
+
+A port of the JAX package ``starch3_tpu`` to an NVIDIA H100.  It imports
+``torch`` and never ``jax``.  The host tiers (parsing and transform, the
+host bzip2 encoder, block queue, stealers, tail and stream assembly,
+archive format, decode) are ``starch3_tpu``'s own, imported as they are;
+the port owns the device ops, the pipeline's device side and the entry
+points.  Module names mirror the JAX package:
+
+  - ``ops.bwt_fast``:   one-sort BWT, batched, in torch ops
+  - ``ops.mtf_narrow``: narrow-alphabet MTF; a hand-written CUDA kernel
+                        (``csrc/mtf_narrow.cu``) on a CUDA device
+  - ``parallel.pipeline``: the bits==4 device step, dispatch, drain and
+                        driver
+  - ``api``, ``cli``:   entry points with an explicit torch ``device``
+
+The device is always explicit (``"cuda"`` by default, ``"cpu"`` for the
+plain PyTorch versions); nothing falls back from the card to the CPU.
+``ops/transform_jax.py`` has no counterpart: no production path reaches
+it (the transform is the native ``s3_bed_transform``).
+"""
+
+from starch3_tpu._version import __version__
+
+__all__ = ["__version__"]

@@ -1,0 +1,506 @@
+"""Block-encode pipeline on a torch device: host segmentation -> device
+step -> host bit assembly, with spare CPU cores stealing blocks.
+
+Counterpart of ``starch3_tpu/parallel/pipeline.py`` for the production
+("fast") mode of the bits==4 alphabet tier, the path three-column BED
+always takes:
+
+  host:    RLE1 segmentation and alphabet classing per block
+           (``_split_classify``), then one pass per block that does the
+           dense remap and packs two symbols per byte (``_dense_pack4``)
+  device:  ``step_ranks4``: nibble unpack -> one-sort BWT
+           (ops/bwt_fast.py) -> narrow MTF at width 16 (ops/mtf_narrow.py,
+           the CUDA kernel on a CUDA device) -> rows
+           ``[orig_ptr, ties, nibble-packed ranks]``
+  host:    native RLE2 + Huffman + bit emission per block on the tail
+           pool, and stream assembly in block order
+
+The host tiers are the JAX package's own and are imported, not copied:
+the block queue and its stealers, classing, the row decoder, the tail
+pool and the stream assembler.  Only the device step, dispatch and
+drain, and the driver loop are this module's.
+
+Blocks whose packed-prefix sort ties re-encode exactly on the host, as in
+the JAX package; ``device_stats["tie_reencodes"]`` counts them.  Not
+ported yet (ROADMAP queue A): blocks of 17+ distinct bytes (A7, A8),
+which raise ``NotImplementedError`` at feed time; rate-aware demotion,
+recovery probes and stuck-batch abandonment, so a device fault surfaces
+as an exception and not as a host re-encode.
+"""
+
+from __future__ import annotations
+
+import collections
+import functools
+import threading
+import time
+
+import numpy as np
+import torch
+
+from starch3_tpu.parallel.pipeline import (
+    _PIPELINE_DEPTH,
+    _TAIL_RESERVE_PER_STEALER,
+    _assemble_stream,
+    _BlockQueue,
+    _fragment_from_ranks_row,
+    _split_classify,
+    _start_host_stealers,
+    _tail_pool,
+    scheduler_stats,
+)
+from starch3_tpu_torch.ops.bwt_fast import bwt_sort_fast3
+from starch3_tpu_torch.ops.mtf_narrow import mtf_ranks_narrow_batch
+
+# cumulative device-path events for this process (chip_smoke.py and the
+# tests read these; encode results never depend on them)
+device_stats = {"batches": 0, "blocks": 0, "tie_reencodes": 0}
+_stats_lock = threading.Lock()
+
+
+def _count(**deltas) -> None:
+    with _stats_lock:
+        for k, d in deltas.items():
+            device_stats[k] += d
+
+
+def resolve_device(device) -> torch.device:
+    """The explicit device for the device path: ``cuda`` needs a card
+    (there is no silent CPU fallback), ``cpu`` runs the plain versions."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "device 'cuda' requested but torch.cuda.is_available() is "
+                "false; pass device='cpu' to run the device path on the CPU"
+            )
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {dev} (use 'cuda' or 'cpu')")
+    return dev
+
+
+def check_modes(fast_bwt=True, device_rle2=False, device_huffman=False) -> None:
+    """Raise for the encode modes the port does not run yet."""
+    if not fast_bwt:
+        raise NotImplementedError(
+            "fast_bwt=False (prefix-doubling BWT) is not ported yet: ROADMAP A13"
+        )
+    if device_rle2:
+        raise NotImplementedError("device_rle2 is not ported yet: ROADMAP A13")
+    if device_huffman:
+        raise NotImplementedError("device_huffman is not ported yet: ROADMAP A10")
+
+
+def step_ranks4(seqs_packed: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
+    """The bits==4 device step, counterpart of
+    ``_jitted_fused_step_ranks4``.
+
+    Args:
+      seqs_packed: uint8[B, n_max // 2], two dense symbols per byte (low
+        nibble first); n_max a multiple of 4096
+      lens: int32[B] true lengths (1 <= len <= n_max)
+    Returns:
+      int32[B, 2 + n_max // 8] rows ``[orig_ptr, ties, packed ranks]``,
+      eight 4-bit ranks per word, ranks past each row's length zero.
+    """
+    b, half = seqs_packed.shape
+    n_max = 2 * half
+    p = seqs_packed.to(torch.int32)
+    seqs = torch.stack([p & 0xF, p >> 4], dim=-1).reshape(b, n_max)
+    last, ptrs, ties = bwt_sort_fast3(seqs, lens)
+    ranks = mtf_ranks_narrow_batch(last, 16)
+    idx = torch.arange(n_max, device=ranks.device, dtype=torch.int32)
+    ranks = torch.where(idx[None, :] < lens[:, None], ranks, 0)
+    # nibble pairs as bytes, read as little-endian words: the same words
+    # as the JAX step's shift-or, without int32 shift overflow
+    nib = ranks.to(torch.uint8).reshape(b, half, 2)
+    packed = (nib[..., 0] | (nib[..., 1] << 4)).view(torch.int32)
+    return torch.cat([ptrs[:, None], ties[:, None], packed], dim=1)
+
+
+def _dense_pack4(arr: np.ndarray, out_row: np.ndarray):
+    """Dense-remap one block and pack two symbols per byte into
+    ``out_row``: the native pass, or the same in NumPy without the native
+    lib.  Returns (distinct bytes, used bool[256])."""
+    from starch3_tpu.runtime import dense_pack4_native
+
+    res = dense_pack4_native(arr, out_row)
+    if res is not None:
+        return res
+    used = np.bincount(arr, minlength=256) > 0
+    syms = (np.cumsum(used) - 1).astype(np.uint8)[arr]
+    if syms.size % 2:
+        syms = np.append(syms, np.uint8(0))
+    out_row[: syms.size // 2] = syms[0::2] | (syms[1::2] << 4)
+    return int(used.sum()), used
+
+
+def _wide_class_error(bits: int) -> NotImplementedError:
+    return NotImplementedError(
+        f"a block of alphabet class bits=={bits} (17 or more distinct bytes) "
+        "has no device path in the port yet: ROADMAP A7 (17..64 symbols) "
+        "and A8 (more than 64)"
+    )
+
+
+def _dispatch_chunk(block_datas, nm, device: torch.device, pad_to=None):
+    """Pack, upload and launch one batch without waiting for it.
+
+    ``nm`` is the queue's ``(n_max, bits class)`` bucket key; the batch is
+    padded to ``pad_to`` rows.  Returns ``((rows, event), aux)``: on a
+    CUDA device ``rows`` is a pinned host tensor that a non-blocking copy
+    is filling and ``event`` marks its end; on the CPU ``rows`` is ready
+    and ``event`` is None.  Each batch gets its own pinned buffer: the
+    drain hands row views to the tail pool, which reads them later."""
+    n_max, bits_class = nm
+    if bits_class != 4:
+        raise _wide_class_error(bits_class)
+    b = len(block_datas)
+    b_pad = max(b, pad_to or 0)
+    cuda = device.type == "cuda"
+    packed = torch.zeros((b_pad, n_max // 2), dtype=torch.uint8, pin_memory=cuda)
+    packed_np = packed.numpy()
+    lens = np.ones(b_pad, dtype=np.int32)
+    useds = []
+    for i, data in enumerate(block_datas):
+        arr = np.frombuffer(data, dtype=np.uint8)
+        if arr.size > n_max:
+            raise ValueError(f"block {i} exceeds n_max ({arr.size} > {n_max})")
+        lens[i] = arr.size
+        n_syms, used = _dense_pack4(arr, packed_np[i])
+        if n_syms > 16:  # the queue classed this block bits==4
+            raise RuntimeError(f"block {i} has {n_syms} distinct bytes in the bits==4 tier")
+        useds.append(used)
+    rows = step_ranks4(
+        packed.to(device, non_blocking=True),
+        torch.from_numpy(lens).to(device, non_blocking=True),
+    )
+    _count(batches=1, blocks=b)
+    aux = {"useds": useds, "lens": lens}
+    if not cuda:
+        return (rows, None), aux
+    host = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=True)
+    host.copy_(rows, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(device))
+    return (host, event), aux
+
+
+def _batch_ready(handle) -> bool:
+    """True when a dispatched batch's rows are on the host."""
+    _rows, event = handle
+    return event is None or event.query()
+
+
+def _drain_into(results, per_stream_blocks, item, on_done=None):
+    """Hand one dispatched batch's rows to the host tail.  A row whose
+    sort tied re-encodes exactly on the host, here."""
+    chunk, ((rows, event), aux) = item
+    if event is not None:
+        event.synchronize()
+    out = rows.numpy()
+    ties = 0
+    for i, ((si, bi), used) in enumerate(zip(chunk, aux["useds"])):
+        blk = per_stream_blocks[si][bi]
+        if int(out[i, 1]) == 0:
+            results[(si, bi)] = _tail_pool().submit(
+                _fragment_from_ranks_row, out[i], used, blk.crc, int(aux["lens"][i]), 4
+            )
+        else:
+            from starch3_tpu.codec.encoder import encode_block_fragment
+
+            results[(si, bi)] = encode_block_fragment(blk)
+            ties += 1
+    _count(tie_reencodes=ties)
+    if on_done is not None:
+        on_done()
+
+
+def _device_driver(q: _BlockQueue, results, errors, device, batch_size, reserve):
+    """The device side of the queue: claim batches from the front of a
+    bucket, keep ``_PIPELINE_DEPTH`` in flight, drain the oldest, and
+    leave the post-feeding tail to the stealer cores (``reserve``).
+
+    The claim loop is that of the JAX ``_device_driver``
+    (``claim_priority`` orders the buckets, ``class_gated`` routes a class
+    to the stealers when its measured device rate loses to theirs).  Its demotion, recovery
+    probes and stuck-batch abandonment are not ported yet."""
+    pending: collections.deque = collections.deque()
+    drain_clock = [None]
+
+    def note_drain(nbytes: int, bits: int) -> None:
+        # drain-to-drain rate per alphabet class, read by class_gated
+        now = time.monotonic()
+        with q.cond:
+            prev = drain_clock[0]
+            drain_clock[0] = now
+            if prev is None or now <= prev:
+                return
+            r = nbytes / (now - prev)
+            q.device_rate = r if q.device_rate is None else 0.6 * q.device_rate + 0.4 * r
+            q.device_rate_samples += 1
+            cr = q.class_rate.get(bits)
+            q.class_rate[bits] = r if cr is None else 0.6 * cr + 0.4 * r
+            q.class_samples[bits] = q.class_samples.get(bits, 0) + 1
+
+    def drain_oldest() -> None:
+        nm0, item, nbytes = pending.popleft()
+        _drain_into(
+            results, q.per_stream_blocks, item,
+            on_done=functools.partial(note_drain, nbytes, nm0[1]),
+        )
+        with q.cond:  # wake the incremental assembler
+            q.cond.notify_all()
+
+    try:
+        while True:
+            chunk = None
+            with q.cond:
+                while True:
+                    if errors or q.cancelled:
+                        return
+                    for nm in sorted(q.buckets, key=q.claim_priority):
+                        dq = q.buckets[nm]
+                        remaining = len(dq)
+                        if remaining <= 0:
+                            continue
+                        if q.class_gated(nm[1], time.monotonic()):
+                            scheduler_stats["class_skips"] += 1
+                            continue
+                        if q.active_feeding() and remaining < batch_size:
+                            continue  # wait for a full batch while blocks arrive
+                        take = min(batch_size, remaining)
+                        if not q.feeding and reserve and remaining - take < reserve:
+                            continue  # leave the tail to the host cores
+                        chunk = [dq.popleft() for _ in range(take)]
+                        q.device_claimed += take
+                        this_nm = nm
+                        break
+                    if chunk is not None or pending or not q.feeding:
+                        break
+                    q.cond.wait(0.005)
+                if chunk is None and not pending:
+                    break  # queue fully claimed; stealers own the rest
+                # a single-block corpus gets a one-row batch: padding to
+                # batch_size would triple the only dispatch of the run
+                pad = batch_size
+                if chunk is not None and len(chunk) == 1 and not q.feeding:
+                    live = [bs for bs in q.per_stream_blocks if bs is not None]
+                    if sum(map(len, live)) == 1:
+                        pad = 1
+            if chunk is not None:
+                datas = [q.per_stream_blocks[si][bi].data for si, bi in chunk]
+                pending.append(
+                    (
+                        this_nm,
+                        (chunk, _dispatch_chunk(datas, this_nm, device, pad_to=pad)),
+                        sum(map(len, datas)),
+                    )
+                )
+                if len(pending) < _PIPELINE_DEPTH:
+                    continue
+            # pipeline full: block on the oldest batch; otherwise drain it
+            # only once its rows have landed
+            if len(pending) >= _PIPELINE_DEPTH or _batch_ready(pending[0][1][1][0]):
+                drain_oldest()
+            elif chunk is None:
+                time.sleep(0.002)  # nothing claimable, batch not ready
+        while pending:
+            if errors or q.cancelled:
+                return
+            drain_oldest()
+    except BaseException as e:  # surfaced by the caller
+        errors.append(e)
+
+
+def encode_streams(
+    texts: list[bytes],
+    level: int = 9,
+    device="cuda",
+    batch_size: int = 3,
+    device_rle2: bool = False,
+    fast_bwt: bool = True,
+    host_assist: bool | None = None,
+    device_huffman: bool = False,
+) -> list:  # list[codec.encoder.EncodedStream]
+    """Compress many independent streams through one device queue; the
+    counterpart of the JAX ``encode_streams`` with ``device`` in place of
+    ``mesh``.  Output bytes equal the host encoder's."""
+    return encode_streams_feed(
+        iter(texts),
+        level=level,
+        device=device,
+        batch_size=batch_size,
+        device_rle2=device_rle2,
+        fast_bwt=fast_bwt,
+        host_assist=host_assist,
+        device_huffman=device_huffman,
+    )
+
+
+def encode_streams_feed(
+    text_iter,
+    level: int = 9,
+    device="cuda",
+    batch_size: int = 3,
+    device_rle2: bool = False,
+    fast_bwt: bool = True,
+    host_assist: bool | None = None,
+    device_huffman: bool = False,
+) -> list:  # list[codec.encoder.EncodedStream]
+    """``encode_streams`` over a stream of texts: encoding begins while
+    later texts are still being produced."""
+    return list(
+        encode_streams_iter(
+            text_iter,
+            level=level,
+            device=device,
+            batch_size=batch_size,
+            device_rle2=device_rle2,
+            fast_bwt=fast_bwt,
+            host_assist=host_assist,
+            device_huffman=device_huffman,
+        )
+    )
+
+
+def encode_streams_iter(
+    text_iter,
+    level: int = 9,
+    device="cuda",
+    batch_size: int = 3,
+    device_rle2: bool = False,
+    fast_bwt: bool = True,
+    host_assist: bool | None = None,
+    device_huffman: bool = False,
+    window_bytes: int = 256 << 20,
+):
+    """Generator yielding each stream's EncodedStream in feed order as
+    soon as all its blocks are done, while later texts are still being
+    fed (at most ``window_bytes`` of block data in flight).
+
+    ``host_assist`` (default: on when the native runtime is built) runs
+    every CPU core as a work stealer beside the device; off, every block
+    goes through the device.  Bytes are the same either way."""
+    check_modes(fast_bwt, device_rle2, device_huffman)
+    dev = resolve_device(device)
+    if host_assist is None:
+        from starch3_tpu.runtime import get_lib
+
+        host_assist = get_lib() is not None
+
+    q = _BlockQueue()
+    q.steal_holdback = batch_size
+    q.device_low_water = batch_size * _PIPELINE_DEPTH
+    q.window_bytes = window_bytes
+    results: dict = {}
+    errors: list[BaseException] = []
+    stealers = _start_host_stealers(q, results, errors, host_assist)
+    reserve = _TAIL_RESERVE_PER_STEALER * len(stealers)
+    driver = threading.Thread(
+        target=_device_driver,
+        args=(q, results, errors, dev, batch_size, reserve),
+        name="s3tdevice",
+        daemon=True,
+    )
+    driver.start()
+
+    def run_feed():
+        """Feeder: the caller's iterator runs here; segmentation and
+        classing run in order on a small prefetch pool (the natives
+        release the GIL)."""
+        import os
+        from concurrent.futures import ThreadPoolExecutor
+
+        width = max(2, min(8, os.cpu_count() or 2))
+        try:
+            with ThreadPoolExecutor(width, thread_name_prefix="s3tsplit") as ex:
+                futs: collections.deque = collections.deque()
+                it = iter(text_iter)
+                exhausted = False
+                while True:
+                    while not exhausted and len(futs) < width + 2:
+                        try:
+                            text = next(it)
+                        except StopIteration:
+                            exhausted = True
+                            break
+                        futs.append(ex.submit(_split_classify, text, level))
+                    if not futs:
+                        break
+                    blocks, classes = futs.popleft().result()
+                    wide = [c for c in classes if c != 4]
+                    if wide:
+                        raise _wide_class_error(wide[0])
+                    q.feed_blocks(blocks, classes)
+                    if errors or q.cancelled:
+                        break
+        except BaseException as e:  # surfaced by the generator below
+            errors.append(e)
+        finally:
+            q.finish_feeding()
+
+    feeder = threading.Thread(target=run_feed, name="s3tfeed", daemon=True)
+    feeder.start()
+
+    next_si = 0
+    try:
+        while True:
+            blocks = None
+            with q.cond:
+                while True:
+                    if errors:
+                        raise errors[0]
+                    if next_si < len(q.per_stream_blocks):
+                        cand = q.per_stream_blocks[next_si]
+                        if all((next_si, bi) in results for bi in range(len(cand))):
+                            blocks = cand
+                            break
+                    elif not q.feeding:
+                        break
+                    q.cond.wait(0.05)
+            if blocks is None:
+                break
+            enc = _assemble_stream(blocks, results, next_si, level)
+            with q.cond:
+                # release the yielded stream and open the feeder's window
+                q.per_stream_blocks[next_si] = None
+                q.inflight_bytes -= sum(len(b.data) for b in blocks)
+                for bi in range(len(blocks)):
+                    results.pop((next_si, bi), None)
+                q.cond.notify_all()
+            next_si += 1
+            yield enc
+        driver.join()
+        for t in stealers:
+            t.join()
+        feeder.join()
+        if errors:
+            raise errors[0]
+    finally:
+        # early close or error: stop the feeder, then let the workers
+        # finish what they claimed before control returns
+        with q.cond:
+            q.cancelled = True
+            q.cond.notify_all()
+        q.finish_feeding()
+        feeder.join()
+        driver.join()
+        for t in stealers:
+            t.join()
+
+
+def torch_bz2_compress(data: bytes, config=None, device="cuda") -> bytes:
+    """bzip2-compatible compression of one stream with the heavy stages
+    on ``device``; the counterpart of ``jax_bz2_compress``."""
+    level = config.block_size_100k if config is not None else 9
+    batch_size = config.blocks_per_batch if config is not None else 3
+    return encode_streams(
+        [data],
+        level=level,
+        device=device,
+        batch_size=batch_size,
+        device_rle2=getattr(config, "device_rle2", False),
+        fast_bwt=getattr(config, "fast_bwt", True),
+        device_huffman=getattr(config, "device_huffman", False),
+    )[0].data

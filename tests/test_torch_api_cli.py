@@ -1,0 +1,148 @@
+"""The port's entry points (starch3_tpu_torch/api.py, cli.py) on the CPU
+device: archive bytes equal to the JAX package's device path (on the
+CPU) and to its host path; no silent fallback without a card; no JAX."""
+
+import io
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from starch3_tpu import api as jax_api
+from starch3_tpu.config import EncodeConfig
+from starch3_tpu_torch import api
+
+from tests.conftest import make_bed_text
+
+torch.set_num_threads(2)
+
+CLI = [sys.executable, "-m", "starch3_tpu_torch.cli"]
+
+
+def run(args, input_=b""):
+    return subprocess.run(CLI + args, input=input_, capture_output=True)
+
+
+@pytest.fixture
+def bed(rng):
+    return make_bed_text(rng, n=6000, chroms=("chr1", "chr2", "chrM"))
+
+
+@pytest.fixture
+def host_archive(bed):
+    return jax_api.compress_bed_bytes(bed, EncodeConfig())
+
+
+def test_bytes_equal_jax_device_and_host(bed, host_archive):
+    got = api.compress_bed_bytes(bed, EncodeConfig(use_jax=True), device="cpu")
+    assert got == host_archive
+    assert got == jax_api.compress_bed_bytes(bed, EncodeConfig(use_jax=True))
+    assert api.decompress_starch_bytes(got) == bed
+
+
+def test_single_stream_helpers_equal_host(rng):
+    text = jax_api._parse_transform(make_bed_text(rng, n=900))[0].text
+    cfg = EncodeConfig(use_jax=True)
+    assert api._compress_stream(text, cfg, device="cpu") == jax_api._compress_stream(
+        text, EncodeConfig()
+    )
+    got = api._compress_stream_ex(text, cfg, device="cpu")
+    assert got == jax_api._compress_stream_ex(text, EncodeConfig())
+
+
+def test_stream_and_file_equal_host(bed, host_archive, tmp_path):
+    """Small chunks make chromosomes span chunk boundaries (the carry)."""
+    out = io.BytesIO()
+    api.compress_bed_stream(
+        io.BytesIO(bed), out, EncodeConfig(use_jax=True), chunk_bytes=4096, device="cpu"
+    )
+    assert out.getvalue() == host_archive
+    src = tmp_path / "in.bed"
+    src.write_bytes(bed)
+    out = io.BytesIO()
+    api.compress_bed_file(str(src), out, EncodeConfig(use_jax=True), device="cpu")
+    assert out.getvalue() == host_archive
+
+
+def test_no_final_newline_and_duplicate_chromosome(rng):
+    from starch3_tpu.errors import BedParseError
+
+    bed = make_bed_text(rng, n=600)[:-1]
+    got = api.compress_bed_bytes(bed, EncodeConfig(use_jax=True), device="cpu")
+    assert got == jax_api.compress_bed_bytes(bed, EncodeConfig())
+    assert api.decompress_starch_bytes(got) == bed
+    dup = b"chr1\t10\t20\nchr2\t5\t9\nchr1\t30\t40\n"
+    with pytest.raises(BedParseError):
+        api.compress_bed_bytes(dup, EncodeConfig(use_jax=True), device="cpu")
+
+
+def test_unported_device_mode_raises(bed):
+    with pytest.raises(NotImplementedError, match="A10"):
+        api.compress_bed_bytes(bed, EncodeConfig(use_jax=True, device_huffman=True), device="cpu")
+
+
+def test_cli_cpu_platform_same_bytes(bed, host_archive, tmp_path):
+    src = tmp_path / "in.bed"
+    src.write_bytes(bed)
+    r = run(["--platform=cpu", "--jax", str(src)])
+    assert r.returncode == 0, r.stderr.decode()
+    assert r.stdout == host_archive
+    r = run(["--jax", "--platform=cpu"], input_=bed)
+    assert r.returncode == 0, r.stderr.decode()
+    assert r.stdout == host_archive
+    r = run(["--decode"], input_=host_archive)
+    assert r.returncode == 0 and r.stdout == bed
+
+
+def test_cli_without_card_exits_nonzero(bed, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    src = tmp_path / "in.bed"
+    src.write_bytes(bed)
+    r = run(["--jax", str(src)])
+    assert r.returncode != 0
+    assert b"--platform=cpu" in r.stderr or b"device='cpu'" in r.stderr
+    assert r.stdout == b""
+
+
+@pytest.mark.parametrize(
+    "args,msg",
+    [
+        (["--num-hosts=2", "--host-id=0"], b"not yet ported"),
+        (["--platform=tpu", "--jax"], b"--platform"),
+        (["--platform=cpu", "--jax", "--device-huffman"], b"A10"),
+    ],
+)
+def test_cli_rejects(args, msg, bed):
+    r = run(args, input_=bed)
+    assert r.returncode != 0
+    assert msg in r.stderr
+
+
+def test_cli_help_and_version():
+    r = run(["--help"])
+    assert r.returncode == 0 and b"--platform" in r.stdout
+    r = run(["-v"])
+    assert r.returncode == 0 and b"starch3-tpu-torch" in r.stdout
+
+
+def test_port_never_imports_jax():
+    """A fresh process: every module of the port, a CPU device encode and
+    decode, and the host path leave ``jax`` out of ``sys.modules``."""
+    code = (
+        "import io, sys\n"
+        "import starch3_tpu_torch, starch3_tpu_torch.cli, starch3_tpu_torch._build\n"
+        "import starch3_tpu_torch.profile_step, starch3_tpu_torch.corpus\n"
+        "from starch3_tpu_torch import api\n"
+        "bed = b'chr1\\t1\\t5\\nchr1\\t7\\t9\\nchr2\\t3\\t4\\n'\n"
+        "a = api.compress_bed_bytes(bed, api.EncodeConfig(use_jax=True), device='cpu')\n"
+        "assert a == api.compress_bed_bytes(bed, api.EncodeConfig())\n"
+        "out = io.BytesIO()\n"
+        "api.compress_bed_stream(io.BytesIO(bed), out, api.EncodeConfig(use_jax=True), device='cpu')\n"
+        "assert out.getvalue() == a\n"
+        "assert api.decompress_starch_bytes(a) == bed\n"
+        "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if m.startswith('jax'))\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True)
+    assert r.returncode == 0, r.stderr.decode()

@@ -1,0 +1,118 @@
+"""The port's pipeline (starch3_tpu_torch/parallel/pipeline.py) on the CPU
+device: streams byte-identical to libbz2 -9 (``bz2.compress``), to the
+host encoder and to the JAX package's ``encode_streams``."""
+
+import bz2
+
+import numpy as np
+import pytest
+import torch
+
+from starch3_tpu.codec.encoder import bz2_compress
+from starch3_tpu.parallel import pipeline as jax_pipeline
+from starch3_tpu_torch.parallel import pipeline
+
+torch.set_num_threads(2)
+
+
+def _texts(rng, sizes):
+    return [bytes(rng.integers(0, 16, int(n), dtype=np.uint8)) for n in sizes]
+
+
+def _reset_stats():
+    for k in pipeline.device_stats:
+        pipeline.device_stats[k] = 0
+
+
+@pytest.mark.parametrize("host_assist", [False, True])
+def test_streams_match_bz2_and_jax(rng, host_assist):
+    texts = _texts(rng, rng.integers(2_000, 20_000, 5))
+    _reset_stats()
+    got = pipeline.encode_streams(texts, device="cpu", host_assist=host_assist)
+    want = jax_pipeline.encode_streams(texts, host_assist=False)
+    assert [g.data for g in got] == [bz2.compress(t, 9) for t in texts]
+    assert [g.data for g in got] == [w.data for w in want]
+    assert [g.block_bit_offsets for g in got] == [w.block_bit_offsets for w in want]
+    if not host_assist:  # every block went through the device step
+        assert pipeline.device_stats["blocks"] == len(texts)
+        assert pipeline.device_stats["batches"] == 2  # 5 blocks, batch_size 3
+
+
+def test_multi_block_stream_level1(rng):
+    text = _texts(rng, [250_000])[0]
+    _reset_stats()
+    got = pipeline.encode_streams([text], level=1, device="cpu", host_assist=False)[0]
+    assert got.data == bz2.compress(text, 1)
+    assert len(got.block_bit_offsets) == 3
+    assert pipeline.device_stats["blocks"] == 3
+
+
+def test_periodic_block_reencodes_on_host():
+    """A periodic block's prefix sort ties: the drain re-encodes it
+    exactly on the host and counts it."""
+    text = b"1723\n481\np100\n" * 1000
+    _reset_stats()
+    got = pipeline.encode_streams([text], device="cpu", host_assist=False)[0]
+    assert pipeline.device_stats["tie_reencodes"] == 1
+    assert got.data == bz2_compress(text, 9)
+
+
+def test_feed_and_iter_equal_list(rng):
+    texts = _texts(rng, rng.integers(2_000, 10_000, 4))
+    want = [bz2.compress(t, 9) for t in texts]
+    got = pipeline.encode_streams_feed(iter(texts), device="cpu", host_assist=False)
+    assert [g.data for g in got] == want
+    it = pipeline.encode_streams_iter(iter(texts), device="cpu", window_bytes=12_000)
+    assert [g.data for g in it] == want
+
+
+def test_iter_early_close_releases_workers(rng):
+    texts = _texts(rng, [20_000] * 6)
+    it = pipeline.encode_streams_iter(iter(texts), device="cpu", window_bytes=50_000)
+    next(it)
+    it.close()  # GeneratorExit -> cancel, join feeder/driver/stealers
+
+
+def test_feeder_error_propagates(rng):
+    class Boom(Exception):
+        pass
+
+    def gen():
+        yield _texts(rng, [2_000])[0]
+        raise Boom()
+
+    with pytest.raises(Boom):
+        pipeline.encode_streams_feed(gen(), device="cpu")
+
+
+def test_wide_alphabet_block_raises(rng):
+    """17+ distinct bytes have no device tier in the port yet: the encode
+    raises, it does not host-encode the block silently."""
+    wide = bytes(rng.integers(0, 40, 5_000, dtype=np.uint8))
+    with pytest.raises(NotImplementedError, match="A7"):
+        pipeline.encode_streams([wide], device="cpu", host_assist=False)
+
+
+@pytest.mark.parametrize(
+    "kwargs,item",
+    [
+        ({"fast_bwt": False}, "A13"),
+        ({"device_rle2": True}, "A13"),
+        ({"device_huffman": True}, "A10"),
+    ],
+)
+def test_unported_modes_raise(kwargs, item):
+    with pytest.raises(NotImplementedError, match=item):
+        pipeline.encode_streams([b"12\n"], device="cpu", **kwargs)
+
+
+def test_cuda_without_a_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    with pytest.raises(RuntimeError, match="cuda"):
+        pipeline.encode_streams([b"12\n"], device="cuda")
+
+
+def test_torch_bz2_compress(rng):
+    text = _texts(rng, [3_000])[0]
+    assert pipeline.torch_bz2_compress(text, device="cpu") == bz2.compress(text, 9)
