@@ -6,25 +6,39 @@ Run from the root of the repository on a machine with one NVIDIA GPU
 
     python3 chip_smoke.py [--seed N]
 
-It drives the port's main path, the bits==4 encode of whole-genome
-3-column BED (BASELINE config 2), through the entry points a user calls,
-and exits 0 only if every phase passes:
+It drives the port's device paths through the entry points a user calls:
+the bits==4 encode of whole-genome 3-column BED (BASELINE config 2) and
+the remainder-column tiers, bits 5/6 (BASELINE config 3 and gene-id BED)
+and bits 8 (BED6 with free-text names).  It exits 0 only if every phase
+passes:
 
   1. the card: its name and power limit (nvidia-smi) and torch's name;
-  2. the kernel build from ``starch3_tpu_torch/csrc`` (timed);
-  3. the narrow-MTF kernel against its plain PyTorch version on the card,
-     at widths 16/32/64 and the main path's shapes, exactly equal; median
-     CUDA-event times of both at (3, 901,120) and (3, 458,752), width 16;
-  4. ``step_ranks4`` on the card against the same step on the CPU, for one
-     production batch of real transformed blocks: equal rows;
-  5. device-only end to end: ``encode_streams(host_assist=False)`` over
-     config 2 plus one ~400,000-interval chromosome (multi-block streams,
-     901,120 bucket); every stream equals ``bz2.compress(text, 9)``, the
-     kernel's launches equal the device batches and the device blocks
-     equal all blocks; MB/s beside same-run libbz2 -9;
-  6. the entry points: ``compress_bed_bytes(use_jax=True)`` equals the
-     host path's archive and decodes back to the BED, and
-     ``python -m starch3_tpu_torch.cli --jax FILE`` writes the same bytes.
+  2. the kernel builds from ``starch3_tpu_torch/csrc``, one nvcc per
+     source, all started together (timed);
+  3. each MTF kernel against its plain PyTorch version on the card, at
+     the main path's shapes, exactly equal: the narrow kernel at widths
+     16/32/64, the wide kernel at 128/256 (and at one row, width 256);
+     short rows whose pad holds out-of-range and negative symbols; a rare
+     symbol silent across many chunks.  Median CUDA-event times of kernel
+     and plain version at (3, 901,120) and (3, 458,752): width 16 narrow,
+     width 256 wide;
+  4. each tier's device step on the card against the same step on the
+     CPU, for one production batch of real transformed blocks: bits 4 at
+     458,752, bits 5, 6 and 8 at 901,120.  Rows equal (a tied bits-8 row:
+     columns ptr and ties);
+  5. device-only end to end, ``encode_streams(host_assist=False)``, one
+     run per corpus: config 2 plus one ~400,000-interval chromosome
+     (bits 4, multi-block streams), config 3 (bits 5), the gene-id corpus
+     (bits 6) and the free-text corpus (bits 8, multi-block streams).
+     Every stream equals ``bz2.compress(text, 9)``, the device blocks
+     equal all blocks, each corpus's class ran on the device, the narrow
+     kernel's launches equal the bits 4/5/6 batches and the wide kernel's
+     the bits-8 batches, and at least one bits-8 block was tie-free;
+     MB/s beside same-run libbz2 -9;
+  6. the entry points, on config 2 and on config 3:
+     ``compress_bed_bytes(use_jax=True)`` equals the host path's archive
+     and decodes back to the BED, and ``python -m starch3_tpu_torch.cli
+     --jax FILE`` writes the same bytes.
 
 The line before the last is one JSON object describing each kernel of
 the path; the last line is ``{"ok": true, "device": {...}}``.  Without a
@@ -36,6 +50,7 @@ from __future__ import annotations
 
 import argparse
 import bz2
+import concurrent.futures
 import json
 import os
 import statistics
@@ -49,7 +64,7 @@ import torch
 
 from starch3_tpu_torch import api, corpus
 from starch3_tpu_torch._build import build
-from starch3_tpu_torch.ops import mtf_narrow
+from starch3_tpu_torch.ops import mtf_narrow, mtf_wide
 from starch3_tpu_torch.parallel import pipeline
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -85,32 +100,46 @@ def check_equal(name: str, got: torch.Tensor, want: torch.Tensor) -> int:
     return err
 
 
-def phase_kernel(device, seed: int, buckets=BUCKETS, short=8192, reps=20):
-    """Phase 3: kernel vs plain version at the main path's shapes.
-    Returns (max_abs_err, {n_max: (kernel_ms, plain_ms)} at width 16)."""
+# name -> (module, kernel wrapper, plain version, width timed)
+KERNELS = {
+    "mtf_narrow": (
+        mtf_narrow, mtf_narrow.mtf_ranks_narrow_batch, mtf_narrow.mtf_ranks_narrow_reference, 16,
+    ),
+    "mtf_wide": (
+        mtf_wide, mtf_wide.mtf_ranks_wide_batch, mtf_wide.mtf_ranks_wide_reference, 256,
+    ),
+}
+
+
+def phase_kernel(device, seed: int, name: str, buckets=BUCKETS, short=8192, reps=20, plain_reps=20):
+    """Phase 3: one kernel vs its plain version at the main path's shapes.
+    Returns (max_abs_err, {n_max: (kernel_ms, plain_ms)} at the timed
+    width)."""
+    mod, kernel, plain, timed_width = KERNELS[name]
     gen = torch.Generator(device="cpu").manual_seed(seed)
     max_err = 0
     times = {}
-    for width in mtf_narrow.WIDTHS:
+    for width in mod.WIDTHS:
         for n_max in buckets:
             seqs = torch.randint(0, width, (3, n_max), generator=gen, dtype=torch.int32).to(device)
-            got = mtf_narrow.mtf_ranks_narrow_batch(seqs, width)
-            want = mtf_narrow.mtf_ranks_narrow_reference(seqs, width)
-            max_err = max(max_err, check_equal(f"w{width} (3, {n_max})", got, want))
-            if width == 16 and device.type == "cuda":
-                k = cuda_median_ms(lambda: mtf_narrow.mtf_ranks_narrow_batch(seqs, 16), reps)
-                p = cuda_median_ms(lambda: mtf_narrow.mtf_ranks_narrow_reference(seqs, 16), reps)
+            got = kernel(seqs, width)
+            want = plain(seqs, width)
+            max_err = max(max_err, check_equal(f"{name} w{width} (3, {n_max})", got, want))
+            if width == timed_width:
+                k = cuda_median_ms(lambda: kernel(seqs, width), reps)
+                p = cuda_median_ms(lambda: plain(seqs, width), plain_reps)
                 times[n_max] = (k, p)
-                log(f"mtf_narrow (3, {n_max}) w16: kernel {k:.4f} ms, plain {p:.4f} ms")
+                log(f"{name} (3, {n_max}) w{width}: kernel {k:.4f} ms (median of {reps}), "
+                    f"plain {p:.4f} ms (median of {plain_reps})")
             del seqs, got, want
         # short rows: the pad holds symbols outside [0, width)
         seqs = torch.randint(0, width, (2, short), generator=gen, dtype=torch.int32)
         seqs[0, 5000:] = width + 3
         seqs[1, 100:] = -1
         seqs = seqs.to(device)
-        got = mtf_narrow.mtf_ranks_narrow_batch(seqs, width)
-        want = mtf_narrow.mtf_ranks_narrow_reference(seqs, width)
-        max_err = max(max_err, check_equal(f"w{width} short rows", got, want))
+        got = kernel(seqs, width)
+        want = plain(seqs, width)
+        max_err = max(max_err, check_equal(f"{name} w{width} short rows", got, want))
         # a rare symbol silent across many chunks
         n_max = buckets[0]
         seqs = torch.randint(0, 3, (1, n_max), generator=gen, dtype=torch.int32)
@@ -118,72 +147,93 @@ def phase_kernel(device, seed: int, buckets=BUCKETS, short=8192, reps=20):
         seqs[0, 100] = width - 2
         seqs[0, n_max - 1] = width - 1
         seqs = seqs.to(device)
-        got = mtf_narrow.mtf_ranks_narrow_batch(seqs, width)
-        want = mtf_narrow.mtf_ranks_narrow_reference(seqs, width)
-        max_err = max(max_err, check_equal(f"w{width} rare symbol", got, want))
-        log(f"mtf_narrow width {width}: equal to plain at every shape")
+        got = kernel(seqs, width)
+        want = plain(seqs, width)
+        max_err = max(max_err, check_equal(f"{name} w{width} rare symbol", got, want))
+        if name == "mtf_wide" and width == 256:  # mtf_ranks_pallas's one-row form
+            got = mtf_wide.mtf_ranks_wide(seqs[0])
+            max_err = max(max_err, check_equal(f"{name} one row", got[None, :], want))
+        log(f"{name} width {width}: equal to plain at every shape")
     return max_err, times
 
 
-def real_batch(texts, n_max: int, b: int = 3):
-    """The first ``b`` bits==4 blocks of ``texts`` packed for bucket
-    ``n_max``, as the dispatch packs them: (packed uint8, lens int32)."""
+def real_batch(texts, bits: int, n_max: int, b: int = 3):
+    """The first ``b`` blocks of alphabet class ``bits`` in ``texts`` that
+    fit bucket ``n_max``, packed as the dispatch packs them: (packed,
+    lens, nsyms) tensors on the CPU."""
     blocks = []
     for t in texts:
         bl, cl = pipeline._split_classify(t, 9)
-        blocks += [x.data for x, c in zip(bl, cl) if c == 4 and len(x.data) <= n_max]
+        blocks += [x.data for x, c in zip(bl, cl) if c == bits and len(x.data) <= n_max]
         if len(blocks) >= b:
             break
-    packed = np.zeros((b, n_max // 2), np.uint8)
-    lens = np.zeros(b, np.int32)
-    for i, data in enumerate(blocks[:b]):
-        arr = np.frombuffer(data, np.uint8)
-        lens[i] = arr.size
-        pipeline._dense_pack4(arr, packed[i])
-    return torch.from_numpy(packed), torch.from_numpy(lens)
+    if len(blocks) < b:
+        raise AssertionError(f"fewer than {b} bits=={bits} blocks fit {n_max}")
+    packed, lens, nsyms, _ = pipeline.pack_batch(blocks[:b], n_max, bits)
+    return packed, torch.from_numpy(lens), torch.from_numpy(nsyms)
 
 
-def phase_step(device, texts, n_max: int = BUCKETS[1]):
-    """Phase 4: the device step on ``device`` vs the CPU, real blocks."""
-    packed, lens = real_batch(texts, n_max)
-    got = pipeline.step_ranks4(packed.to(device), lens.to(device)).cpu()
-    want = pipeline.step_ranks4(packed, lens)
-    check_equal(f"step_ranks4 (3, {n_max})", got, want)
-    log(f"step_ranks4: {device} rows equal CPU rows; lens {lens.tolist()}, "
-        f"ptrs {got[:, 0].tolist()}, ties {got[:, 1].tolist()}")
+def phase_step(device, texts, bits: int, n_max: int):
+    """Phase 4: one tier's device step on ``device`` vs the CPU, real
+    blocks.  A tied bits-8 row compares its ptr and ties columns only:
+    the order of tied rotations is not defined there."""
+    packed, lens, nsyms = real_batch(texts, bits, n_max)
+    got = pipeline.step_for_class(
+        packed.to(device), lens.to(device), nsyms.to(device), bits, n_max
+    ).cpu()
+    want = pipeline.step_for_class(packed, lens, nsyms, bits, n_max)
+    tie_col = 2 if bits == 8 else 1
+    for i in range(got.shape[0]):
+        cols = slice(None) if want[i, tie_col] == 0 or bits != 8 else [0, 2]
+        check_equal(f"bits {bits} step row {i} (3, {n_max})", got[i, cols], want[i, cols])
+    log(f"bits {bits} step: {device} rows equal CPU rows at n_max {n_max}; lens {lens.tolist()}, "
+        f"ptrs {got[:, 0].tolist()}, ties {got[:, tie_col].tolist()}")
 
 
-def phase_end_to_end(device, texts):
-    """Phase 5: device-only encode; returns the kernel's launch count."""
+def phase_end_to_end(device, label: str, texts, classes):
+    """Phase 5: device-only encode of one corpus whose blocks fall in
+    ``classes``.  Returns (narrow launches, wide launches, device_stats)
+    of the run."""
     total = sum(map(len, texts))
     mtf_narrow.launches = 0
+    mtf_wide.launches = 0
     for k in pipeline.device_stats:
         pipeline.device_stats[k] = 0
     t0 = time.perf_counter()
     encs = pipeline.encode_streams(texts, device=device, host_assist=False)
     dt = time.perf_counter() - t0
-    launches = mtf_narrow.launches
+    narrow, wide = mtf_narrow.launches, mtf_wide.launches
     stats = dict(pipeline.device_stats)
     t1 = time.perf_counter()
     want = [bz2.compress(t, 9) for t in texts]
     dt_bz2 = time.perf_counter() - t1
     for i, (e, w) in enumerate(zip(encs, want)):
         if e.data != w:
-            raise AssertionError(f"stream {i}: device bytes != bz2.compress(text, 9)")
+            raise AssertionError(f"{label} stream {i}: device bytes != bz2.compress(text, 9)")
     n_blocks = sum(len(e.block_bit_offsets) for e in encs)
-    if launches != stats["batches"] or launches == 0:
-        raise AssertionError(f"kernel launches {launches} != device batches {stats['batches']}")
     if stats["blocks"] != n_blocks:
-        raise AssertionError(f"device blocks {stats['blocks']} != all blocks {n_blocks}")
-    log(f"end to end (device only): {len(texts)} streams, {total} bytes, {n_blocks} blocks, "
-        f"{stats['batches']} batches, {launches} kernel launches, "
-        f"{stats['tie_reencodes']} tie re-encodes; all streams == bz2.compress(text, 9)")
-    log(f"end to end: {total / dt / 1e6:.3f} MB/s ({dt:.3f} s); "
+        raise AssertionError(f"{label}: device blocks {stats['blocks']} != all blocks {n_blocks}")
+    for c in classes:
+        if stats[f"blocks_bits{c}"] == 0:
+            raise AssertionError(f"{label}: no bits=={c} block ran on the device")
+    mid = sum(stats[f"batches_bits{c}"] for c in (4, 5, 6))
+    if narrow != mid or wide != stats["batches_bits8"]:
+        raise AssertionError(
+            f"{label}: launches narrow {narrow} wide {wide} != batches bits 4/5/6 {mid}, "
+            f"bits 8 {stats['batches_bits8']}"
+        )
+    per_class = {c: (stats[f"blocks_bits{c}"], stats[f"batches_bits{c}"],
+                     stats[f"tie_reencodes_bits{c}"]) for c in pipeline.CLASSES}
+    log(f"{label} end to end (device only): {len(texts)} streams, {total} bytes, {n_blocks} blocks, "
+        f"{stats['batches']} batches, launches narrow {narrow} wide {wide}, "
+        f"{stats['tie_reencodes']} tie re-encodes; (blocks, batches, tie re-encodes) per class "
+        f"{per_class}; all streams == bz2.compress(text, 9)")
+    log(f"{label} end to end: {total / dt / 1e6:.3f} MB/s ({dt:.3f} s); "
         f"same-run libbz2 -9 one core: {total / dt_bz2 / 1e6:.3f} MB/s ({dt_bz2:.3f} s)")
-    return launches
+    return narrow, wide, stats
 
 
-def phase_entry_points(device, bed: bytes):
+def phase_entry_points(device, label: str, bed: bytes):
     """Phase 6: the archive API and the CLI against the host path."""
     cfg = api.EncodeConfig(use_jax=True)
     t0 = time.perf_counter()
@@ -193,10 +243,10 @@ def phase_entry_points(device, bed: bytes):
     want = api.compress_bed_bytes(bed, api.EncodeConfig())
     dt_host = time.perf_counter() - t1
     if got != want:
-        raise AssertionError("compress_bed_bytes: device archive != host archive")
+        raise AssertionError(f"{label} compress_bed_bytes: device archive != host archive")
     if api.decompress_starch_bytes(got) != bed:
-        raise AssertionError("compress_bed_bytes: archive does not decode to the input")
-    log(f"compress_bed_bytes: archive == host path's, decodes to the input; "
+        raise AssertionError(f"{label} compress_bed_bytes: archive does not decode to the input")
+    log(f"{label} compress_bed_bytes: archive == host path's, decodes to the input; "
         f"{len(bed) / dt / 1e6:.3f} MB/s of BED ({dt:.3f} s); host path "
         f"{len(bed) / dt_host / 1e6:.3f} MB/s ({dt_host:.3f} s)")
     with tempfile.TemporaryDirectory() as d:
@@ -209,11 +259,11 @@ def phase_entry_points(device, bed: bytes):
         proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True)
         dt = time.perf_counter() - t0
         if proc.returncode != 0:
-            raise AssertionError(f"CLI exit {proc.returncode}: {proc.stderr[-2000:]}")
+            raise AssertionError(f"{label} CLI exit {proc.returncode}: {proc.stderr[-2000:]}")
         with open(out, "rb") as f:
             if f.read() != want:
-                raise AssertionError("CLI --jax archive != host archive")
-    log(f"cli --jax: same archive bytes ({dt:.3f} s with process start)")
+                raise AssertionError(f"{label} CLI --jax archive != host archive")
+    log(f"{label} cli --jax: same archive bytes ({dt:.3f} s with process start)")
 
 
 def main() -> int:
@@ -232,36 +282,67 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; device {kind}")
 
     t0 = time.perf_counter()
-    lib = build("mtf_narrow")
-    log(f"build: {lib.name} in {time.perf_counter() - t0:.2f} s")
-    ptxas = lib.with_suffix(".log")
-    if ptxas.exists():
-        for line in ptxas.read_text().splitlines():
-            if "Used" in line or "spill" in line:
-                log(f"  ptxas: {line.strip()}")
+    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as ex:
+        libs = list(ex.map(build, KERNELS))
+    log(f"build: {', '.join(lib.name for lib in libs)} in {time.perf_counter() - t0:.2f} s")
+    for lib in libs:
+        ptxas = lib.with_suffix(".log")
+        if ptxas.exists():
+            for line in ptxas.read_text().splitlines():
+                if "Used" in line or "spill" in line:
+                    log(f"  ptxas {lib.stem}: {line.strip()}")
 
-    max_err, times = phase_kernel(device, args.seed)
+    checks = {
+        "mtf_narrow": phase_kernel(device, args.seed, "mtf_narrow"),
+        "mtf_wide": phase_kernel(device, args.seed, "mtf_wide", plain_reps=5),
+    }
+
+    def texts_of(bed):
+        return [tf.text for tf in api._parse_transform(bed)]
 
     bed2 = corpus.config2_bed(args.seed)
-    big = corpus.big_chrom_bed(args.seed + 1)
-    texts = [tf.text for tf in api._parse_transform(bed2 + big)]
-    phase_step(device, texts)
-    launches = phase_end_to_end(device, texts)
-    phase_entry_points(device, bed2)
+    bed3 = corpus.config3_bed()
+    runs = [  # (label, texts, classes)
+        ("config2", texts_of(bed2 + corpus.big_chrom_bed(args.seed + 1)), (4,)),
+        ("config3", texts_of(bed3), (5,)),
+        ("bits6", texts_of(corpus.bits6_bed()), (6,)),
+        ("wide8", texts_of(corpus.wide8_bed()), (8,)),
+    ]
+    for (label, texts, (bits,)), n_max in zip(runs, (BUCKETS[1],) + (BUCKETS[0],) * 3):
+        phase_step(device, texts, bits, n_max)
+    launches = {"mtf_narrow": 0, "mtf_wide": 0}
+    exact8 = 0
+    for label, texts, classes in runs:
+        narrow, wide, stats = phase_end_to_end(device, label, texts, classes)
+        launches["mtf_narrow"] += narrow
+        launches["mtf_wide"] += wide
+        exact8 += stats["blocks_bits8"] - stats["tie_reencodes_bits8"]
+    if exact8 == 0:
+        raise AssertionError("no bits==8 block was tie-free on the device")
+    phase_entry_points(device, "config2", bed2)
+    phase_entry_points(device, "config3", bed3)
 
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
-    k_ms, p_ms = times[BUCKETS[1]]
-    print(json.dumps({"kernels": [{
-        "name": "mtf_narrow",
-        "route": "cuda",
-        "source": "starch3_tpu_torch/csrc/mtf_narrow.cu",
-        "replaces": "starch3_tpu/ops/mtf_narrow_pallas.py:95",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": k_ms,
-        "plain_ms": p_ms,
-    }]}))
+    replaces = {
+        "mtf_narrow": "starch3_tpu/ops/mtf_narrow_pallas.py:95",
+        "mtf_wide": "starch3_tpu/ops/mtf_pallas.py:112",
+    }
+    timed_at = {"mtf_narrow": BUCKETS[1], "mtf_wide": BUCKETS[0]}
+    kernels = []
+    for name, (max_err, times) in checks.items():
+        k_ms, p_ms = times[timed_at[name]]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"starch3_tpu_torch/csrc/{name}.cu",
+            "replaces": replaces[name],
+            "launches": launches[name],
+            "max_abs_err": max_err,
+            "ms": k_ms,
+            "plain_ms": p_ms,
+        })
+    print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

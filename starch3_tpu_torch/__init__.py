@@ -7,11 +7,16 @@ archive format, decode) are ``starch3_tpu``'s own, imported as they are;
 the port owns the device ops, the pipeline's device side and the entry
 points.  Module names mirror the JAX package:
 
-  - ``ops.bwt_fast``:   one-sort BWT, batched, in torch ops
-  - ``ops.mtf_narrow``: narrow-alphabet MTF; a hand-written CUDA kernel
-                        (``csrc/mtf_narrow.cu``) on a CUDA device
-  - ``parallel.pipeline``: the bits==4 device step, dispatch, drain and
-                        driver
+  - ``ops.bwt_fast``:   one-sort BWTs of every alphabet tier, batched, in
+                        torch ops
+  - ``ops.mtf_narrow``: narrow-alphabet MTF (widths 16/32/64); a
+                        hand-written CUDA kernel (``csrc/mtf_narrow.cu``)
+                        on a CUDA device
+  - ``ops.mtf_wide``:   wide-alphabet MTF (widths 128/256); a hand-written
+                        CUDA kernel (``csrc/mtf_wide.cu``) on a CUDA device
+  - ``ops.rle2``:       zero-run coding of MTF ranks, batched, in torch ops
+  - ``parallel.pipeline``: the device steps of the bits 4, 5/6 and 8
+                        tiers, dispatch, drain and driver
   - ``api``, ``cli``:   entry points with an explicit torch ``device``
 
 The device is always explicit (``"cuda"`` by default, ``"cpu"`` for the

@@ -2,30 +2,34 @@
 step -> host bit assembly, with spare CPU cores stealing blocks.
 
 Counterpart of ``starch3_tpu/parallel/pipeline.py`` for the production
-("fast") mode of the bits==4 alphabet tier, the path three-column BED
-always takes:
+("fast") mode, every alphabet tier.  Each block is classed by its
+distinct bytes at feed time (``_bits_class``) and batched with its class:
 
-  host:    RLE1 segmentation and alphabet classing per block
-           (``_split_classify``), then one pass per block that does the
-           dense remap and packs two symbols per byte (``_dense_pack4``)
-  device:  ``step_ranks4``: nibble unpack -> one-sort BWT
-           (ops/bwt_fast.py) -> narrow MTF at width 16 (ops/mtf_narrow.py,
-           the CUDA kernel on a CUDA device) -> rows
+  bits 4 (<= 16 symbols, three-column BED): ``step_ranks4``: nibble
+           unpack -> one-sort BWT (ops/bwt_fast.py) -> narrow MTF at
+           width 16 (ops/mtf_narrow.py) -> rows
            ``[orig_ptr, ties, nibble-packed ranks]``
-  host:    native RLE2 + Huffman + bit emission per block on the tail
-           pool, and stream assembly in block order
+  bits 5/6 (17..64 symbols, BED with remainder columns):
+           ``step_ranks_mid``: word unpack -> ``bwt_sort_fast_mid`` ->
+           narrow MTF at width 32/64 -> rows
+           ``[orig_ptr, ties, 30//bits ranks per word]``
+  bits 8 (more than 64 symbols): ``step_fast``: ``bwt_sort_fast`` ->
+           wide MTF at width 256 (ops/mtf_wide.py) -> RLE2 (ops/rle2.py)
+           -> rows ``[ptr, m, ties, freq[260], two symbols per word]``
+  host:    native RLE2 (bits 4-6) + Huffman + bit emission per block on
+           the tail pool, and stream assembly in block order
 
-The host tiers are the JAX package's own and are imported, not copied:
-the block queue and its stealers, classing, the row decoder, the tail
-pool and the stream assembler.  Only the device step, dispatch and
-drain, and the driver loop are this module's.
+The MTF stages are hand-written CUDA kernels on a CUDA device.  The host
+tiers are the JAX package's own and are imported, not copied: the block
+queue and its stealers, classing, the row decoders, the tail pool and
+the stream assembler.  Only the device steps, dispatch and drain, and the
+driver loop are this module's.
 
 Blocks whose packed-prefix sort ties re-encode exactly on the host, as in
 the JAX package; ``device_stats["tie_reencodes"]`` counts them.  Not
-ported yet (ROADMAP queue A): blocks of 17+ distinct bytes (A7, A8),
-which raise ``NotImplementedError`` at feed time; rate-aware demotion,
-recovery probes and stuck-batch abandonment, so a device fault surfaces
-as an exception and not as a host re-encode.
+ported yet (ROADMAP queue A): rate-aware demotion, recovery probes and
+stuck-batch abandonment, so a device fault surfaces as an exception and
+not as a host re-encode.
 """
 
 from __future__ import annotations
@@ -44,17 +48,27 @@ from starch3_tpu.parallel.pipeline import (
     _assemble_stream,
     _BlockQueue,
     _fragment_from_ranks_row,
+    _fragment_from_row,
     _split_classify,
     _start_host_stealers,
     _tail_pool,
     scheduler_stats,
 )
-from starch3_tpu_torch.ops.bwt_fast import bwt_sort_fast3
+from starch3_tpu_torch.ops.bwt_fast import bwt_sort_fast, bwt_sort_fast3, bwt_sort_fast_mid
 from starch3_tpu_torch.ops.mtf_narrow import mtf_ranks_narrow_batch
+from starch3_tpu_torch.ops.mtf_wide import mtf_ranks_wide_batch
+from starch3_tpu_torch.ops.rle2 import rle2_from_ranks_padded
 
-# cumulative device-path events for this process (chip_smoke.py and the
-# tests read these; encode results never depend on them)
-device_stats = {"batches": 0, "blocks": 0, "tie_reencodes": 0}
+CLASSES = (4, 5, 6, 8)  # the alphabet classes of _bits_class
+
+# cumulative device-path events for this process, in total and per
+# alphabet class (chip_smoke.py and the tests read these; encode results
+# never depend on them)
+device_stats = {
+    f"{k}{c}": 0
+    for k in ("batches", "blocks", "tie_reencodes")
+    for c in ("",) + tuple(f"_bits{c}" for c in CLASSES)
+}
 _stats_lock = threading.Lock()
 
 
@@ -91,6 +105,33 @@ def check_modes(fast_bwt=True, device_rle2=False, device_huffman=False) -> None:
         raise NotImplementedError("device_huffman is not ported yet: ROADMAP A10")
 
 
+def _unpack_nibbles(packed: torch.Tensor) -> torch.Tensor:
+    """uint8[B, n_max // 2], two symbols per byte (low nibble first) ->
+    int32[B, n_max]."""
+    p = packed.to(torch.int32)
+    return torch.stack([p & 0xF, p >> 4], dim=-1).reshape(packed.shape[0], -1)
+
+
+def _mask_past_length(ranks: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
+    """Zero the garbage ranks past each row's length, so they never leak
+    into a neighbour's bits of a packed word."""
+    idx = torch.arange(ranks.shape[1], device=ranks.device, dtype=torch.int32)
+    return torch.where(idx[None, :] < lens[:, None], ranks, 0)
+
+
+def _pack_words(vals: torch.Tensor, per_word: int, bits: int) -> torch.Tensor:
+    """Pack ``per_word`` values of ``bits`` bits into each int32 word,
+    lowest bits first, zero-padding the last word.  The words must stay
+    below 2**31 (the callers' values do)."""
+    b, n = vals.shape
+    n_words = -(-n // per_word)
+    v = torch.nn.functional.pad(vals, (0, n_words * per_word - n)).reshape(b, n_words, per_word)
+    word = v[..., 0]
+    for k in range(1, per_word):
+        word = word | (v[..., k] << (bits * k))
+    return word
+
+
 def step_ranks4(seqs_packed: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
     """The bits==4 device step, counterpart of
     ``_jitted_fused_step_ranks4``.
@@ -104,18 +145,75 @@ def step_ranks4(seqs_packed: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
       eight 4-bit ranks per word, ranks past each row's length zero.
     """
     b, half = seqs_packed.shape
-    n_max = 2 * half
-    p = seqs_packed.to(torch.int32)
-    seqs = torch.stack([p & 0xF, p >> 4], dim=-1).reshape(b, n_max)
-    last, ptrs, ties = bwt_sort_fast3(seqs, lens)
-    ranks = mtf_ranks_narrow_batch(last, 16)
-    idx = torch.arange(n_max, device=ranks.device, dtype=torch.int32)
-    ranks = torch.where(idx[None, :] < lens[:, None], ranks, 0)
+    last, ptrs, ties = bwt_sort_fast3(_unpack_nibbles(seqs_packed), lens)
+    ranks = _mask_past_length(mtf_ranks_narrow_batch(last, 16), lens)
     # nibble pairs as bytes, read as little-endian words: the same words
     # as the JAX step's shift-or, without int32 shift overflow
     nib = ranks.to(torch.uint8).reshape(b, half, 2)
     packed = (nib[..., 0] | (nib[..., 1] << 4)).view(torch.int32)
     return torch.cat([ptrs[:, None], ties[:, None], packed], dim=1)
+
+
+def step_ranks_mid(words: torch.Tensor, lens: torch.Tensor, bits: int, n_max: int) -> torch.Tensor:
+    """The bits 5/6 device step, counterpart of
+    ``_jitted_fused_step_ranks_mid(n_max, bits)``.
+
+    Args:
+      words: int32[B, ceil(n_max / spw)], ``spw = 30 // bits`` dense
+        symbols per word, lowest bits first; n_max a multiple of 4096
+      lens: int32[B] true lengths (1 <= len <= n_max)
+    Returns:
+      int32[B, 2 + words.shape[1]] rows ``[orig_ptr, ties, packed
+      ranks]``, ``spw`` ranks of ``bits`` bits per word, ranks past each
+      row's length zero.
+    """
+    spw = 30 // bits
+    b, n_words = words.shape
+    if n_words != -(-n_max // spw):
+        raise ValueError(f"{n_words} words do not hold n_max={n_max} symbols at bits={bits}")
+    mask = (1 << bits) - 1
+    syms = torch.stack([(words >> (bits * k)) & mask for k in range(spw)], dim=-1)
+    syms = syms.reshape(b, n_words * spw)[:, :n_max].contiguous()
+    last, ptrs, ties = bwt_sort_fast_mid(syms, lens, bits)
+    ranks = mtf_ranks_narrow_batch(last, 32 if bits == 5 else 64)
+    packed = _pack_words(_mask_past_length(ranks, lens), spw, bits)
+    return torch.cat([ptrs[:, None], ties[:, None], packed], dim=1)
+
+
+def step_bwt_mtf_fast(seqs: torch.Tensor, lens: torch.Tensor, bits: int):
+    """One-sort BWT -> wide MTF, counterpart of
+    ``_jitted_bwt_mtf_fast(n_max, bits)``.
+
+    ``seqs`` is uint8[B, n_max] dense symbols at bits 8, or two symbols
+    per byte (uint8[B, n_max // 2]) at bits 4; n_max a multiple of 1024.
+    Returns (ptrs int32[B], ties int32[B], ranks int32[B, n_max]), the
+    ranks zero past each row's length."""
+    if bits == 4:
+        seqs = _unpack_nibbles(seqs)
+    last, ptrs, ties = bwt_sort_fast(seqs.to(torch.int32), lens, bits)
+    # bits==4 implies a dense alphabet <= 16, so width 128 always covers it
+    ranks = mtf_ranks_wide_batch(last, 128 if bits == 4 else 256)
+    return ptrs, ties, _mask_past_length(ranks, lens)
+
+
+def step_rle2_pack(ptrs, ties, ranks, lens, nsyms, bits: int) -> torch.Tensor:
+    """RLE2 + download packing, counterpart of
+    ``_jitted_rle2_pack(n_max, bits)``: rows ``[ptr, m, ties, freq[260],
+    packed symbols]``, six 5-bit symbols per word at bits 4 (every symbol
+    is <= 17 there), two 16-bit symbols per word otherwise."""
+    syms, m, freq = rle2_from_ranks_padded(ranks, lens, nsyms)
+    spw, sb = (6, 5) if bits == 4 else (2, 16)
+    packed = _pack_words(syms, spw, sb)
+    return torch.cat([ptrs[:, None], m[:, None], ties[:, None], freq, packed], dim=1)
+
+
+def step_fast(seqs: torch.Tensor, lens: torch.Tensor, nsyms: torch.Tensor, bits: int) -> torch.Tensor:
+    """The bits==8 device step (bits 4 too), counterpart of
+    ``_jitted_fused_step_fast(n_max, bits)``: ``step_bwt_mtf_fast`` then
+    ``step_rle2_pack``.  ``nsyms`` is int32[B], each row's dense
+    alphabet size."""
+    ptrs, ties, ranks = step_bwt_mtf_fast(seqs, lens, bits)
+    return step_rle2_pack(ptrs, ties, ranks, lens, nsyms, bits)
 
 
 def _dense_pack4(arr: np.ndarray, out_row: np.ndarray):
@@ -135,12 +233,82 @@ def _dense_pack4(arr: np.ndarray, out_row: np.ndarray):
     return int(used.sum()), used
 
 
-def _wide_class_error(bits: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"a block of alphabet class bits=={bits} (17 or more distinct bytes) "
-        "has no device path in the port yet: ROADMAP A7 (17..64 symbols) "
-        "and A8 (more than 64)"
-    )
+def _dense_pack_words(arr: np.ndarray, out_words: np.ndarray, bits: int):
+    """Dense-remap one block and pack ``30 // bits`` symbols per uint32
+    word into ``out_words``: the native pass, or the same in NumPy
+    without the native lib.  Returns (distinct bytes, used bool[256])."""
+    from starch3_tpu.runtime import dense_pack_words_native
+
+    res = dense_pack_words_native(arr, bits, out_words)
+    if res is not None:
+        return res
+    spw = 30 // bits
+    used = np.bincount(arr, minlength=256) > 0
+    syms = (np.cumsum(used) - 1).astype(np.uint32)[arr]
+    syms.resize(-(-syms.size // spw) * spw)
+    sp = syms.reshape(-1, spw)
+    w = sp[:, 0].copy()
+    for k in range(1, spw):
+        w |= sp[:, k] << (bits * k)
+    out_words[: w.size] = w
+    return int(used.sum()), used
+
+
+def _dense_remap(arr: np.ndarray, out_row: np.ndarray):
+    """Dense-remap one block into ``out_row`` (uint8, one symbol per
+    byte).  Returns (distinct bytes, used bool[256])."""
+    used = np.bincount(arr, minlength=256) > 0
+    out_row[: arr.size] = (np.cumsum(used) - 1).astype(np.uint8)[arr]
+    return int(used.sum()), used
+
+
+def pack_batch(block_datas, n_max: int, bits: int, b_pad: int | None = None, pin: bool = False):
+    """Dense-remap and pack blocks into the upload format of the ``bits``
+    tier's step, padded to ``b_pad`` rows (length 1, one symbol):
+    nibble pairs (uint8[B, n_max // 2]) at bits 4, ``30 // bits`` symbols
+    per word (int32[B, ceil(n_max / spw)]) at bits 5/6, one symbol per byte
+    (uint8[B, n_max]) at bits 8.  ``pin`` pins the tensor for a
+    non-blocking upload.  Returns (tensor, lens int32[B], nsyms int32[B],
+    the blocks' ``used`` bool[256] tables)."""
+    if bits not in CLASSES:
+        raise ValueError(f"unknown alphabet class bits=={bits}")
+    b_pad = max(len(block_datas), b_pad or 0)
+    lens = np.ones(b_pad, dtype=np.int32)
+    nsyms = np.ones(b_pad, dtype=np.int32)
+    if bits == 4:
+        host = torch.zeros((b_pad, n_max // 2), dtype=torch.uint8, pin_memory=pin)
+        rows_np = host.numpy()
+        pack = _dense_pack4
+    elif bits in (5, 6):
+        host = torch.zeros((b_pad, -(-n_max // (30 // bits))), dtype=torch.int32, pin_memory=pin)
+        rows_np = host.numpy().view(np.uint32)
+        pack = functools.partial(_dense_pack_words, bits=bits)
+    else:
+        host = torch.zeros((b_pad, n_max), dtype=torch.uint8, pin_memory=pin)
+        rows_np = host.numpy()
+        pack = _dense_remap
+    useds = []
+    for i, data in enumerate(block_datas):
+        arr = np.frombuffer(data, dtype=np.uint8)
+        if arr.size > n_max:
+            raise ValueError(f"block {i} exceeds n_max ({arr.size} > {n_max})")
+        lens[i] = arr.size
+        nsyms[i], used = pack(arr, rows_np[i])
+        if bits != 8 and nsyms[i] > 1 << bits:  # the queue classed this block
+            raise RuntimeError(f"block {i} has {nsyms[i]} distinct bytes in the bits=={bits} tier")
+        useds.append(used)
+    return host, lens, nsyms, useds
+
+
+def step_for_class(seqs, lens, nsyms, bits: int, n_max: int) -> torch.Tensor:
+    """The device step of alphabet class ``bits`` on a ``pack_batch``
+    batch (already on the device): ``step_ranks4``, ``step_ranks_mid`` or
+    ``step_fast``."""
+    if bits == 4:
+        return step_ranks4(seqs, lens)
+    if bits in (5, 6):
+        return step_ranks_mid(seqs, lens, bits, n_max)
+    return step_fast(seqs, lens, nsyms, 8)
 
 
 def _dispatch_chunk(block_datas, nm, device: torch.device, pad_to=None):
@@ -152,38 +320,26 @@ def _dispatch_chunk(block_datas, nm, device: torch.device, pad_to=None):
     is filling and ``event`` marks its end; on the CPU ``rows`` is ready
     and ``event`` is None.  Each batch gets its own pinned buffer: the
     drain hands row views to the tail pool, which reads them later."""
-    n_max, bits_class = nm
-    if bits_class != 4:
-        raise _wide_class_error(bits_class)
-    b = len(block_datas)
-    b_pad = max(b, pad_to or 0)
+    n_max, bits = nm
     cuda = device.type == "cuda"
-    packed = torch.zeros((b_pad, n_max // 2), dtype=torch.uint8, pin_memory=cuda)
-    packed_np = packed.numpy()
-    lens = np.ones(b_pad, dtype=np.int32)
-    useds = []
-    for i, data in enumerate(block_datas):
-        arr = np.frombuffer(data, dtype=np.uint8)
-        if arr.size > n_max:
-            raise ValueError(f"block {i} exceeds n_max ({arr.size} > {n_max})")
-        lens[i] = arr.size
-        n_syms, used = _dense_pack4(arr, packed_np[i])
-        if n_syms > 16:  # the queue classed this block bits==4
-            raise RuntimeError(f"block {i} has {n_syms} distinct bytes in the bits==4 tier")
-        useds.append(used)
-    rows = step_ranks4(
-        packed.to(device, non_blocking=True),
+    host, lens, nsyms, useds = pack_batch(block_datas, n_max, bits, pad_to, pin=cuda)
+    rows = step_for_class(
+        host.to(device, non_blocking=True),
         torch.from_numpy(lens).to(device, non_blocking=True),
+        torch.from_numpy(nsyms).to(device, non_blocking=True),
+        bits,
+        n_max,
     )
-    _count(batches=1, blocks=b)
-    aux = {"useds": useds, "lens": lens}
+    b = len(block_datas)
+    _count(**{"batches": 1, "blocks": b, f"batches_bits{bits}": 1, f"blocks_bits{bits}": b})
+    aux = {"useds": useds, "lens": lens, "bits": bits}
     if not cuda:
         return (rows, None), aux
-    host = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=True)
-    host.copy_(rows, non_blocking=True)
+    out = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=True)
+    out.copy_(rows, non_blocking=True)
     event = torch.cuda.Event()
     event.record(torch.cuda.current_stream(device))
-    return (host, event), aux
+    return (out, event), aux
 
 
 def _batch_ready(handle) -> bool:
@@ -199,19 +355,23 @@ def _drain_into(results, per_stream_blocks, item, on_done=None):
     if event is not None:
         event.synchronize()
     out = rows.numpy()
+    bits = aux["bits"]
+    tie_col = 2 if bits == 8 else 1  # rows [ptr, m, ties, ...] at bits 8
     ties = 0
     for i, ((si, bi), used) in enumerate(zip(chunk, aux["useds"])):
         blk = per_stream_blocks[si][bi]
-        if int(out[i, 1]) == 0:
-            results[(si, bi)] = _tail_pool().submit(
-                _fragment_from_ranks_row, out[i], used, blk.crc, int(aux["lens"][i]), 4
-            )
-        else:
+        if int(out[i, tie_col]) != 0:
             from starch3_tpu.codec.encoder import encode_block_fragment
 
             results[(si, bi)] = encode_block_fragment(blk)
             ties += 1
-    _count(tie_reencodes=ties)
+        elif bits == 8:
+            results[(si, bi)] = _tail_pool().submit(_fragment_from_row, out[i], 8, used, blk.crc)
+        else:
+            results[(si, bi)] = _tail_pool().submit(
+                _fragment_from_ranks_row, out[i], used, blk.crc, int(aux["lens"][i]), bits
+            )
+    _count(**{"tie_reencodes": ties, f"tie_reencodes_bits{bits}": ties})
     if on_done is not None:
         on_done()
 
@@ -428,11 +588,7 @@ def encode_streams_iter(
                         futs.append(ex.submit(_split_classify, text, level))
                     if not futs:
                         break
-                    blocks, classes = futs.popleft().result()
-                    wide = [c for c in classes if c != 4]
-                    if wide:
-                        raise _wide_class_error(wide[0])
-                    q.feed_blocks(blocks, classes)
+                    q.feed_blocks(*futs.popleft().result())
                     if errors or q.cancelled:
                         break
         except BaseException as e:  # surfaced by the generator below

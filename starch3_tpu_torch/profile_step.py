@@ -2,18 +2,21 @@
 
 From the root of the repository, on a machine with one CUDA card:
 
-    python -m starch3_tpu_torch.profile_step [--seed N] [--reps N]
+    python -m starch3_tpu_torch.profile_step [--corpus NAME] [--seed N] [--reps N]
 
-On BASELINE config 2 (``corpus.config2_bed``) it prints:
+On one corpus of ``corpus.py``, each the main input of one alphabet tier
+(``config2``: bits 4, the default; ``config3``: bits 5; ``bits6``;
+``wide8``: bits 8), it prints:
 
-  1. ``step_ranks4`` device time for one production batch (3 blocks,
-     bucket 458,752): the median of CUDA-event timings;
+  1. the tier's device step time for one production batch (3 blocks of
+     the tier, bucket 458,752 at bits 4 and 901,120 otherwise): the
+     median of CUDA-event timings;
   2. the device time of that step by operator, over ``--reps`` steps
      (``torch.profiler``), largest first;
-  3. host time per block of the dense pack and of the native tail (RLE2 +
-     Huffman + bit emission), on one thread;
-  4. a device-only encode of config 2 under the profiler: wall time, device
-     busy time and the device's idle share;
+  3. host time per block of the dense pack and of the native tail (RLE2
+     at bits 4-6, Huffman, bit emission), on one thread;
+  4. a device-only encode of the corpus under the profiler: wall time,
+     device busy time and the device's idle share;
   5. where each host thread spends that encode: every thread's innermost
      frame and its caller, sampled each millisecond, by thread and line.
 """
@@ -28,7 +31,6 @@ import sys
 import threading
 import time
 
-import numpy as np
 import torch
 
 from starch3_tpu_torch import api, corpus
@@ -79,8 +81,18 @@ def _sample_threads(fn, period_s: float = 0.001):
     return counts
 
 
+# corpus name -> (generator taking a seed, alphabet class, bucket)
+CORPORA = {
+    "config2": (corpus.config2_bed, 4, 458_752),
+    "config3": (corpus.config3_bed, 5, 901_120),
+    "bits6": (corpus.bits6_bed, 6, 901_120),
+    "wide8": (corpus.wide8_bed, 8, 901_120),
+}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--corpus", choices=sorted(CORPORA), default="config2")
     ap.add_argument("--seed", type=int, default=5)
     ap.add_argument("--reps", type=int, default=20)
     args = ap.parse_args()
@@ -89,20 +101,22 @@ def main() -> int:
     dev = torch.device("cuda")
     print(f"device {torch.cuda.get_device_name(0)}; torch {torch.__version__}")
 
-    texts = [tf.text for tf in api._parse_transform(corpus.config2_bed(args.seed))]
-    blocks = [b for t in texts[:3] for b in pipeline._split_classify(t, 9)[0]][:3]
-    n_max = 458_752
-    packed = np.zeros((3, n_max // 2), np.uint8)
-    lens = np.array([len(b.data) for b in blocks], np.int32)
+    make, bits, n_max = CORPORA[args.corpus]
+    texts = [tf.text for tf in api._parse_transform(make(seed=args.seed))]
+    blocks = []
+    for t in texts:
+        bl, cl = pipeline._split_classify(t, 9)
+        blocks += [b for b, c in zip(bl, cl) if c == bits and len(b.data) <= n_max]
+        if len(blocks) >= 3:
+            break
+    blocks = blocks[:3]
     t0 = time.perf_counter()
-    useds = [pipeline._dense_pack4(np.frombuffer(b.data, np.uint8), packed[i])[1]
-             for i, b in enumerate(blocks)]
-    pack_ms = (time.perf_counter() - t0) * 1e3 / 3
-    seqs_d = torch.from_numpy(packed).to(dev)
-    lens_d = torch.from_numpy(lens).to(dev)
+    host, lens, nsyms, useds = pipeline.pack_batch([b.data for b in blocks], n_max, bits)
+    pack_ms = (time.perf_counter() - t0) * 1e3 / len(blocks)
+    seqs_d, lens_d, nsyms_d = (torch.as_tensor(x).to(dev) for x in (host, lens, nsyms))
 
     def step():
-        return pipeline.step_ranks4(seqs_d, lens_d)
+        return pipeline.step_for_class(seqs_d, lens_d, nsyms_d, bits, n_max)
 
     step()
     torch.cuda.synchronize()
@@ -114,7 +128,7 @@ def main() -> int:
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
-    print(f"step_ranks4 (3, {n_max}): median {statistics.median(times)} ms device, "
+    print(f"{args.corpus} bits {bits} step (3, {n_max}): median {statistics.median(times)} ms device, "
           f"min {min(times)} ms, over {args.reps} steps; block lengths {lens.tolist()}")
 
     rows = _profile(lambda: [step() for _ in range(args.reps)])
@@ -126,8 +140,11 @@ def main() -> int:
     out = step().cpu().numpy()
     t0 = time.perf_counter()
     for i, blk in enumerate(blocks):
-        pipeline._fragment_from_ranks_row(out[i], useds[i], blk.crc, int(lens[i]), 4)
-    tail_ms = (time.perf_counter() - t0) * 1e3 / 3
+        if bits == 8:
+            pipeline._fragment_from_row(out[i], 8, useds[i], blk.crc)
+        else:
+            pipeline._fragment_from_ranks_row(out[i], useds[i], blk.crc, int(lens[i]), bits)
+    tail_ms = (time.perf_counter() - t0) * 1e3 / len(blocks)
     print(f"host per block (one thread): dense pack {pack_ms} ms, tail {tail_ms} ms")
 
     total_bytes = sum(map(len, texts))
@@ -141,7 +158,7 @@ def main() -> int:
 
     rows = _profile(encode)
     busy = sum(r[1] for r in rows) / 1e6
-    print(f"device-only encode of config 2: {total_bytes} bytes in {wall[0]} s "
+    print(f"device-only encode of {args.corpus}: {total_bytes} bytes in {wall[0]} s "
           f"({total_bytes / wall[0] / 1e6} MB/s) under the profiler; device busy "
           f"{busy} s, idle share {1 - busy / wall[0]}")
     for key, us, count in rows[:8]:

@@ -65,6 +65,19 @@ def test_stream_and_file_equal_host(bed, host_archive, tmp_path):
     assert out.getvalue() == host_archive
 
 
+def test_config3_shaped_archive_equals_host():
+    """BED6 with remainder columns (config 3's shape: bits 5 blocks) and
+    a chromosome of free-text names (bits 8) through the device path."""
+    from starch3_tpu_torch import corpus
+
+    bed = corpus.config3_bed(n_per=400)
+    bed += corpus.wide8_bed(seed=4, chroms=("chrZ",), n_per=300)
+    want = jax_api.compress_bed_bytes(bed, EncodeConfig())
+    got = api.compress_bed_bytes(bed, EncodeConfig(use_jax=True), device="cpu")
+    assert got == want
+    assert api.decompress_starch_bytes(got) == bed
+
+
 def test_no_final_newline_and_duplicate_chromosome(rng):
     from starch3_tpu.errors import BedParseError
 

@@ -112,3 +112,131 @@ def test_mixed_length_batch(rng):
     last, ptr, ties = _check_against_jax(rows, lens)
     for i, n in enumerate(lens):
         _check_oracle(rows[i, :n], last[i], ptr[i], ties[i])
+
+
+# --- bwt_sort_fast (bits 4/8) and bwt_sort_fast_mid (bits 5/6) ---------------
+
+
+def _check_tier(port_fn, jax_fn, rows: np.ndarray, lens: list[int], whole: bool):
+    """The port's batch against JAX row by row.  ``orig_ptr`` and ``ties``
+    equal on every row.  ``whole``: every output array equals JAX on every
+    row and the whole ``n_max`` (all operands are sort keys in JAX);
+    otherwise ``last`` equals on the valid prefix where ``ties == 0``
+    (the JAX sort's payload order among tied rotations is unstable)."""
+    last, ptr, ties = (
+        x.numpy()
+        for x in port_fn(
+            torch.from_numpy(rows.astype(np.int32)), torch.tensor(lens, dtype=torch.int32)
+        )
+    )
+    for i, n in enumerate(lens):
+        jl, jp, jt = (np.asarray(x) for x in jax_fn(jnp.asarray(rows[i]), jnp.int32(n)))
+        assert (int(ptr[i]), int(ties[i])) == (int(jp), int(jt)), (i, n)
+        if whole:
+            assert last[i].tolist() == jl.tolist(), (i, n)
+        elif int(jt) == 0:
+            assert last[i, :n].tolist() == jl[:n].tolist(), (i, n)
+    return last, ptr, ties
+
+
+def _fast(bits, n_max):
+    from starch3_tpu.ops.bwt_fast import bwt_sort_fast as jax_fn
+    from starch3_tpu_torch.ops.bwt_fast import bwt_sort_fast as port_fn
+
+    return (
+        lambda s, n: port_fn(s, n, bits),
+        lambda s, n: jax_fn(s, n, n_max, bits),
+    )
+
+
+def _mid(bits, n_max):
+    from starch3_tpu.ops.bwt_fast import bwt_sort_fast_mid as jax_fn
+    from starch3_tpu_torch.ops.bwt_fast import bwt_sort_fast_mid as port_fn
+
+    return (
+        lambda s, n: port_fn(s, n, bits),
+        lambda s, n: jax_fn(s, n, n_max, bits),
+    )
+
+
+@pytest.mark.parametrize("bits,sigma", [(4, 16), (8, 90), (8, 256)])
+def test_fast_matches_jax_and_oracle(rng, bits, sigma):
+    """Random rows of mixed lengths (short ones take the ``k % n`` key
+    branch), plus a periodic row whose sort ties."""
+    n_max = 4096
+    lens = [4096, 1, 7, 17, 700, 3000]
+    rows = rng.integers(0, sigma, (len(lens), n_max)).astype(np.int32)
+    rows[5, :3000] = np.tile(rng.integers(0, sigma, 9), 334)[:3000]
+    last, ptr, ties = _check_tier(*_fast(bits, n_max), rows, lens, whole=False)
+    assert ties[5] > 0 and not ties[:5].any()
+    for i, n in enumerate(lens[:5]):
+        _check_oracle(rows[i, :n], last[i], ptr[i], ties[i])
+
+
+def test_fast_bits8_real_text_tie_free_and_exact(rng):
+    """Transformed BED6 with free-text names, more than 64 distinct bytes:
+    the bits==8 tier's 16-symbol context is tie-free there."""
+    from starch3_tpu.api import _parse_transform
+    from starch3_tpu.codec.mtf import symbol_map
+    from starch3_tpu_torch.corpus import wide8_bed
+
+    bed = wide8_bed(seed=3, chroms=("chr1",), n_per=3000)
+    # the corpus asserts the bits==8 class of every block
+    blk = np.frombuffer(_parse_transform(bed)[0].text[:6000], dtype=np.uint8)
+    _, u2s, n_in = symbol_map(blk)
+    assert n_in > 64
+    seq = u2s[blk].astype(np.int32)
+    pad = np.zeros((1, 8192), np.int32)
+    pad[0, : seq.size] = seq
+    last, ptr, ties = _check_tier(*_fast(8, 8192), pad, [seq.size], whole=False)
+    assert int(ties[0]) == 0
+    l1, p1 = bwt_encode(blk)
+    assert last[0, : seq.size].tolist() == u2s[l1].tolist()
+    assert int(ptr[0]) == p1
+
+
+@pytest.mark.parametrize("bits,sigma", [(5, 17), (5, 32), (6, 33), (6, 64)])
+def test_mid_matches_jax_and_oracle(rng, bits, sigma):
+    """``TestBwtFastMid``'s random and periodic cases in one batch, with
+    mixed lengths and a poisoned pad: equal to JAX on every row."""
+    n_max = 4096
+    lens = [3000, 4096, 1, 23, 25, 540]
+    rows = rng.integers(0, sigma, (len(lens), n_max)).astype(np.int32)
+    rows[0, 3000:] = sigma - 1
+    rows[5, :540] = np.tile(rng.integers(0, 1 << bits, 9), 60)
+    last, ptr, ties = _check_tier(*_mid(bits, n_max), rows, lens, whole=True)
+    assert ties[5] > 0 and ties[0] == 0 and ties[1] == 0
+    for i, n in enumerate(lens[:5]):
+        _check_oracle(rows[i, :n], last[i], ptr[i], ties[i])
+
+
+def test_mid_config3_style_text_tie_free_and_exact():
+    """Config-3 transformed BED (peak ids, scores, strands; about 21
+    symbols): the 23-symbol context of bits 5 is tie-free and exact."""
+    from starch3_tpu.api import _parse_transform
+    from starch3_tpu.codec.mtf import symbol_map
+    from starch3_tpu_torch.corpus import config3_bed
+
+    text = _parse_transform(config3_bed(n_per=500))[0].text
+    blk = np.frombuffer(text, dtype=np.uint8)
+    _, u2s, n_in = symbol_map(blk)
+    assert 16 < n_in <= 32
+    seq = u2s[blk].astype(np.int32)
+    n_max = 1 << (seq.size - 1).bit_length()
+    pad = np.zeros((1, n_max), np.int32)
+    pad[0, : seq.size] = seq
+    last, ptr, ties = _check_tier(*_mid(5, n_max), pad, [seq.size], whole=True)
+    assert int(ties[0]) == 0
+    l1, p1 = bwt_encode(blk)
+    assert last[0, : seq.size].tolist() == u2s[l1].tolist()
+    assert int(ptr[0]) == p1
+
+
+def test_bad_bits_raise():
+    from starch3_tpu_torch.ops.bwt_fast import bwt_sort_fast, bwt_sort_fast_mid
+
+    seqs, lens = torch.zeros((1, 64), dtype=torch.int32), torch.tensor([64])
+    with pytest.raises(ValueError):
+        bwt_sort_fast(seqs, lens, 5)
+    with pytest.raises(ValueError):
+        bwt_sort_fast_mid(seqs, lens, 4)

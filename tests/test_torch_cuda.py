@@ -1,4 +1,4 @@
-"""On-card tests of the port's CUDA kernel (marker ``cuda``).
+"""On-card tests of the port's CUDA kernels (marker ``cuda``).
 
 They skip without a CUDA card.  On a machine with one, from the root of
 the repository (this file imports no JAX, so it runs without the JAX
@@ -6,17 +6,24 @@ package's test configuration):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
-The kernel must equal its plain PyTorch version exactly, count one launch
-per call, and refuse what it does not take."""
+Each kernel must equal its plain PyTorch version exactly, count one
+launch per call, and refuse what it does not take; the device steps on
+the card must equal the same steps on the CPU."""
 
 import pytest
 import torch
 
-from starch3_tpu_torch.ops import mtf_narrow
+from starch3_tpu_torch.ops import mtf_narrow, mtf_wide
 from starch3_tpu_torch.ops.mtf_narrow import (
     mtf_ranks_narrow_batch,
     mtf_ranks_narrow_reference,
 )
+from starch3_tpu_torch.ops.mtf_wide import (
+    mtf_ranks_wide,
+    mtf_ranks_wide_batch,
+    mtf_ranks_wide_reference,
+)
+from starch3_tpu_torch.parallel import pipeline
 
 pytestmark = pytest.mark.cuda
 
@@ -48,3 +55,54 @@ def test_kernel_rejects_bad_input(cuda):
         mtf_ranks_narrow_batch(torch.zeros((1, 1000), dtype=torch.int32, device=cuda))
     with pytest.raises(ValueError, match="contiguous"):
         mtf_ranks_narrow_batch(torch.zeros((8192, 2), dtype=torch.int32, device=cuda).t())
+
+
+@pytest.mark.parametrize("width", [128, 256])
+@pytest.mark.parametrize("shape", [(1, 1024), (3, 16_384), (2, 131_072)])
+def test_wide_kernel_equals_plain(cuda, width, shape):
+    gen = torch.Generator().manual_seed(width * 11 + shape[1])
+    seqs = torch.randint(0, width, shape, generator=gen, dtype=torch.int32)
+    seqs[0, 1] = width - 1
+    seqs[-1, -5:] = width + 1  # outside the alphabet: ranks `width`
+    seqs[0, -3:] = -2  # negative: outside too
+    seqs = seqs.to(cuda)
+    before = mtf_wide.launches
+    got = mtf_ranks_wide_batch(seqs, width)
+    torch.cuda.synchronize()
+    assert mtf_wide.launches == before + 1
+    assert torch.equal(got, mtf_ranks_wide_reference(seqs, width))
+
+
+def test_wide_kernel_single_row(cuda):
+    seq = torch.randint(0, 256, (8192,), generator=torch.Generator().manual_seed(1),
+                        dtype=torch.int32).to(cuda)
+    got = mtf_ranks_wide(seq)
+    assert torch.equal(got, mtf_ranks_wide_reference(seq[None, :], 256)[0])
+
+
+def test_wide_kernel_rejects_bad_input(cuda):
+    with pytest.raises(ValueError, match="multiple of 1024"):
+        mtf_ranks_wide_batch(torch.zeros((1, 1000), dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        mtf_ranks_wide_batch(torch.zeros((2048, 2), dtype=torch.int32, device=cuda).t())
+
+
+@pytest.mark.parametrize("bits", [5, 6, 8])
+def test_tier_steps_equal_cpu(cuda, bits):
+    """The mid and bits-8 device steps on the card against the CPU, on a
+    random batch with one short row (rows equal where the sort is
+    tie-free, which random rows are)."""
+    gen = torch.Generator().manual_seed(bits)
+    n_max = 16_384
+    syms = torch.randint(0, 1 << bits if bits < 8 else 200, (3, n_max), generator=gen)
+    lens = torch.tensor([n_max, 9_000, 1], dtype=torch.int32)
+    if bits == 8:
+        seqs = syms.to(torch.uint8)
+        nsyms = torch.tensor([200, 200, 1], dtype=torch.int32)
+        want = pipeline.step_fast(seqs, lens, nsyms, 8)
+        got = pipeline.step_fast(seqs.to(cuda), lens.to(cuda), nsyms.to(cuda), 8)
+    else:
+        words = pipeline._pack_words(syms, 30 // bits, bits).to(torch.int32)
+        want = pipeline.step_ranks_mid(words, lens, bits, n_max)
+        got = pipeline.step_ranks_mid(words.to(cuda), lens.to(cuda), bits, n_max)
+    assert torch.equal(got.cpu(), want)

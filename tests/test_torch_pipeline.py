@@ -86,11 +86,69 @@ def test_feeder_error_propagates(rng):
 
 
 def test_wide_alphabet_block_raises(rng):
-    """17+ distinct bytes have no device tier in the port yet: the encode
-    raises, it does not host-encode the block silently."""
-    wide = bytes(rng.integers(0, 40, 5_000, dtype=np.uint8))
-    with pytest.raises(NotImplementedError, match="A7"):
-        pipeline.encode_streams([wide], device="cpu", host_assist=False)
+    """Blocks of 17+ distinct bytes no longer raise: a 40-symbol and a
+    60-symbol block (bits 6), a 24-symbol block (bits 5) and a 200-symbol
+    block (bits 8) each encode on the device path, equal to libbz2 -9,
+    counted per alphabet class."""
+    texts = [
+        bytes(rng.integers(0, 40, 5_000, dtype=np.uint8)),
+        bytes(rng.integers(0, 24, 6_000, dtype=np.uint8)),
+        bytes(rng.integers(0, 60, 7_000, dtype=np.uint8)),
+        bytes(rng.integers(0, 200, 9_000, dtype=np.uint8)),
+    ]
+    _reset_stats()
+    got = pipeline.encode_streams(texts, device="cpu", host_assist=False)
+    assert [g.data for g in got] == [bz2.compress(t, 9) for t in texts]
+    stats = pipeline.device_stats
+    assert (stats["blocks_bits5"], stats["blocks_bits6"], stats["blocks_bits8"]) == (1, 2, 1)
+    assert stats["batches"] == stats["batches_bits5"] + stats["batches_bits6"] + stats["batches_bits8"] == 3
+    assert stats["blocks"] == 4 and stats["tie_reencodes"] == 0
+
+
+def test_remainder_corpora_match_bz2_and_jax():
+    """Small cuts of the three remainder-column corpora, device only and
+    with host stealers: the bytes of libbz2 -9 and of the JAX pipeline."""
+    from starch3_tpu.api import _parse_transform
+    from starch3_tpu_torch import corpus
+
+    beds = [
+        corpus.config3_bed(n_per=300),
+        corpus.bits6_bed(n_per=200),
+        corpus.wide8_bed(seed=2, chroms=("chrA", "chrB"), n_per=400),
+    ]
+    texts = [tf.text for bed in beds for tf in _parse_transform(bed)[:2]]
+    want = [bz2.compress(t, 9) for t in texts]
+    _reset_stats()
+    got = pipeline.encode_streams(texts, device="cpu", host_assist=False)
+    assert [g.data for g in got] == want
+    assert all(pipeline.device_stats[f"blocks_bits{c}"] == 2 for c in (5, 6, 8))
+    got = pipeline.encode_streams(texts, device="cpu", host_assist=True)
+    assert [g.data for g in got] == want
+    jax_got = jax_pipeline.encode_streams(texts, host_assist=False)
+    assert [g.data for g in jax_got] == want
+
+
+def test_periodic_wide_block_reencodes_on_host():
+    """A periodic bits==8 block ties (the tie flag is column 2 of its
+    rows): the drain re-encodes it exactly on the host and counts it."""
+    text = bytes(range(1, 90)) * 200
+    _reset_stats()
+    got = pipeline.encode_streams([text], device="cpu", host_assist=False)[0]
+    assert pipeline.device_stats["tie_reencodes_bits8"] == 1
+    assert got.data == bz2_compress(text, 9)
+
+
+def test_wide8_corpus_is_multi_block():
+    """At its default size each stream of the bits==8 corpus is two
+    blocks, the first in the 901,120 bucket."""
+    from starch3_tpu.api import _parse_transform
+    from starch3_tpu.parallel.pipeline import _bucket_for, _split_classify
+    from starch3_tpu_torch import corpus
+
+    for tf in _parse_transform(corpus.wide8_bed()):
+        blocks, classes = _split_classify(tf.text, 9)
+        assert classes == [8, 8]
+        assert _bucket_for(len(blocks[0].data)) == 901_120
 
 
 @pytest.mark.parametrize(

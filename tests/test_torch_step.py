@@ -1,16 +1,35 @@
-"""The port's bits==4 device step (starch3_tpu_torch/parallel/pipeline
-.step_ranks4) against the JAX step it mirrors,
-``_jitted_fused_step_ranks4(n_max, False)``: the step that
-__graft_entry__.entry() compiles.  Rows ``[orig_ptr, ties, packed
-ranks]``: columns 0-1 equal on every row, the whole row where ties == 0.
-Tolerance: zero."""
+"""The port's device steps (starch3_tpu_torch/parallel/pipeline.py)
+against the JAX steps they mirror, on real transformed blocks of each
+alphabet tier plus pad rows.  Tolerance: zero.
+
+- ``step_ranks4`` vs ``_jitted_fused_step_ranks4(n_max, False)`` (the
+  step that __graft_entry__.entry() compiles), rows ``[orig_ptr, ties,
+  packed ranks]``: columns 0-1 equal on every row, the whole row where
+  ties == 0.
+- ``step_ranks_mid`` vs ``_jitted_fused_step_ranks_mid(n_max, bits,
+  False)``: every row equal (the JAX sort takes every operand as a key).
+- ``step_fast`` vs ``_jitted_fused_step_fast(n_max, bits, False)``, rows
+  ``[ptr, m, ties, freq[260], packed]``: the whole row where ties == 0,
+  columns 0 and 2 elsewhere (the JAX sort's payload order among tied
+  rotations is unstable)."""
 
 import numpy as np
 import pytest
 import torch
 
-from starch3_tpu.parallel.pipeline import _jitted_fused_step_ranks4
-from starch3_tpu_torch.parallel.pipeline import _dense_pack4, step_ranks4
+from starch3_tpu.parallel.pipeline import (
+    _jitted_fused_step_fast,
+    _jitted_fused_step_ranks4,
+    _jitted_fused_step_ranks_mid,
+)
+from starch3_tpu_torch import corpus
+from starch3_tpu_torch.parallel.pipeline import (
+    _dense_pack4,
+    pack_batch,
+    step_fast,
+    step_ranks4,
+    step_ranks_mid,
+)
 
 from tests.conftest import make_bed_text
 
@@ -55,3 +74,78 @@ def test_ranks_past_length_are_zero(rng):
     by = rows[1, 2:].view(np.uint8)
     nibbles = np.stack([by & 0xF, by >> 4], axis=1).reshape(-1)
     assert not nibbles[lens[1]:].any()
+
+
+def _tier_text(bits: int, n_max: int) -> bytes:
+    """Real transformed BED of the ``bits`` tier, two blocks' worth."""
+    from starch3_tpu.api import _parse_transform
+
+    bed = {
+        5: lambda: corpus.config3_bed(n_per=400),
+        6: lambda: corpus.bits6_bed(n_per=300),
+        8: lambda: corpus.wide8_bed(seed=5, chroms=("chr1",), n_per=600),
+    }[bits]()
+    text = _parse_transform(bed)[0].text
+    assert len(text) > 2 * n_max - 500
+    return text
+
+
+def _tier_rows(bits: int, n_max: int):
+    """Four rows packed as the dispatch packs them (``pack_batch``): a
+    full-length real block, a short real block, a periodic block whose
+    sort ties, and a pad row (length 1, symbol 0, one symbol in use)."""
+    text = _tier_text(bits, n_max)
+    periodic = (text[:9] * n_max)[: n_max // 3]
+    datas = [text[:n_max], text[n_max : 2 * n_max - 500], periodic]
+    host, lens, nsyms, _ = pack_batch(datas, n_max, bits, b_pad=4)
+    assert (nsyms[:2] > {5: 16, 6: 32, 8: 64}[bits]).all()
+    return host.numpy(), lens, nsyms
+
+
+@pytest.mark.parametrize("bits", [5, 6])
+def test_mid_rows_match_jax_step(bits):
+    n_max = 4096
+    words, lens, _ = _tier_rows(bits, n_max)
+    want = np.asarray(_jitted_fused_step_ranks_mid(n_max, bits, False)(words, lens))
+    got = step_ranks_mid(torch.from_numpy(words), torch.from_numpy(lens), bits, n_max).numpy()
+    assert got.shape == want.shape == (4, 2 + words.shape[1])
+    assert want[2, 1] > 0 and not want[[0, 1, 3], 1].any()
+    assert got.tolist() == want.tolist()
+
+
+@pytest.mark.parametrize("n_max", [4096, 8192])
+def test_fast_bits8_rows_match_jax_step(n_max):
+    seqs, lens, nsyms = _tier_rows(8, n_max)
+    want = np.asarray(_jitted_fused_step_fast(n_max, 8, False)(seqs, lens, nsyms))
+    got = step_fast(
+        torch.from_numpy(seqs), torch.from_numpy(lens), torch.from_numpy(nsyms), 8
+    ).numpy()
+    assert got.shape == want.shape == (4, 263 + (n_max + 2 + 1) // 2)
+    assert want[2, 2] > 0 and not want[[0, 1, 3], 2].any()
+    for i in range(4):
+        if want[i, 2] == 0:
+            assert got[i].tolist() == want[i].tolist(), i
+        else:
+            assert got[i, [0, 2]].tolist() == want[i, [0, 2]].tolist(), i
+
+
+def test_fast_bits4_rows_match_jax_step(rng):
+    """``step_fast`` at bits 4 (the step ``device_huffman`` will build on):
+    nibble-packed input, wide MTF at width 128, 5-bit symbol words."""
+    n_max = 4096
+    packed, lens = _batch(rng, n_max)
+    nib = np.stack([packed & 0xF, packed >> 4], axis=2).reshape(3, n_max)
+    nsyms = np.array([np.unique(nib[i, : lens[i]]).size for i in range(3)], np.int32)
+    want = np.asarray(_jitted_fused_step_fast(n_max, 4, False)(packed, lens, nsyms))
+    got = step_fast(
+        torch.from_numpy(packed), torch.from_numpy(lens), torch.from_numpy(nsyms), 4
+    ).numpy()
+    assert got.shape == want.shape
+    for i in range(3):
+        cols = slice(None) if want[i, 2] == 0 else [0, 2]
+        assert got[i, cols].tolist() == want[i, cols].tolist(), i
+
+
+def test_mid_rejects_a_wrong_word_count():
+    with pytest.raises(ValueError, match="words"):
+        step_ranks_mid(torch.zeros((1, 100), dtype=torch.int32), torch.tensor([5]), 5, 4096)
