@@ -13,15 +13,19 @@ and bits 8 (BED6 with free-text names).  It exits 0 only if every phase
 passes:
 
   1. the card: its name and power limit (nvidia-smi) and torch's name;
-  2. the kernel builds from ``starch3_tpu_torch/csrc``, one nvcc per
-     source, all started together (timed);
-  3. each MTF kernel against its plain PyTorch version on the card, at
-     the main path's shapes, exactly equal: the narrow kernel at widths
-     16/32/64, the wide kernel at 128/256 (and at one row, width 256);
-     short rows whose pad holds out-of-range and negative symbols; a rare
-     symbol silent across many chunks.  Median CUDA-event times of kernel
-     and plain version at (3, 901,120) and (3, 458,752): width 16 narrow,
-     width 256 wide;
+  2. the builds, all started together (timed): each kernel source of
+     ``starch3_tpu_torch/csrc`` with nvcc, and the port's own host runtime
+     (``starch3_tpu_torch/runtime/runtime.cpp``) with g++; the native
+     runtime must load from ``build/``, not fall back to NumPy;
+  3. each MTF kernel against its plain PyTorch version on the card,
+     exactly equal, at every width (narrow 16/32/64, wide 128/256, and the
+     wide kernel at one row): uniform random rows at (3, 458,752) and
+     (3, 901,120); the real MTF input of each tier, the BWT of three real
+     blocks of its corpus; short rows whose pad holds out-of-range and
+     negative symbols; a rare symbol silent across many chunks.  Median
+     CUDA-event times of kernel and plain version on the random rows and
+     of the kernel on the real input, each beside its memory bound, and
+     each CUDA kernel's device time by name under torch.profiler;
   4. each tier's device step on the card against the same step on the
      CPU, for one production batch of real transformed blocks: bits 4 at
      458,752, bits 5, 6 and 8 at 901,120.  Rows equal (a tied bits-8 row:
@@ -40,10 +44,12 @@ passes:
      and decodes back to the BED, and ``python -m starch3_tpu_torch.cli
      --jax FILE`` writes the same bytes.
 
-The line before the last is one JSON object describing each kernel of
-the path; the last line is ``{"ok": true, "device": {...}}``.  Without a
-card, or without the rest of the repository, it fails before printing
-any result.
+The port imports nothing of JAX and nothing of the JAX package
+``starch3_tpu``; the run fails if either is loaded.  The line before the
+card's name is one JSON object describing each kernel of the path; the
+last line is ``{"ok": true, "device": {...}}``.  Without a card, or
+without the rest of the repository, it fails before printing any
+result.
 """
 
 from __future__ import annotations
@@ -53,19 +59,24 @@ import bz2
 import concurrent.futures
 import json
 import os
-import statistics
 import subprocess
 import sys
 import tempfile
 import time
 
-import numpy as np
 import torch
 
-from starch3_tpu_torch import api, corpus
-from starch3_tpu_torch._build import build
+from starch3_tpu_torch import api, corpus, runtime
+from starch3_tpu_torch._build import BUILD_DIR, build
 from starch3_tpu_torch.ops import mtf_narrow, mtf_wide
 from starch3_tpu_torch.parallel import pipeline
+from starch3_tpu_torch.profile_kernels import (
+    bound_ms,
+    cuda_median_ms,
+    device_us_by_kernel,
+    real_batch,
+    real_mtf_input,
+)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 BUCKETS = (901_120, 458_752)
@@ -73,22 +84,6 @@ BUCKETS = (901_120, 458_752)
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def cuda_median_ms(fn, reps: int) -> float:
-    """Median device time of ``fn`` over ``reps`` calls, by CUDA events."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
 
 
 def check_equal(name: str, got: torch.Tensor, want: torch.Tensor) -> int:
@@ -100,37 +95,66 @@ def check_equal(name: str, got: torch.Tensor, want: torch.Tensor) -> int:
     return err
 
 
-# name -> (module, kernel wrapper, plain version, width timed)
+# name -> (module, kernel wrapper, plain version, main path's width and n_max)
 KERNELS = {
     "mtf_narrow": (
-        mtf_narrow, mtf_narrow.mtf_ranks_narrow_batch, mtf_narrow.mtf_ranks_narrow_reference, 16,
+        mtf_narrow, mtf_narrow.mtf_ranks_narrow_batch, mtf_narrow.mtf_ranks_narrow_reference,
+        (16, 458_752),
     ),
     "mtf_wide": (
-        mtf_wide, mtf_wide.mtf_ranks_wide_batch, mtf_wide.mtf_ranks_wide_reference, 256,
+        mtf_wide, mtf_wide.mtf_ranks_wide_batch, mtf_wide.mtf_ranks_wide_reference,
+        (256, 901_120),
     ),
+}
+# width -> the corpus of its real input, and its buckets
+REAL_INPUT = {
+    16: ("config2", BUCKETS), 32: ("config3", BUCKETS[:1]), 64: ("bits6", BUCKETS[:1]),
+    128: ("config2", BUCKETS), 256: ("wide8", BUCKETS),
 }
 
 
-def phase_kernel(device, seed: int, name: str, buckets=BUCKETS, short=8192, reps=20, plain_reps=20):
-    """Phase 3: one kernel vs its plain version at the main path's shapes.
-    Returns (max_abs_err, {n_max: (kernel_ms, plain_ms)} at the timed
-    width)."""
-    mod, kernel, plain, timed_width = KERNELS[name]
+def timed_case(kind: str, name: str, width: int, seqs, reps: int, plain_reps: int) -> dict:
+    """Kernel (and plain version, when ``plain_reps``) times of one case,
+    beside its memory bound; each CUDA kernel's time by name."""
+    _, kernel, plain, _ = KERNELS[name]
+    k = cuda_median_ms(lambda: kernel(seqs, width), reps)
+    case = {
+        "width": width, "input": kind, "shape": list(seqs.shape), "ms": k,
+        "bound_ms": bound_ms(seqs.shape), "share_of_bound": bound_ms(seqs.shape) / k,
+    }
+    if plain_reps:
+        case["plain_ms"] = cuda_median_ms(lambda: plain(seqs, width), plain_reps)
+    case["kernels_us"] = device_us_by_kernel(lambda: kernel(seqs, width), reps)
+    log(f"{name} w{width} {kind} {tuple(seqs.shape)}: kernel {k:.5f} ms (median of {reps}), "
+        f"bound {case['bound_ms']:.5f} ms, share {case['share_of_bound']:.4f}"
+        + (f", plain {case['plain_ms']:.3f} ms (median of {plain_reps})" if plain_reps else "")
+        + f"; by kernel (us per call): {json.dumps(case['kernels_us'])}")
+    return case
+
+
+def phase_kernel(device, seed: int, name: str, texts, buckets=BUCKETS, short=8192, reps=20,
+                 plain_reps=3):
+    """Phase 3: one kernel vs its plain version at every width, on random
+    rows and on real MTF input.  Returns (max_abs_err, timed cases)."""
+    mod, kernel, plain, _ = KERNELS[name]
     gen = torch.Generator(device="cpu").manual_seed(seed)
     max_err = 0
-    times = {}
+    cases = []
     for width in mod.WIDTHS:
         for n_max in buckets:
             seqs = torch.randint(0, width, (3, n_max), generator=gen, dtype=torch.int32).to(device)
             got = kernel(seqs, width)
             want = plain(seqs, width)
             max_err = max(max_err, check_equal(f"{name} w{width} (3, {n_max})", got, want))
-            if width == timed_width:
-                k = cuda_median_ms(lambda: kernel(seqs, width), reps)
-                p = cuda_median_ms(lambda: plain(seqs, width), plain_reps)
-                times[n_max] = (k, p)
-                log(f"{name} (3, {n_max}) w{width}: kernel {k:.4f} ms (median of {reps}), "
-                    f"plain {p:.4f} ms (median of {plain_reps})")
+            cases.append(timed_case("random", name, width, seqs, reps, plain_reps))
+            del seqs, got, want
+        label, real_buckets = REAL_INPUT[width]
+        for n_max in real_buckets:
+            seqs = real_mtf_input(texts[label], width, n_max, device)
+            got = kernel(seqs, width)
+            want = plain(seqs, width)
+            max_err = max(max_err, check_equal(f"{name} w{width} real {label} (3, {n_max})", got, want))
+            cases.append(timed_case(f"real {label}", name, width, seqs, reps, 0))
             del seqs, got, want
         # short rows: the pad holds symbols outside [0, width)
         seqs = torch.randint(0, width, (2, short), generator=gen, dtype=torch.int32)
@@ -153,24 +177,8 @@ def phase_kernel(device, seed: int, name: str, buckets=BUCKETS, short=8192, reps
         if name == "mtf_wide" and width == 256:  # mtf_ranks_pallas's one-row form
             got = mtf_wide.mtf_ranks_wide(seqs[0])
             max_err = max(max_err, check_equal(f"{name} one row", got[None, :], want))
-        log(f"{name} width {width}: equal to plain at every shape")
-    return max_err, times
-
-
-def real_batch(texts, bits: int, n_max: int, b: int = 3):
-    """The first ``b`` blocks of alphabet class ``bits`` in ``texts`` that
-    fit bucket ``n_max``, packed as the dispatch packs them: (packed,
-    lens, nsyms) tensors on the CPU."""
-    blocks = []
-    for t in texts:
-        bl, cl = pipeline._split_classify(t, 9)
-        blocks += [x.data for x, c in zip(bl, cl) if c == bits and len(x.data) <= n_max]
-        if len(blocks) >= b:
-            break
-    if len(blocks) < b:
-        raise AssertionError(f"fewer than {b} bits=={bits} blocks fit {n_max}")
-    packed, lens, nsyms, _ = pipeline.pack_batch(blocks[:b], n_max, bits)
-    return packed, torch.from_numpy(lens), torch.from_numpy(nsyms)
+        log(f"{name} width {width}: equal to plain at every shape and input")
+    return max_err, cases
 
 
 def phase_step(device, texts, bits: int, n_max: int):
@@ -282,20 +290,19 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; device {kind}")
 
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as ex:
+    with concurrent.futures.ThreadPoolExecutor(len(KERNELS) + 1) as ex:
+        host = ex.submit(runtime.get_lib)
         libs = list(ex.map(build, KERNELS))
-    log(f"build: {', '.join(lib.name for lib in libs)} in {time.perf_counter() - t0:.2f} s")
+        if host.result() is None or runtime.lib_path.parent != BUILD_DIR:
+            raise AssertionError("the port's native host runtime did not build and load from build/")
+    log(f"build: {', '.join(lib.name for lib in libs + [runtime.lib_path])} in "
+        f"{time.perf_counter() - t0:.2f} s")
     for lib in libs:
         ptxas = lib.with_suffix(".log")
         if ptxas.exists():
             for line in ptxas.read_text().splitlines():
                 if "Used" in line or "spill" in line:
                     log(f"  ptxas {lib.stem}: {line.strip()}")
-
-    checks = {
-        "mtf_narrow": phase_kernel(device, args.seed, "mtf_narrow"),
-        "mtf_wide": phase_kernel(device, args.seed, "mtf_wide", plain_reps=5),
-    }
 
     def texts_of(bed):
         return [tf.text for tf in api._parse_transform(bed)]
@@ -308,6 +315,8 @@ def main() -> int:
         ("bits6", texts_of(corpus.bits6_bed()), (6,)),
         ("wide8", texts_of(corpus.wide8_bed()), (8,)),
     ]
+    by_label = {label: t for label, t, _ in runs}
+    checks = {name: phase_kernel(device, args.seed, name, by_label) for name in KERNELS}
     for (label, texts, (bits,)), n_max in zip(runs, (BUCKETS[1],) + (BUCKETS[0],) * 3):
         phase_step(device, texts, bits, n_max)
     launches = {"mtf_narrow": 0, "mtf_wide": 0}
@@ -324,14 +333,18 @@ def main() -> int:
 
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
+    jax_pkg = sorted(m for m in sys.modules if m == "starch3_tpu" or m.startswith("starch3_tpu."))
+    if jax_pkg:
+        raise AssertionError(f"modules of the JAX package were imported: {jax_pkg}")
     replaces = {
         "mtf_narrow": "starch3_tpu/ops/mtf_narrow_pallas.py:95",
         "mtf_wide": "starch3_tpu/ops/mtf_pallas.py:112",
     }
-    timed_at = {"mtf_narrow": BUCKETS[1], "mtf_wide": BUCKETS[0]}
     kernels = []
-    for name, (max_err, times) in checks.items():
-        k_ms, p_ms = times[timed_at[name]]
+    for name, (max_err, cases) in checks.items():
+        width, n_max = KERNELS[name][3]
+        main = next(c for c in cases
+                    if c["input"] == "random" and c["width"] == width and c["shape"][1] == n_max)
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -339,8 +352,13 @@ def main() -> int:
             "replaces": replaces[name],
             "launches": launches[name],
             "max_abs_err": max_err,
-            "ms": k_ms,
-            "plain_ms": p_ms,
+            "ms": main["ms"],
+            "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": None,  # no single PyTorch call computes MTF ranks
+            "share_of_bound": main["share_of_bound"],
+            "widths": cases,
         })
     print(json.dumps({"kernels": kernels}))
     print(smi)

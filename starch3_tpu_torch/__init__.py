@@ -1,11 +1,14 @@
 """starch3-tpu-torch: the Starch codec's device path on PyTorch and CUDA.
 
 A port of the JAX package ``starch3_tpu`` to an NVIDIA H100.  It imports
-``torch`` and never ``jax``.  The host tiers (parsing and transform, the
-host bzip2 encoder, block queue, stealers, tail and stream assembly,
-archive format, decode) are ``starch3_tpu``'s own, imported as they are;
-the port owns the device ops, the pipeline's device side and the entry
-points.  Module names mirror the JAX package:
+``torch`` and never ``jax``, and nothing of ``starch3_tpu``: it stands
+alone.  Its host tier is a copy of the JAX package's, with the package
+prefix of the imports rewritten and nothing else changed, so the two
+write the same bytes (``tests/test_torch_isolation.py`` holds the copies
+to their originals): ``codec/``, ``bed/``, ``format/``, ``transform/``,
+``config``, ``errors``, ``_version`` and ``runtime/`` (the same
+``runtime.cpp``, built into ``build/``).  Module names mirror the JAX
+package:
 
   - ``ops.bwt_fast``:   one-sort BWTs of every alphabet tier, batched, in
                         torch ops
@@ -17,7 +20,10 @@ points.  Module names mirror the JAX package:
   - ``ops.rle2``:       zero-run coding of MTF ranks, batched, in torch ops
   - ``parallel.pipeline``: the device steps of the bits 4, 5/6 and 8
                         tiers, dispatch, drain and driver
-  - ``api``, ``cli``:   entry points with an explicit torch ``device``
+  - ``parallel.host``:  the host scheduler, tail and stream assembly,
+                        copied from ``starch3_tpu/parallel/pipeline.py``
+  - ``api``, ``cli``:   entry points with an explicit torch ``device``;
+                        their host parts are copies of the JAX package's
 
 The device is always explicit (``"cuda"`` by default, ``"cpu"`` for the
 plain PyTorch versions); nothing falls back from the card to the CPU.
@@ -25,6 +31,6 @@ plain PyTorch versions); nothing falls back from the card to the CPU.
 it (the transform is the native ``s3_bed_transform``).
 """
 
-from starch3_tpu._version import __version__
+from starch3_tpu_torch._version import __version__
 
 __all__ = ["__version__"]

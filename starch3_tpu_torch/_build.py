@@ -1,15 +1,22 @@
-"""Build the CUDA kernels at first use, from the sources in ``csrc/``.
+"""Build the port's native libraries at first use, from its own sources.
 
-Each kernel source compiles with ``nvcc`` into a shared library with a
-plain C interface, loaded with ``ctypes``.  The library lands in
-``build/`` at the repository root, named by a hash of the source and the
-flags, so a changed source or flag builds anew and an unchanged one is
-reused.  A missing ``nvcc`` or a failed build raises with the
-compiler's output: there is no fallback.
+- ``build(name)``: a CUDA kernel, ``csrc/<name>.cu``, compiled with
+  ``nvcc`` for ``sm_90a`` into a shared library with a plain C interface
+  (loaded with ``ctypes``).  A missing ``nvcc`` or a failed build raises
+  with the compiler's output: there is no fallback.
+- ``build_host(name, src, flags)``: a host library compiled with ``g++``
+  (the native runtime, ``runtime/runtime.cpp``).
+
+Each library lands in ``build/`` at the repository root, named by a hash
+of the source and the flags, so a changed source or flag builds anew and
+an unchanged one is reused.  Concurrent builders (test workers, threads)
+take a file lock per library, and the finished file replaces a temporary
+one atomically, so no process ever loads half a library.
 """
 
 from __future__ import annotations
 
+import fcntl
 import hashlib
 import os
 import shutil
@@ -43,32 +50,55 @@ def find_nvcc() -> str:
     )
 
 
-def build(name: str) -> Path:
-    """Path of ``build/<name>-<hash>.so``, compiling ``csrc/<name>.cu``
-    when that library does not exist yet.  The compiler's output (with
-    ``-Xptxas -v``: registers and shared memory per kernel) is kept
-    beside it as ``<name>-<hash>.log``."""
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+def _compile(name: str, src: Path, flags: tuple[str, ...], compiler) -> Path:
+    """Path of ``build/<name>-<hash>.so`` for ``src`` built with
+    ``flags``, running ``compiler()`` (the compiler's path) only when that
+    library does not exist yet.  The compiler's output is kept beside it
+    as ``<name>-<hash>.log``."""
+    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode())
     stem = f"{name}-{digest.hexdigest()[:16]}"
     lib = BUILD_DIR / f"{stem}.so"
     if lib.exists():
         return lib
-    nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [nvcc, *NVCC_FLAGS, "-o", tmp, str(src)],
-            capture_output=True, text=True,
-        )
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed building {src} (exit {proc.returncode}):\n{log}")
-        (BUILD_DIR / f"{stem}.log").write_text(log)
-        os.replace(tmp, lib)  # atomic: concurrent builders never see half a file
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    with open(BUILD_DIR / f"{stem}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+        if lib.exists():  # another process built it while we waited
+            return lib
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        try:
+            try:
+                proc = subprocess.run(
+                    [compiler(), *flags, "-o", tmp, str(src)],
+                    capture_output=True, text=True, timeout=600,
+                )
+            except subprocess.TimeoutExpired:
+                raise RuntimeError(f"building {src} took more than 600 s") from None
+            log = proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                raise RuntimeError(f"building {src} failed (exit {proc.returncode}):\n{log}")
+            (BUILD_DIR / f"{stem}.log").write_text(log)
+            os.replace(tmp, lib)  # atomic: concurrent loaders never see half a file
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
     return lib
+
+
+def build(name: str) -> Path:
+    """The CUDA library of ``csrc/<name>.cu`` (``-Xptxas -v`` puts each
+    kernel's registers and shared memory in its log)."""
+    return _compile(name, CSRC / f"{name}.cu", NVCC_FLAGS, find_nvcc)
+
+
+def build_host(name: str, src: Path, flags: tuple[str, ...]) -> Path:
+    """A host library from the C++ source ``src``, built with ``g++``."""
+
+    def gxx() -> str:
+        found = shutil.which("g++")
+        if found is None:
+            raise RuntimeError("g++ not found on $PATH; the native runtime cannot be built")
+        return found
+
+    return _compile(name, Path(src), tuple(flags), gxx)

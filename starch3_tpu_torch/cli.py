@@ -7,20 +7,20 @@ with the device path on a torch device.
 device path.  ``--platform`` names its torch device: ``cuda`` (the
 default) or ``cpu`` (the plain PyTorch versions).  A ``--jax`` encode
 without a card and without ``--platform=cpu`` exits non-zero; it never
-falls back to the CPU.  Decode, ``--list`` and ``--chrom`` are the host
-paths of ``starch3_tpu.cli``.
+falls back to the CPU.  Decode, ``--list`` and ``--chrom`` run on the
+host.  The option parser and the host paths are the port's own copies of
+``starch3_tpu/cli.py``'s.
 """
 
 from __future__ import annotations
 
 import os
+import stat
 import sys
 
-from starch3_tpu import cli as _ref
-from starch3_tpu._version import __version__
-from starch3_tpu.cli import _parse_args, _require_piped_stdin, _stream_to_sink
-from starch3_tpu.config import CompressionMethod, EncodeConfig
-from starch3_tpu.errors import InputUnavailableError, OptionError, StarchError
+from starch3_tpu_torch._version import __version__
+from starch3_tpu_torch.config import CompressionMethod, EncodeConfig
+from starch3_tpu_torch.errors import InputUnavailableError, OptionError, StarchError
 
 PROG = "starch3-tpu-torch"
 PLATFORMS = ("cuda", "cpu")
@@ -54,87 +54,250 @@ USAGE = f"""\
   Not ported yet: --device-huffman (ROADMAP A10), --num-hosts > 1 (A9).
 """
 
-# options whose value is the next argument (a value is never a flag)
-_VALUE_OPTS = ("--note", "-n", "--chrom", "--output", "-o")
 
-
-def _split_platform(argv: list[str]) -> tuple[str, list[str]]:
-    """Take ``--platform=`` out of ``argv``: (platform, other args)."""
-    platform, rest = "cuda", []
-    for a in argv:
-        if a.startswith("--platform="):
-            platform = a[len("--platform=") :]
-            if platform not in PLATFORMS:
+def _parse_args(argv: list[str]) -> dict:
+    opts = {
+        "note": "",
+        "method": None,
+        "decode": False,
+        "list": False,
+        "output": None,
+        "jax": False,
+        "device_huffman": False,
+        "chrom": None,
+        "input": None,
+        "coordinator": None,
+        "num_hosts": None,
+        "host_id": None,
+        "manifest_dir": None,
+        "gzip_level": None,
+        "gzip_segment": None,
+        "platform": "cuda",
+    }
+    i = 0
+    while i < len(argv):
+        a = argv[i]
+        if a in ("--help", "-h", "-?"):
+            print(USAGE)
+            raise SystemExit(0)
+        if a in ("--version", "-v"):
+            print(f"{PROG}: {__version__}")
+            raise SystemExit(0)
+        if a in ("--decode", "-d"):
+            opts["decode"] = True
+        elif a.startswith("--chrom="):
+            opts["chrom"] = a[len("--chrom=") :]
+        elif a == "--chrom":
+            i += 1
+            if i >= len(argv):
+                raise OptionError("--chrom requires a value")
+            opts["chrom"] = argv[i]
+        elif a == "--list":
+            opts["list"] = True
+        elif a == "--jax":
+            opts["jax"] = True
+        elif a == "--device-huffman":
+            opts["device_huffman"] = True
+        elif a.startswith("--platform="):
+            opts["platform"] = a[len("--platform=") :]
+            if opts["platform"] not in PLATFORMS:
                 raise OptionError(f"--platform must be one of {PLATFORMS}")
+        elif a.startswith("--gzip-level="):
+            lv = _int_opt(a[len("--gzip-level=") :], "--gzip-level")
+            if not 1 <= lv <= 9:
+                raise OptionError("--gzip-level must be 1..9")
+            opts["gzip_level"] = lv
+        elif a.startswith("--gzip-segment="):
+            seg = _int_opt(a[len("--gzip-segment=") :], "--gzip-segment")
+            if seg < 0:
+                raise OptionError("--gzip-segment must be >= 0")
+            opts["gzip_segment"] = seg
+        elif a.startswith("--coordinator="):
+            opts["coordinator"] = a[len("--coordinator=") :]
+        elif a.startswith("--num-hosts="):
+            opts["num_hosts"] = _int_opt(a[len("--num-hosts=") :], "--num-hosts")
+        elif a.startswith("--host-id="):
+            opts["host_id"] = _int_opt(a[len("--host-id=") :], "--host-id")
+        elif a.startswith("--manifest-dir="):
+            opts["manifest_dir"] = a[len("--manifest-dir=") :]
+        elif a in ("--bzip2", "-b"):
+            _set_method(opts, CompressionMethod.BZIP2)
+        elif a in ("--gzip", "-g"):
+            _set_method(opts, CompressionMethod.GZIP)
+        elif a.startswith("--note="):
+            opts["note"] = a[len("--note=") :]
+        elif a in ("--note", "-n"):
+            i += 1
+            if i >= len(argv):
+                raise OptionError("--note requires a value")
+            opts["note"] = argv[i]
+        elif a.startswith("--output="):
+            opts["output"] = a[len("--output=") :]
+        elif a in ("--output", "-o"):
+            i += 1
+            if i >= len(argv):
+                raise OptionError("--output requires a value")
+            opts["output"] = argv[i]
+        elif a.startswith("-") and a != "-":
+            raise OptionError(f"unknown option {a!r}")
         else:
-            rest.append(a)
-    return platform, rest
+            if opts["input"] is not None:
+                raise OptionError("multiple input files given")
+            opts["input"] = a
+        i += 1
+    return opts
 
 
-def _first_info_flag(argv: list[str]) -> str | None:
-    """The first ``--help`` or ``--version`` flag, as the JAX CLI's
-    parser would meet it (skipping option values)."""
-    skip = False
-    for a in argv:
-        if skip:
-            skip = False
-        elif a in _VALUE_OPTS:
-            skip = True
-        elif a in ("--help", "-h", "-?", "--version", "-v"):
-            return a
-    return None
+def _int_opt(value: str, name: str) -> int:
+    try:
+        return int(value)
+    except ValueError:
+        raise OptionError(f"{name} requires an integer value") from None
 
+
+def _require_piped_stdin() -> None:
+    """Refuse a TTY stdin, as the reference does (starch3api.hpp:890-905)."""
+    mode = os.fstat(sys.stdin.fileno()).st_mode
+    if not (stat.S_ISFIFO(mode) or stat.S_ISREG(mode)):
+        raise InputUnavailableError(
+            "no input stream available: pipe data in or name a file"
+        )
+
+
+def _set_method(opts: dict, m: CompressionMethod) -> None:
+    if opts["method"] is not None and opts["method"] is not m:
+        # the reference treats two codec flags as a fatal usage error
+        # (src/starch3.cpp:159-163)
+        raise OptionError("only one compression method may be selected")
+    opts["method"] = m
+
+
+def _read_input(path: str | None) -> bytes:
+    if path is None or path == "-":
+        _require_piped_stdin()
+        return sys.stdin.buffer.read()
+    if not os.path.exists(path):
+        raise InputUnavailableError(f"input file {path!r} does not exist")
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def _stream_to_sink(output: str | None, produce) -> None:
+    """Run a streaming producer into --output atomically (temp file +
+    rename, so a failure never truncates an existing file) or stdout."""
+    if not output:
+        produce(sys.stdout.buffer)
+        return
+    tmp = output + ".tmp"
+    try:
+        with open(tmp, "wb") as f:
+            produce(f)
+        os.replace(tmp, output)
+    except BaseException:
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
+        raise
 
 def main(argv: list[str] | None = None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     try:
-        platform, rest = _split_platform(argv)
-        info = _first_info_flag(rest)
-        if info is not None:
-            print(f"{PROG}: {__version__}" if info in ("--version", "-v") else USAGE)
-            return 0
-        opts = _parse_args(rest)
-        if opts["decode"] or opts["list"]:
-            return _ref.main(rest)  # host decode, list and random access
-        if opts["chrom"]:
+        opts = _parse_args(argv)
+        if opts["chrom"] and not opts["decode"]:
             raise OptionError("--chrom requires --decode")
-        if (opts["num_hosts"] or 0) > 1:
+        encode = not (opts["decode"] or opts["list"])
+        if encode and (opts["num_hosts"] or 0) > 1:
             raise OptionError("--num-hosts > 1: multi-host encode is not yet ported (ROADMAP A9)")
-        config = EncodeConfig(
-            note=opts["note"],
-            method=opts["method"] or CompressionMethod.default(),
-            use_jax=opts["jax"],
-            device_huffman=opts["device_huffman"],
-            gzip_level=opts["gzip_level"] or 6,
-            **(
-                {"gzip_segment_bytes": opts["gzip_segment"]}
-                if opts["gzip_segment"] is not None
-                else {}
-            ),
-        )
-        if opts["jax"]:
-            from starch3_tpu_torch.parallel.pipeline import check_modes, resolve_device
+        if encode:
+            platform = opts["platform"]
+            config = EncodeConfig(
+                note=opts["note"],
+                method=opts["method"] or CompressionMethod.default(),
+                use_jax=opts["jax"],
+                device_huffman=opts["device_huffman"],
+                gzip_level=opts["gzip_level"] or 6,
+                **(
+                    {"gzip_segment_bytes": opts["gzip_segment"]}
+                    if opts["gzip_segment"] is not None
+                    else {}
+                ),
+            )
+            if opts["jax"]:
+                from starch3_tpu_torch.parallel.pipeline import check_modes, resolve_device
 
-            try:
-                check_modes(device_huffman=config.device_huffman)
-                resolve_device(platform)
-            except (NotImplementedError, RuntimeError) as e:
-                raise OptionError(str(e)) from None
-        from starch3_tpu_torch.api import compress_bed_file, compress_bed_stream
+                try:
+                    check_modes(device_huffman=config.device_huffman)
+                    resolve_device(platform)
+                except (NotImplementedError, RuntimeError) as e:
+                    raise OptionError(str(e)) from None
+            from starch3_tpu_torch.api import compress_bed_file, compress_bed_stream
 
-        if opts["input"] in (None, "-"):
-            _require_piped_stdin()
+            if opts["input"] in (None, "-"):
+                _require_piped_stdin()
+                _stream_to_sink(
+                    opts["output"],
+                    lambda f: compress_bed_stream(sys.stdin.buffer, f, config, device=platform),
+                )
+                return 0
+            if not os.path.exists(opts["input"]):
+                raise InputUnavailableError(f"input file {opts['input']!r} does not exist")
             _stream_to_sink(
                 opts["output"],
-                lambda f: compress_bed_stream(sys.stdin.buffer, f, config, device=platform),
+                lambda f: compress_bed_file(opts["input"], f, config, device=platform),
             )
             return 0
-        if not os.path.exists(opts["input"]):
-            raise InputUnavailableError(f"input file {opts['input']!r} does not exist")
-        _stream_to_sink(
-            opts["output"],
-            lambda f: compress_bed_file(opts["input"], f, config, device=platform),
-        )
+        if opts["decode"] and opts["jax"]:
+            # decode runs on the host (device decode is ROADMAP A12)
+            print(
+                "starch3: note: --jax applies to encode; decode uses the "
+                "native block-parallel path",
+                file=sys.stderr,
+            )
+            opts["jax"] = False
+        if (
+            opts["decode"]
+            and not opts["chrom"]
+            and opts["input"] not in (None, "-")
+        ):
+            # named-file decode: windowed parallel streams written in order
+            from starch3_tpu_torch.api import decompress_starch_file
+
+            if not os.path.exists(opts["input"]):
+                raise InputUnavailableError(
+                    f"input file {opts['input']!r} does not exist"
+                )
+            _stream_to_sink(
+                opts["output"], lambda f: decompress_starch_file(opts["input"], f)
+            )
+            return 0
+        data = _read_input(opts["input"])
+        if opts["list"]:
+            from starch3_tpu_torch.api import list_chromosomes
+
+            rows = list_chromosomes(data)
+            cols = [
+                "chromosome", "lineCount", "size", "uncompressedSize",
+                "nonUniqueBaseCount", "uniqueBaseCount",
+            ]
+            print("\t".join(cols))
+            for r in rows:
+                print("\t".join(str(r[c]) for c in cols))
+            return 0
+        # only decode reaches here (encode and --list returned above)
+        if opts["chrom"]:
+            from starch3_tpu_torch.api import extract_chromosome
+
+            out = extract_chromosome(data, opts["chrom"])
+        else:
+            from starch3_tpu_torch.api import decompress_starch_bytes
+
+            out = decompress_starch_bytes(data)
+        if opts["output"]:
+            with open(opts["output"], "wb") as f:
+                f.write(out)
+        else:
+            sys.stdout.buffer.write(out)
         return 0
     except StarchError as e:
         print(f"Error: {e}", file=sys.stderr)

@@ -110,8 +110,8 @@ def wide8_bed(seed: int = 17, chroms=("chr1", "chr2", "chr3"), n_per: int = 40_0
     is two blocks, a full one in the 901,120 bucket and one in the
     458,752 bucket.  Names this long keep most 16-symbol contexts unique,
     so the bits==8 sort is mostly tie-free."""
-    from starch3_tpu.api import _parse_transform
-    from starch3_tpu.parallel.pipeline import _split_classify
+    from starch3_tpu_torch.api import _parse_transform
+    from starch3_tpu_torch.parallel.host import _split_classify
 
     rng = np.random.default_rng(seed)
     parts = []

@@ -7,9 +7,10 @@ last occurrence of ``seq[i]``; symbols not seen yet are ordered by
 ``L0(s) = -1 - s`` (the initial MTF list).  Each row starts afresh.
 
 ``mtf_ranks_narrow_batch`` launches the hand-written CUDA kernel
-(``csrc/mtf_narrow.cu``) for a CUDA tensor, and takes the plain PyTorch
-version ``mtf_ranks_narrow_reference`` only for a tensor on the CPU.  It
-never falls back from one to the other.
+(``csrc/mtf_narrow.cu``: one pass with a register-resident list at width
+16, two passes at widths 32/64) for a CUDA tensor, and takes the plain
+PyTorch version ``mtf_ranks_narrow_reference`` only for a tensor on the
+CPU.  It never falls back from one to the other.
 
 A symbol ``>= width`` (or negative) matches no symbol plane, as in the
 Pallas kernel: its rank is ``width`` and it leaves the recency order
@@ -75,14 +76,20 @@ def mtf_ranks_narrow_batch(seqs: torch.Tensor, width: int = 16) -> torch.Tensor:
     if b == 0:
         return out
     n_chunks = n_max // CHUNK
-    tables = torch.empty((b, n_chunks, width), dtype=torch.int32, device=seqs.device)
     lib = _lib()
     with torch.cuda.device(seqs.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.s3t_mtf_narrow(
-            seqs.data_ptr(), out.data_ptr(), tables.data_ptr(),
-            b, n_chunks, width, stream,
-        )
+        if width == 16:  # each chunk's published table, then a tile counter
+            tables = torch.zeros(b * n_chunks * 16 + 1, dtype=torch.int32, device=seqs.device)
+            err = lib.s3t_mtf_narrow16(
+                seqs.data_ptr(), out.data_ptr(), tables.data_ptr(), b, n_chunks, stream,
+            )
+        else:
+            tables = torch.empty((b, n_chunks, width), dtype=torch.int32, device=seqs.device)
+            err = lib.s3t_mtf_narrow(
+                seqs.data_ptr(), out.data_ptr(), tables.data_ptr(),
+                b, n_chunks, width, stream,
+            )
     if err != 0:
         raise RuntimeError(
             f"mtf_narrow kernel launch failed: CUDA error {err} "
@@ -108,6 +115,11 @@ def _lib():
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         lib.s3t_mtf_narrow.restype = ctypes.c_int
+        lib.s3t_mtf_narrow16.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ]
+        lib.s3t_mtf_narrow16.restype = ctypes.c_int
         lib.s3t_error_string.argtypes = [ctypes.c_int]
         lib.s3t_error_string.restype = ctypes.c_char_p
         _LIB = lib

@@ -9,7 +9,8 @@ symbols not seen yet are ordered by ``L0(s) = -1 - s``.  Each row starts
 afresh.
 
 ``mtf_ranks_wide_batch`` launches the hand-written CUDA kernel
-(``csrc/mtf_wide.cu``) for a CUDA tensor, and takes the plain PyTorch
+(``csrc/mtf_wide.cu``: per-chunk tables, a carry scan, then a warp per
+chunk walking 32 positions a step) for a CUDA tensor, and takes the plain PyTorch
 version ``mtf_ranks_wide_reference`` only for a tensor on the CPU.  It
 never falls back from one to the other.
 
@@ -26,6 +27,7 @@ import torch
 
 CHUNK = 1024  # positions per chunk of the kernel; n_max must be a multiple
 WIDTHS = (128, 256)
+MAX_N = 1 << 22
 _NEG = -(1 << 30)
 
 # kernel launches made by mtf_ranks_wide_batch (one per call on a CUDA
@@ -80,6 +82,8 @@ def mtf_ranks_wide_batch(seqs: torch.Tensor, width: int = 256) -> torch.Tensor:
     b, n_max = seqs.shape
     if n_max % CHUNK:
         raise ValueError(f"n_max must be a multiple of {CHUNK}, got {n_max}")
+    if n_max > MAX_N:  # the kernel packs a position and a symbol in 31 bits
+        raise ValueError(f"n_max must be at most {MAX_N}, got {n_max}")
     if seqs.data_ptr() % 16:
         raise ValueError("seqs must be 16-byte aligned")
     out = torch.empty_like(seqs)

@@ -20,10 +20,10 @@ distinct bytes at feed time (``_bits_class``) and batched with its class:
            the tail pool, and stream assembly in block order
 
 The MTF stages are hand-written CUDA kernels on a CUDA device.  The host
-tiers are the JAX package's own and are imported, not copied: the block
-queue and its stealers, classing, the row decoders, the tail pool and
-the stream assembler.  Only the device steps, dispatch and drain, and the
-driver loop are this module's.
+tier (the block queue and its stealers, classing, the row decoders, the
+tail pool and the stream assembler) is the port's own copy of the JAX
+package's, in ``host.py``.  Only the device steps, dispatch and drain,
+and the driver loop are this module's.
 
 Blocks whose packed-prefix sort ties re-encode exactly on the host, as in
 the JAX package; ``device_stats["tie_reencodes"]`` counts them.  Not
@@ -42,7 +42,7 @@ import time
 import numpy as np
 import torch
 
-from starch3_tpu.parallel.pipeline import (
+from starch3_tpu_torch.parallel.host import (
     _PIPELINE_DEPTH,
     _TAIL_RESERVE_PER_STEALER,
     _assemble_stream,
@@ -132,6 +132,28 @@ def _pack_words(vals: torch.Tensor, per_word: int, bits: int) -> torch.Tensor:
     return word
 
 
+def bwt_of_batch(seqs: torch.Tensor, lens: torch.Tensor, bits: int, n_max: int, wide: bool = False):
+    """The BWT half of a device step on a ``pack_batch`` batch: (last,
+    ptrs, ties), ``last`` int32[B, n_max] being the MTF kernel's input.
+    ``bwt_sort_fast3`` at bits 4, ``bwt_sort_fast_mid`` at bits 5/6,
+    ``bwt_sort_fast`` at bits 8, and at bits 4 too with ``wide`` (the
+    ``step_bwt_mtf_fast`` form)."""
+    if bits in (5, 6):
+        spw = 30 // bits
+        b, n_words = seqs.shape
+        if n_words != -(-n_max // spw):
+            raise ValueError(f"{n_words} words do not hold n_max={n_max} symbols at bits={bits}")
+        mask = (1 << bits) - 1
+        syms = torch.stack([(seqs >> (bits * k)) & mask for k in range(spw)], dim=-1)
+        syms = syms.reshape(b, n_words * spw)[:, :n_max].contiguous()
+        return bwt_sort_fast_mid(syms, lens, bits)
+    if bits == 4:
+        seqs = _unpack_nibbles(seqs)
+        if not wide:
+            return bwt_sort_fast3(seqs, lens)
+    return bwt_sort_fast(seqs.to(torch.int32), lens, bits)
+
+
 def step_ranks4(seqs_packed: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
     """The bits==4 device step, counterpart of
     ``_jitted_fused_step_ranks4``.
@@ -145,7 +167,7 @@ def step_ranks4(seqs_packed: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
       eight 4-bit ranks per word, ranks past each row's length zero.
     """
     b, half = seqs_packed.shape
-    last, ptrs, ties = bwt_sort_fast3(_unpack_nibbles(seqs_packed), lens)
+    last, ptrs, ties = bwt_of_batch(seqs_packed, lens, 4, 2 * half)
     ranks = _mask_past_length(mtf_ranks_narrow_batch(last, 16), lens)
     # nibble pairs as bytes, read as little-endian words: the same words
     # as the JAX step's shift-or, without int32 shift overflow
@@ -168,13 +190,7 @@ def step_ranks_mid(words: torch.Tensor, lens: torch.Tensor, bits: int, n_max: in
       row's length zero.
     """
     spw = 30 // bits
-    b, n_words = words.shape
-    if n_words != -(-n_max // spw):
-        raise ValueError(f"{n_words} words do not hold n_max={n_max} symbols at bits={bits}")
-    mask = (1 << bits) - 1
-    syms = torch.stack([(words >> (bits * k)) & mask for k in range(spw)], dim=-1)
-    syms = syms.reshape(b, n_words * spw)[:, :n_max].contiguous()
-    last, ptrs, ties = bwt_sort_fast_mid(syms, lens, bits)
+    last, ptrs, ties = bwt_of_batch(words, lens, bits, n_max)
     ranks = mtf_ranks_narrow_batch(last, 32 if bits == 5 else 64)
     packed = _pack_words(_mask_past_length(ranks, lens), spw, bits)
     return torch.cat([ptrs[:, None], ties[:, None], packed], dim=1)
@@ -188,9 +204,8 @@ def step_bwt_mtf_fast(seqs: torch.Tensor, lens: torch.Tensor, bits: int):
     per byte (uint8[B, n_max // 2]) at bits 4; n_max a multiple of 1024.
     Returns (ptrs int32[B], ties int32[B], ranks int32[B, n_max]), the
     ranks zero past each row's length."""
-    if bits == 4:
-        seqs = _unpack_nibbles(seqs)
-    last, ptrs, ties = bwt_sort_fast(seqs.to(torch.int32), lens, bits)
+    n_max = seqs.shape[1] * (2 if bits == 4 else 1)
+    last, ptrs, ties = bwt_of_batch(seqs, lens, bits, n_max, wide=True)
     # bits==4 implies a dense alphabet <= 16, so width 128 always covers it
     ranks = mtf_ranks_wide_batch(last, 128 if bits == 4 else 256)
     return ptrs, ties, _mask_past_length(ranks, lens)
@@ -220,7 +235,7 @@ def _dense_pack4(arr: np.ndarray, out_row: np.ndarray):
     """Dense-remap one block and pack two symbols per byte into
     ``out_row``: the native pass, or the same in NumPy without the native
     lib.  Returns (distinct bytes, used bool[256])."""
-    from starch3_tpu.runtime import dense_pack4_native
+    from starch3_tpu_torch.runtime import dense_pack4_native
 
     res = dense_pack4_native(arr, out_row)
     if res is not None:
@@ -237,7 +252,7 @@ def _dense_pack_words(arr: np.ndarray, out_words: np.ndarray, bits: int):
     """Dense-remap one block and pack ``30 // bits`` symbols per uint32
     word into ``out_words``: the native pass, or the same in NumPy
     without the native lib.  Returns (distinct bytes, used bool[256])."""
-    from starch3_tpu.runtime import dense_pack_words_native
+    from starch3_tpu_torch.runtime import dense_pack_words_native
 
     res = dense_pack_words_native(arr, bits, out_words)
     if res is not None:
@@ -361,7 +376,7 @@ def _drain_into(results, per_stream_blocks, item, on_done=None):
     for i, ((si, bi), used) in enumerate(zip(chunk, aux["useds"])):
         blk = per_stream_blocks[si][bi]
         if int(out[i, tie_col]) != 0:
-            from starch3_tpu.codec.encoder import encode_block_fragment
+            from starch3_tpu_torch.codec.encoder import encode_block_fragment
 
             results[(si, bi)] = encode_block_fragment(blk)
             ties += 1
@@ -545,7 +560,7 @@ def encode_streams_iter(
     check_modes(fast_bwt, device_rle2, device_huffman)
     dev = resolve_device(device)
     if host_assist is None:
-        from starch3_tpu.runtime import get_lib
+        from starch3_tpu_torch.runtime import get_lib
 
         host_assist = get_lib() is not None
 

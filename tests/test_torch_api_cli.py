@@ -10,8 +10,9 @@ import pytest
 import torch
 
 from starch3_tpu import api as jax_api
-from starch3_tpu.config import EncodeConfig
+from starch3_tpu.config import EncodeConfig as JaxEncodeConfig
 from starch3_tpu_torch import api
+from starch3_tpu_torch.config import EncodeConfig
 
 from tests.conftest import make_bed_text
 
@@ -31,13 +32,13 @@ def bed(rng):
 
 @pytest.fixture
 def host_archive(bed):
-    return jax_api.compress_bed_bytes(bed, EncodeConfig())
+    return jax_api.compress_bed_bytes(bed, JaxEncodeConfig())
 
 
 def test_bytes_equal_jax_device_and_host(bed, host_archive):
     got = api.compress_bed_bytes(bed, EncodeConfig(use_jax=True), device="cpu")
     assert got == host_archive
-    assert got == jax_api.compress_bed_bytes(bed, EncodeConfig(use_jax=True))
+    assert got == jax_api.compress_bed_bytes(bed, JaxEncodeConfig(use_jax=True))
     assert api.decompress_starch_bytes(got) == bed
 
 
@@ -45,10 +46,10 @@ def test_single_stream_helpers_equal_host(rng):
     text = jax_api._parse_transform(make_bed_text(rng, n=900))[0].text
     cfg = EncodeConfig(use_jax=True)
     assert api._compress_stream(text, cfg, device="cpu") == jax_api._compress_stream(
-        text, EncodeConfig()
+        text, JaxEncodeConfig()
     )
     got = api._compress_stream_ex(text, cfg, device="cpu")
-    assert got == jax_api._compress_stream_ex(text, EncodeConfig())
+    assert got == jax_api._compress_stream_ex(text, JaxEncodeConfig())
 
 
 def test_stream_and_file_equal_host(bed, host_archive, tmp_path):
@@ -72,18 +73,18 @@ def test_config3_shaped_archive_equals_host():
 
     bed = corpus.config3_bed(n_per=400)
     bed += corpus.wide8_bed(seed=4, chroms=("chrZ",), n_per=300)
-    want = jax_api.compress_bed_bytes(bed, EncodeConfig())
+    want = jax_api.compress_bed_bytes(bed, JaxEncodeConfig())
     got = api.compress_bed_bytes(bed, EncodeConfig(use_jax=True), device="cpu")
     assert got == want
     assert api.decompress_starch_bytes(got) == bed
 
 
 def test_no_final_newline_and_duplicate_chromosome(rng):
-    from starch3_tpu.errors import BedParseError
+    from starch3_tpu_torch.errors import BedParseError
 
     bed = make_bed_text(rng, n=600)[:-1]
     got = api.compress_bed_bytes(bed, EncodeConfig(use_jax=True), device="cpu")
-    assert got == jax_api.compress_bed_bytes(bed, EncodeConfig())
+    assert got == jax_api.compress_bed_bytes(bed, JaxEncodeConfig())
     assert api.decompress_starch_bytes(got) == bed
     dup = b"chr1\t10\t20\nchr2\t5\t9\nchr1\t30\t40\n"
     with pytest.raises(BedParseError):

@@ -35,8 +35,13 @@ def cuda():
     return torch.device("cuda")
 
 
+# the production buckets have 112 and 220 chunks a row at width 16: the
+# look-back crosses several 32-chunk windows
+SHAPES = [(1, 4096), (3, 16_384), (2, 131_072), (3, 458_752), (3, 901_120)]
+
+
 @pytest.mark.parametrize("width", [16, 32, 64])
-@pytest.mark.parametrize("shape", [(1, 4096), (3, 16_384), (2, 131_072)])
+@pytest.mark.parametrize("shape", SHAPES)
 def test_kernel_equals_plain(cuda, width, shape):
     gen = torch.Generator().manual_seed(width * 7 + shape[1])
     seqs = torch.randint(0, width, shape, generator=gen, dtype=torch.int32)
@@ -58,7 +63,7 @@ def test_kernel_rejects_bad_input(cuda):
 
 
 @pytest.mark.parametrize("width", [128, 256])
-@pytest.mark.parametrize("shape", [(1, 1024), (3, 16_384), (2, 131_072)])
+@pytest.mark.parametrize("shape", [(1, 1024)] + SHAPES[1:])
 def test_wide_kernel_equals_plain(cuda, width, shape):
     gen = torch.Generator().manual_seed(width * 11 + shape[1])
     seqs = torch.randint(0, width, shape, generator=gen, dtype=torch.int32)
@@ -106,3 +111,39 @@ def test_tier_steps_equal_cpu(cuda, bits):
         want = pipeline.step_ranks_mid(words, lens, bits, n_max)
         got = pipeline.step_ranks_mid(words.to(cuda), lens.to(cuda), bits, n_max)
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("width", [16, 32, 64, 128, 256])
+def test_kernels_equal_plain_on_real_bwt_input(cuda, width):
+    """The MTF input the device steps really give each kernel: the BWT of
+    three real blocks of the width's tier (a cut of its corpus), where
+    most ranks are small and some symbols are absent from whole chunks."""
+    from starch3_tpu_torch import api, corpus
+    from starch3_tpu_torch.profile_kernels import real_mtf_input
+
+    bed = {
+        16: lambda: corpus.make_bed(corpus.GENOME_CHROMS[:4], 3_000, seed=3),
+        32: lambda: corpus.config3_bed(n_per=2_000),
+        64: lambda: corpus.bits6_bed(n_per=2_000),
+        128: lambda: corpus.make_bed(corpus.GENOME_CHROMS[:4], 3_000, seed=3),
+        256: lambda: corpus.wide8_bed(seed=3, n_per=2_000),
+    }[width]()
+    texts = [tf.text for tf in api._parse_transform(bed)]
+    seqs = real_mtf_input(texts, width, 131_072, cuda)
+    kernel = mtf_ranks_narrow_batch if width <= 64 else mtf_ranks_wide_batch
+    plain = mtf_ranks_narrow_reference if width <= 64 else mtf_ranks_wide_reference
+    got = kernel(seqs, width)
+    torch.cuda.synchronize()
+    assert torch.equal(got, plain(seqs, width))
+
+
+def test_width16_more_blocks_than_fit(cuda):
+    """1,792 chunks, more than the card holds at once: blocks wait only on
+    chunks that running blocks claimed (the tile counter), so the launch
+    finishes and equals the plain version."""
+    seqs = torch.randint(0, 16, (16, 458_752), generator=torch.Generator().manual_seed(16),
+                         dtype=torch.int32).to(cuda)
+    seqs[3, 1000:] = 7  # one long run: later chunks of row 3 lack symbols
+    got = mtf_ranks_narrow_batch(seqs, 16)
+    torch.cuda.synchronize()
+    assert torch.equal(got, mtf_ranks_narrow_reference(seqs, 16))

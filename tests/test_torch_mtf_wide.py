@@ -93,3 +93,113 @@ def test_wrapper_rejects_bad_input():
         mtf_ranks_wide_batch(torch.zeros(1024, dtype=torch.int32))
     with pytest.raises(TypeError):
         mtf_ranks_wide(torch.zeros((1, 1024), dtype=torch.int32))
+
+
+# A model of the CUDA kernel's rank pass (csrc/mtf_wide.cu,
+# mtf_rank_kernel), step for step, vectorised over the 32 lanes of the warp
+# that walks one 1,024-position chunk: it catches an error of the
+# algorithm on the CPU, where the kernel cannot run.
+
+_LANES = np.arange(32)
+
+
+def _warp_sort_desc(vals: np.ndarray) -> np.ndarray:
+    """The kernel's bitonic network over 32 lanes, W / 32 values a lane
+    (element lane * per + q): descending."""
+    per = vals.size // 32
+    v = vals.reshape(32, per).copy()
+    k = 2
+    while k <= vals.size:
+        j = k >> 1
+        while j:
+            if j >= per:  # with the partner lane (__shfl_xor_sync)
+                o = v[_LANES ^ (j // per)]
+                e = _LANES[:, None] * per + np.arange(per)
+                keep_max = ((e & j) == 0) == ((e & k) == 0)
+                v = np.where(keep_max, np.maximum(v, o), np.minimum(v, o))
+            else:  # within the lane
+                for q in range(per):
+                    if q & j:
+                        continue
+                    up = ((_LANES * per + q) & k) == 0
+                    a, b = v[:, q].copy(), v[:, q ^ j].copy()
+                    v[:, q] = np.where(up, np.maximum(a, b), np.minimum(a, b))
+                    v[:, q ^ j] = np.where(up, np.minimum(a, b), np.maximum(a, b))
+            j >>= 1
+        k <<= 1
+    return v.reshape(-1)
+
+
+def _window(sym: np.ndarray, P: np.ndarray, L: np.ndarray, width: int) -> np.ndarray:
+    """One 32-position step: ranks by the counting form, then the list's
+    update in place (P: symbol -> position, L: position -> symbol)."""
+    valid = (sym >= 0) & (sym < width)
+    same = sym[None, :] == sym[:, None]  # __match_any_sync
+    below = same & (_LANES[None, :] < _LANES[:, None])
+    prev = np.where(below.any(1), 31 - np.argmax(below[:, ::-1], axis=1), -1)
+    pi = np.where(valid, P[np.clip(sym, 0, width - 1)], 0)
+    first = valid & (prev < 0)
+    key = np.where(valid, ((prev + 1) << 16) | pi, 0x7FFFFFFF)
+    thr = np.where(prev >= 0, (prev + 2) << 16, pi)
+    counted = (key[None, :] < thr[:, None]) & (_LANES[None, :] < _LANES[:, None])
+    counted &= np.where(prev[:, None] >= 0, _LANES[None, :] > prev[:, None], True)
+    cnt = counted.sum(1)
+    n_first = np.cumsum(first) - first
+    ranks = np.where(~valid, width, np.where(prev >= 0, cnt, n_first + pi - cnt))
+    # the window's symbols to the front by last occurrence, then the rest
+    is_last = valid & ~(same & (_LANES[None, :] > _LANES[:, None])).any(1)
+    flag = np.zeros(width, bool)
+    flag[pi[is_last]] = True
+    pos = np.arange(width)
+    new_pos = is_last.sum() + pos - (np.cumsum(flag) - flag)
+    moved = L[~flag].copy()
+    L[new_pos[~flag]] = moved
+    P[moved] = new_pos[~flag]
+    r = np.cumsum(is_last[::-1])[::-1] - is_last  # last lanes after each
+    L[r[is_last]] = sym[is_last]
+    P[sym[is_last]] = r[is_last]
+    return ranks
+
+
+def _rank_pass_model(row: np.ndarray, width: int) -> np.ndarray:
+    out = np.empty(row.size, np.int64)
+    carry = -1 - np.arange(width)  # pass 2's carry into the chunk, seeded with L0
+    for c0 in range(0, row.size, 1024):
+        packed = ((carry + width + 1) << 8) | np.arange(width)
+        order = _warp_sort_desc(packed) & 255
+        P = np.empty(width, np.int64)
+        P[order] = np.arange(width)
+        L = order.copy()
+        for w0 in range(c0, c0 + 1024, 32):
+            out[w0 : w0 + 32] = _window(row[w0 : w0 + 32].astype(np.int64), P, L, width)
+        chunk = row[c0 : c0 + 1024]
+        for k in np.nonzero((chunk >= 0) & (chunk < width))[0]:
+            carry[chunk[k]] = c0 + k
+    return out
+
+
+@pytest.mark.parametrize("width", [128, 256])
+def test_kernel_model_matches_plain_pallas_and_oracle(rng, width):
+    """Row 0: runs of a few symbols, out-of-range and negative pad, a rare
+    symbol.  Row 1: uniform over the alphabet."""
+    n_max = 4096
+    rows = np.empty((2, n_max), np.int32)
+    rows[0] = np.repeat(rng.integers(0, 9, n_max // 4), 4)
+    rows[0, 1500:1540] = rng.integers(-3, width + 5, 40)
+    rows[0, 3000:] = width + 3
+    rows[0, -9:] = -1
+    rows[0, 77] = width - 1
+    rows[1] = rng.integers(0, width, n_max)
+    want = mtf_ranks_wide_reference(torch.from_numpy(rows), width).numpy()
+    pallas = np.asarray(mtf_ranks_pallas_batch(jnp.asarray(rows), n_max, width, INTERPRET))
+    assert (want == pallas).all()
+    for i in range(2):
+        assert _rank_pass_model(rows[i], width).tolist() == want[i].tolist()
+    assert want[1].tolist() == mtf_ranks(rows[1], width).tolist()
+
+
+@pytest.mark.parametrize("per", [4, 8])
+def test_warp_sort_network_sorts(rng, per):
+    for _ in range(20):
+        vals = rng.permutation(1 << 12)[: 32 * per] - 300
+        assert _warp_sort_desc(vals).tolist() == sorted(vals.tolist(), reverse=True)
