@@ -18,14 +18,17 @@ passes:
      (``starch3_tpu_torch/runtime/runtime.cpp``) with g++; the native
      runtime must load from ``build/``, not fall back to NumPy;
   3. each MTF kernel against its plain PyTorch version on the card,
-     exactly equal, at every width (narrow 16/32/64, wide 128/256, and the
-     wide kernel at one row): uniform random rows at (3, 458,752) and
-     (3, 901,120); the real MTF input of each tier, the BWT of three real
-     blocks of its corpus; short rows whose pad holds out-of-range and
-     negative symbols; a rare symbol silent across many chunks.  Median
-     CUDA-event times of kernel and plain version on the random rows and
-     of the kernel on the real input, each beside its memory bound, and
-     each CUDA kernel's device time by name under torch.profiler;
+     exactly equal, at every width of each wrapper (narrow 16/32/64, where
+     16 is csrc/mtf_narrow.cu and 32/64 the windowed kernel of
+     csrc/mtf_wide.cu; wide 128/256, and the wide kernel at one row):
+     uniform random rows at (3, 458,752) and (3, 901,120); the real MTF
+     input of each tier, the BWT of three real blocks of its corpus; short
+     rows whose pad holds out-of-range and negative symbols; a rare symbol
+     silent across many chunks.  Median CUDA-event times of kernel and
+     plain version on the random rows and of the kernel on the real input
+     and on one random row at (1, 901,120) (the one-row form), each beside
+     its memory bound, and each CUDA kernel's device time by name under
+     torch.profiler;
   4. each tier's device step on the card against the same step on the
      CPU, for one production batch of real transformed blocks: bits 4 at
      458,752, bits 5, 6 and 8 at 901,120.  Rows equal (a tied bits-8 row:
@@ -46,7 +49,9 @@ passes:
 
 The port imports nothing of JAX and nothing of the JAX package
 ``starch3_tpu``; the run fails if either is loaded.  The line before the
-card's name is one JSON object describing each kernel of the path; the
+card's name is one JSON object describing each kernel of the path (the
+narrow wrapper's two kernels apart, their launches split by the class of
+the batch); the
 last line is ``{"ok": true, "device": {...}}``.  Without a card, or
 without the rest of the repository, it fails before printing any
 result.
@@ -113,10 +118,14 @@ REAL_INPUT = {
 }
 
 
-def timed_case(kind: str, name: str, width: int, seqs, reps: int, plain_reps: int) -> dict:
+def timed_case(kind: str, name: str, width: int, seqs, reps: int, plain_reps: int,
+               kernel=None) -> dict:
     """Kernel (and plain version, when ``plain_reps``) times of one case,
-    beside its memory bound; each CUDA kernel's time by name."""
-    _, kernel, plain, _ = KERNELS[name]
+    beside its memory bound; each CUDA kernel's time by name, and their
+    sum, the device time of one call.  ``kernel``: a wrapper other than
+    the name's (the one-row form)."""
+    _, wrapper, plain, _ = KERNELS[name]
+    kernel = kernel or wrapper
     k = cuda_median_ms(lambda: kernel(seqs, width), reps)
     case = {
         "width": width, "input": kind, "shape": list(seqs.shape), "ms": k,
@@ -125,8 +134,10 @@ def timed_case(kind: str, name: str, width: int, seqs, reps: int, plain_reps: in
     if plain_reps:
         case["plain_ms"] = cuda_median_ms(lambda: plain(seqs, width), plain_reps)
     case["kernels_us"] = device_us_by_kernel(lambda: kernel(seqs, width), reps)
+    case["device_ms"] = sum(case["kernels_us"].values()) / 1e3
     log(f"{name} w{width} {kind} {tuple(seqs.shape)}: kernel {k:.5f} ms (median of {reps}), "
-        f"bound {case['bound_ms']:.5f} ms, share {case['share_of_bound']:.4f}"
+        f"device {case['device_ms']:.5f} ms, bound {case['bound_ms']:.5f} ms, "
+        f"share {case['share_of_bound']:.4f}"
         + (f", plain {case['plain_ms']:.3f} ms (median of {plain_reps})" if plain_reps else "")
         + f"; by kernel (us per call): {json.dumps(case['kernels_us'])}")
     return case
@@ -177,6 +188,11 @@ def phase_kernel(device, seed: int, name: str, texts, buckets=BUCKETS, short=819
         if name == "mtf_wide" and width == 256:  # mtf_ranks_pallas's one-row form
             got = mtf_wide.mtf_ranks_wide(seqs[0])
             max_err = max(max_err, check_equal(f"{name} one row", got[None, :], want))
+            seqs = torch.randint(0, width, (1, n_max), generator=gen, dtype=torch.int32).to(device)
+            got = mtf_wide.mtf_ranks_wide(seqs[0])
+            max_err = max(max_err, check_equal(f"{name} one row random", got[None, :], plain(seqs, width)))
+            cases.append(timed_case("one-row random", name, width, seqs, reps, 0,
+                                    kernel=lambda x, _: mtf_wide.mtf_ranks_wide(x[0])))
         log(f"{name} width {width}: equal to plain at every shape and input")
     return max_err, cases
 
@@ -319,13 +335,20 @@ def main() -> int:
     checks = {name: phase_kernel(device, args.seed, name, by_label) for name in KERNELS}
     for (label, texts, (bits,)), n_max in zip(runs, (BUCKETS[1],) + (BUCKETS[0],) * 3):
         phase_step(device, texts, bits, n_max)
-    launches = {"mtf_narrow": 0, "mtf_wide": 0}
+    # the narrow wrapper's launches split by the class of their batch
+    # (phase 5 holds its count to the bits 4/5/6 batches): width 16 at
+    # bits 4, the windowed kernel at bits 5/6
+    launches = {"mtf_narrow": 0, "mtf_narrow_windowed": 0, "mtf_wide": 0}
     exact8 = 0
     for label, texts, classes in runs:
         narrow, wide, stats = phase_end_to_end(device, label, texts, classes)
-        launches["mtf_narrow"] += narrow
+        launches["mtf_narrow"] += stats["batches_bits4"]
+        launches["mtf_narrow_windowed"] += narrow - stats["batches_bits4"]
         launches["mtf_wide"] += wide
         exact8 += stats["blocks_bits8"] - stats["tie_reencodes_bits8"]
+    for name, n in launches.items():
+        if n == 0:
+            raise AssertionError(f"{name}: no launch in the device-only encodes")
     if exact8 == 0:
         raise AssertionError("no bits==8 block was tie-free on the device")
     phase_entry_points(device, "config2", bed2)
@@ -336,20 +359,26 @@ def main() -> int:
     jax_pkg = sorted(m for m in sys.modules if m == "starch3_tpu" or m.startswith("starch3_tpu."))
     if jax_pkg:
         raise AssertionError(f"modules of the JAX package were imported: {jax_pkg}")
-    replaces = {
-        "mtf_narrow": "starch3_tpu/ops/mtf_narrow_pallas.py:95",
-        "mtf_wide": "starch3_tpu/ops/mtf_pallas.py:112",
-    }
+    # (name, wrapper, source, replaces, widths, main width and n_max)
+    entries = [
+        ("mtf_narrow", "mtf_narrow", "mtf_narrow.cu", "starch3_tpu/ops/mtf_narrow_pallas.py:95",
+         (16,), KERNELS["mtf_narrow"][3]),
+        ("mtf_narrow_windowed", "mtf_narrow", "mtf_wide.cu",
+         "starch3_tpu/ops/mtf_narrow_pallas.py:95", (32, 64), (32, 901_120)),
+        ("mtf_wide", "mtf_wide", "mtf_wide.cu", "starch3_tpu/ops/mtf_pallas.py:112",
+         mtf_wide.WIDTHS, KERNELS["mtf_wide"][3]),
+    ]
     kernels = []
-    for name, (max_err, cases) in checks.items():
-        width, n_max = KERNELS[name][3]
+    for name, wrapper, source, replaces, widths, (width, n_max) in entries:
+        max_err, cases = checks[wrapper]
+        cases = [c for c in cases if c["width"] in widths]
         main = next(c for c in cases
                     if c["input"] == "random" and c["width"] == width and c["shape"][1] == n_max)
         kernels.append({
             "name": name,
             "route": "cuda",
-            "source": f"starch3_tpu_torch/csrc/{name}.cu",
-            "replaces": replaces[name],
+            "source": f"starch3_tpu_torch/csrc/{source}",
+            "replaces": replaces,
             "launches": launches[name],
             "max_abs_err": max_err,
             "ms": main["ms"],
@@ -357,6 +386,7 @@ def main() -> int:
             "bound_ms": main["bound_ms"],
             "bound_by": "bytes",
             "library_ms": None,  # no single PyTorch call computes MTF ranks
+            "device_ms": main["device_ms"],
             "share_of_bound": main["share_of_bound"],
             "widths": cases,
         })

@@ -1,5 +1,6 @@
-// Narrow-alphabet MTF ranks on Hopper (sm_90a): the MTF of the bits 4, 5
-// and 6 tiers (widths 16, 32 and 64).
+// Narrow-alphabet MTF ranks on Hopper (sm_90a) at width 16: the MTF of the
+// bits-4 tier.  Widths 32 and 64 (bits 5 and 6) run the windowed kernel of
+// csrc/mtf_wide.cu.
 //
 // Replaces the Pallas kernel starch3_tpu/ops/mtf_narrow_pallas.py
 // (_make_kernel, launched by mtf_ranks_narrow_batch).  Same function:
@@ -13,9 +14,9 @@
 // carries a (W, 128) last-occurrence table from one grid step to the next
 // in VMEM.  CUDA blocks run in no order, so the carry is made explicit.
 //
-// Width 16, the main path (mtf16_kernel): one launch that reads the input
-// once.  The 16-entry MTF list is one 64-bit register, a nibble per list
-// position (position 0, the front, in the low nibble).  The rank of s is
+// mtf16_kernel: one launch that reads the input once.  The 16-entry MTF
+// list is one 64-bit register, a nibble per list position (position 0,
+// the front, in the low nibble).  The rank of s is
 // the lowest zero nibble of list ^ (s * 0x1111...): with
 // t = (x - 0x1111...) & ~x & 0x8888..., the lowest flagged nibble is exact.
 // Moving s to the front shifts the nibbles below its rank up by one.  That
@@ -34,8 +35,8 @@
 //     warps' totals) into each thread's exclusive prefix;
 //   - the list entering the chunk comes from the last occurrences before
 //     it: the block takes each symbol's max over the row's earlier chunks
-//     (seeded with L0), as the two-pass form's carry does, all loads in
-//     one round, and ranks the 16 symbols by it;
+//     (seeded with L0), all loads in one round, and ranks the 16 symbols
+//     by it;
 //   - each thread's starting list is its exclusive prefix composed after
 //     the list entering the chunk; the thread walks its run.
 // Blocks take their chunk from a counter (atomicAdd), so every chunk they
@@ -43,37 +44,13 @@
 // chunks is a max of tables, not a composition of aggregates: a
 // composition costs the same whatever the data only when an aggregate
 // holds all 16 symbols, and real BWT output often leaves some out.
-
-// Widths 32 and 64 (chunk_last_kernel + mtf_rank_kernel), two passes:
-// max is associative, so the last-occurrence table at any position is the
-// max of L0 and the tables of everything before it:
 //
-//   pass 1 (chunk_last_kernel): one block per 4096-position chunk writes
-//     the chunk's own last-occurrence table, tables[B, T, W].
-//   pass 2 (mtf_rank_kernel): one block per chunk
-//     a. max-reduces the tables of the row's earlier chunks with L0 (the
-//        carry into the chunk; at most 219 chunks at n_max = 901,120),
-//     b. gives each thread a run of RUN consecutive positions and builds
-//        the run's own table in a shared-memory column,
-//     c. turns the columns into each thread's starting table by an
-//        exclusive max-scan across threads (warp shuffles, then the
-//        totals of the earlier warps),
-//     d. walks the run in order: rank = #entries above the own entry,
-//        then own entry = position.
-//
-// What bounds them: device-memory traffic at best, 4 bytes read and 4
-// written per position; measured on an H100, both forms reach 9-28% of
-// that bound, held back by each block's chain of dependent steps (the
+// What bounds it: device-memory traffic at best, 4 bytes read and 4
+// written per position; measured on an H100 it reaches 21-33% of that
+// bound, held back by each block's chain of dependent steps (the
 // aggregate, the block scan, the wait for the row's earlier tables, the
-// walk) with 3-5 blocks an SM.  Width 16 reads the input once, staged
-// through shared memory so that loads and stores are coalesced; the
-// two-pass form reads it twice, though a production batch (3 x 901,120
-// int32, 10.8 MB) sits in the 50 MB L2 when pass 2 reads it again, with
-// 16-byte loads and stores a thread.  It keeps its tables in shared memory,
-// symbol-major and thread-minor (entry [s][thread]), so a warp touching
-// one symbol hits 32 banks; at W = 64 a block has 128 threads so the
-// tables stay in 32 KB of static shared memory, under the 48 KB that
-// needs no opt-in.
+// walk) with five blocks an SM.  The input is read once, staged through
+// shared memory so that loads and stores are coalesced.
 
 #include <cuda_runtime.h>
 
@@ -82,137 +59,6 @@ namespace {
 constexpr int CHUNK = 4096;
 constexpr int NEG = -(1 << 30);
 constexpr unsigned FULL = 0xffffffffu;
-
-template <int W>
-struct Cfg {
-  static constexpr int THREADS = W == 64 ? 128 : 256;
-  static constexpr int RUN = CHUNK / THREADS;  // positions per thread
-  static constexpr int WARPS = THREADS / 32;
-  static constexpr int GROUPS = THREADS / W;  // threads per symbol in the carry
-};
-
-template <int RUN>
-__device__ __forceinline__ void load_run(const int* src, int (&v)[RUN]) {
-  const int4* p = reinterpret_cast<const int4*>(src);
-#pragma unroll
-  for (int q = 0; q < RUN / 4; ++q) {
-    int4 x = p[q];
-    v[4 * q] = x.x;
-    v[4 * q + 1] = x.y;
-    v[4 * q + 2] = x.z;
-    v[4 * q + 3] = x.w;
-  }
-}
-
-template <int W>
-__global__ void __launch_bounds__(Cfg<W>::THREADS)
-chunk_last_kernel(const int* __restrict__ seqs, int* __restrict__ tables, int n_chunks) {
-  constexpr int THREADS = Cfg<W>::THREADS, RUN = Cfg<W>::RUN;
-  __shared__ int tab[W];
-  const int t = blockIdx.x, b = blockIdx.y, j = threadIdx.x;
-  for (int s = j; s < W; s += THREADS) tab[s] = NEG;
-  __syncthreads();
-
-  const int base = t * CHUNK + j * RUN;
-  int v[RUN];
-  load_run<RUN>(seqs + (long long)b * n_chunks * CHUNK + base, v);
-  // backwards: only a symbol's last position in the run reaches shared memory
-  unsigned long long seen = 0;
-#pragma unroll
-  for (int k = RUN - 1; k >= 0; --k) {
-    const unsigned s = (unsigned)v[k];
-    if (s < W && !((seen >> s) & 1ull)) {
-      seen |= 1ull << s;
-      atomicMax(&tab[s], base + k);
-    }
-  }
-  __syncthreads();
-  for (int s = j; s < W; s += THREADS)
-    tables[((long long)b * n_chunks + t) * W + s] = tab[s];
-}
-
-template <int W>
-__global__ void __launch_bounds__(Cfg<W>::THREADS)
-mtf_rank_kernel(const int* __restrict__ seqs, const int* __restrict__ tables,
-                int* __restrict__ out, int n_chunks) {
-  constexpr int THREADS = Cfg<W>::THREADS, RUN = Cfg<W>::RUN;
-  constexpr int WARPS = Cfg<W>::WARPS, GROUPS = Cfg<W>::GROUPS;
-  __shared__ int last[W][THREADS];
-  __shared__ int part[GROUPS][W];
-  __shared__ int carry[W];
-  __shared__ int wtot[WARPS][W];
-  const int t = blockIdx.x, b = blockIdx.y, j = threadIdx.x;
-  const int lane = j & 31, warp = j >> 5;
-
-  // a. carry into this chunk: L0 and the tables of the row's earlier chunks
-  {
-    const int s = j % W, g = j / W;
-    const int* tb = tables + (long long)b * n_chunks * W + s;
-    int m = -1 - s;
-    for (int c = g; c < t; c += GROUPS) m = max(m, tb[c * W]);
-    part[g][s] = m;
-  }
-
-  // b. this thread's run and the run's own last-occurrence column
-  const int base = t * CHUNK + j * RUN;
-  const long long off = (long long)b * n_chunks * CHUNK + base;
-  int v[RUN];
-  load_run<RUN>(seqs + off, v);
-#pragma unroll
-  for (int s = 0; s < W; ++s) last[s][j] = NEG;
-#pragma unroll
-  for (int k = 0; k < RUN; ++k) {
-    const unsigned s = (unsigned)v[k];
-    if (s < W) last[s][j] = base + k;
-  }
-  __syncthreads();
-  if (j < W) {
-    int m = part[0][j];
-#pragma unroll
-    for (int g = 1; g < GROUPS; ++g) m = max(m, part[g][j]);
-    carry[j] = m;
-  }
-
-  // c. exclusive max-scan of the columns across threads, per symbol
-#pragma unroll 4
-  for (int s = 0; s < W; ++s) {
-    int x = last[s][j];
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int y = __shfl_up_sync(FULL, x, d);
-      if (lane >= d) x = max(x, y);
-    }
-    int ex = __shfl_up_sync(FULL, x, 1);
-    last[s][j] = lane == 0 ? NEG : ex;
-    if (lane == 31) wtot[warp][s] = x;
-  }
-  __syncthreads();
-#pragma unroll 4
-  for (int s = 0; s < W; ++s) {
-    int m = max(carry[s], last[s][j]);
-    for (int w = 0; w < warp; ++w) m = max(m, wtot[w][s]);
-    last[s][j] = m;
-  }
-
-  // d. walk the run in order; ranks overwrite the symbols in registers
-#pragma unroll
-  for (int k = 0; k < RUN; ++k) {
-    const unsigned s = (unsigned)v[k];
-    int r = W;
-    if (s < W) {
-      const int own = last[s][j];
-      r = 0;
-#pragma unroll
-      for (int q = 0; q < W; ++q) r += last[q][j] > own;
-      last[s][j] = base + k;
-    }
-    v[k] = r;
-  }
-  int4* dst = reinterpret_cast<int4*>(out + off);
-#pragma unroll
-  for (int q = 0; q < RUN / 4; ++q)
-    dst[q] = make_int4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
-}
 
 namespace w16 {
 
@@ -447,20 +293,9 @@ mtf16_kernel(const int* __restrict__ seqs, int* __restrict__ out, int* lb, int n
 
 }  // namespace w16
 
-template <int W>
-int launch(const int* seqs, int* out, int* tables, int batch, int n_chunks,
-           cudaStream_t stream) {
-  const dim3 grid(n_chunks, batch);
-  chunk_last_kernel<W><<<grid, Cfg<W>::THREADS, 0, stream>>>(seqs, tables, n_chunks);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  mtf_rank_kernel<W><<<grid, Cfg<W>::THREADS, 0, stream>>>(seqs, tables, out, n_chunks);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
-// Width 16.  seqs, out: int32[batch, n_chunks * 4096], 16-byte aligned,
+// seqs, out: int32[batch, n_chunks * 4096], 16-byte aligned,
 // contiguous; lookback: int32[batch * n_chunks * 16 + 1], zeroed, 16-byte
 // aligned.  Returns a cudaError_t.
 extern "C" int s3t_mtf_narrow16(const int* seqs, int* out, int* lookback, int batch,
@@ -469,18 +304,6 @@ extern "C" int s3t_mtf_narrow16(const int* seqs, int* out, int* lookback, int ba
   w16::mtf16_kernel<<<n_tiles, w16::THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       seqs, out, lookback, n_chunks, n_tiles);
   return (int)cudaGetLastError();
-}
-
-// Widths 32 and 64.  seqs, out: as above; tables: int32[batch, n_chunks,
-// width] scratch.  Returns a cudaError_t.
-extern "C" int s3t_mtf_narrow(const int* seqs, int* out, int* tables, int batch,
-                              int n_chunks, int width, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (width) {
-    case 32: return launch<32>(seqs, out, tables, batch, n_chunks, st);
-    case 64: return launch<64>(seqs, out, tables, batch, n_chunks, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
 }
 
 extern "C" const char* s3t_error_string(int err) {

@@ -1,21 +1,24 @@
-// Wide-alphabet MTF ranks on Hopper (sm_90a): the bits==8 tier's MTF.
+// Windowed MTF ranks on Hopper (sm_90a), widths 32, 64, 128 and 256: the
+// MTF of the bits 5, 6 and 8 tiers.  Width 16 (bits 4) is csrc/mtf_narrow.cu.
 //
 // Replaces the Pallas kernels of starch3_tpu/ops/mtf_pallas.py:
 // _make_mtf_kernel_batch + _mtf_tile (launched by mtf_ranks_pallas_batch,
 // widths 128 and 256) and _mtf_kernel (mtf_ranks_pallas, one row at width
-// 256, which is this kernel at batch 1).  Same function: int32[B, n_max]
-// dense symbols < W -> int32[B, n_max] MTF ranks, where
+// 256, which is this kernel at batch 1), and at widths 32 and 64 the
+// kernel of starch3_tpu/ops/mtf_narrow_pallas.py (_make_kernel, launched
+// by mtf_ranks_narrow_batch).  Same function: int32[B, n_max] dense
+// symbols < W -> int32[B, n_max] MTF ranks, where
 // rank(i) = #{s : last[s] > last[seq[i]]}, last[s] is the last occurrence
 // of s before i, and unseen symbols start at L0(s) = -1 - s.  A symbol
 // outside [0, W), negative ones included, matches no table entry: its
 // rank is W and it changes nothing, as in _mtf_tile.  Each row starts
 // afresh.
 //
-// Why not the Pallas layout: the TPU kernel walks a row in grid order,
-// builds a (1024, W) one-hot tile per step and carries a (1, W) table in
-// VMEM from one grid step to the next.  CUDA blocks run in no order, so
-// the carry is made explicit.  Max is associative, so the table at any
-// position is the max of L0 and the tables of everything before it:
+// Why not the Pallas layout: the TPU kernels walk a row in grid order and
+// carry a last-occurrence table from one grid step to the next in VMEM.
+// CUDA blocks run in no order, so the carry is made explicit.  Max is
+// associative, so the table at any position is the max of L0 and the
+// tables of everything before it:
 //
 //   pass 1 (chunk_last_kernel): one block per 1024-position chunk writes
 //     the chunk's own last-occurrence table, tables[B, T, W].
@@ -50,12 +53,6 @@
 // a bitmap, a warp prefix sum over W / 32 positions a lane counts the
 // flags before each position, and every entry is scattered to its new
 // position in P and L.
-//
-// Why not the layout of the narrow kernel's two-pass form
-// (csrc/mtf_narrow.cu, widths 32/64): it keeps a W-entry table per thread
-// in shared memory.  At W = 256 that is 1 KB a
-// thread, 128 KB for 128 threads: past the 48 KB of static shared memory
-// and far past what leaves room for occupancy.
 //
 // What bounds it: instruction issue.  A window costs each lane about 200
 // instructions, none waiting on another lane's previous position, where
@@ -171,8 +168,9 @@ mtf_rank_kernel(const int* __restrict__ seqs, const int* __restrict__ carry,
   unsigned* flag = sFlag[wid];
   const unsigned lt = (1u << lane) - 1u, gt = ~lt << 1;
 
-  // the list at the chunk's start: sort (carry entry, symbol) descending;
-  // entries are >= -W and below 2**23, so each pair packs into 31 bits
+  // a. the list at the chunk's start: sort (carry entry, symbol)
+  // descending; entries are >= -W and below 2**23, so each pair packs into
+  // 31 bits
   {
     const int* cb = carry + ((long long)b * n_chunks + t) * W;
     int v[PER];
@@ -194,6 +192,7 @@ mtf_rank_kernel(const int* __restrict__ seqs, const int* __restrict__ carry,
   const long long off = ((long long)b * n_chunks + t) * CHUNK;
   const int* src = seqs + off;
   int* dst = out + off;
+  // b. the windows
   int nxt = src[lane];
   for (int base = 0; base < CHUNK; base += 32) {
     const int s = nxt;
@@ -282,6 +281,8 @@ extern "C" int s3t_mtf_wide(const int* seqs, int* out, int* tables, int batch,
                             int n_chunks, int width, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (width) {
+    case 32: return launch<32>(seqs, out, tables, batch, n_chunks, st);
+    case 64: return launch<64>(seqs, out, tables, batch, n_chunks, st);
     case 128: return launch<128>(seqs, out, tables, batch, n_chunks, st);
     case 256: return launch<256>(seqs, out, tables, batch, n_chunks, st);
     default: return (int)cudaErrorInvalidValue;

@@ -1,4 +1,5 @@
-"""Narrow-alphabet MTF ranks, batched: the bits==4 tier's MTF stage.
+"""Narrow-alphabet MTF ranks, batched: the MTF stage of the bits 4, 5 and
+6 tiers.
 
 Counterpart of ``starch3_tpu/ops/mtf_narrow_pallas.py``
 (``mtf_ranks_narrow_batch``).  The rank of the symbol at position i is
@@ -6,11 +7,13 @@ the number of symbols whose last occurrence before i is later than the
 last occurrence of ``seq[i]``; symbols not seen yet are ordered by
 ``L0(s) = -1 - s`` (the initial MTF list).  Each row starts afresh.
 
-``mtf_ranks_narrow_batch`` launches the hand-written CUDA kernel
-(``csrc/mtf_narrow.cu``: one pass with a register-resident list at width
-16, two passes at widths 32/64) for a CUDA tensor, and takes the plain
-PyTorch version ``mtf_ranks_narrow_reference`` only for a tensor on the
-CPU.  It never falls back from one to the other.
+``mtf_ranks_narrow_batch`` launches a hand-written CUDA kernel for a CUDA
+tensor: at width 16 ``csrc/mtf_narrow.cu`` (one pass, the list in a
+register), at widths 32/64 the windowed kernel of ``csrc/mtf_wide.cu``
+(per-chunk tables, a carry scan, a warp per 1024-position chunk), loaded
+through ``ops/mtf_wide.py``.  It takes the plain PyTorch version
+``mtf_ranks_narrow_reference`` only for a tensor on the CPU, and never
+falls back from one to the other.
 
 A symbol ``>= width`` (or negative) matches no symbol plane, as in the
 Pallas kernel: its rank is ``width`` and it leaves the recency order
@@ -23,7 +26,9 @@ import ctypes
 
 import torch
 
-CHUNK = 4096  # positions per CUDA block; n_max must be a multiple
+from starch3_tpu_torch.ops import mtf_wide
+
+CHUNK = 4096  # positions per CUDA block at width 16; n_max must be a multiple
 WIDTHS = (16, 32, 64)
 _NEG = -(1 << 30)
 
@@ -70,31 +75,30 @@ def mtf_ranks_narrow_batch(seqs: torch.Tensor, width: int = 16) -> torch.Tensor:
     b, n_max = seqs.shape
     if n_max % CHUNK:
         raise ValueError(f"n_max must be a multiple of {CHUNK}, got {n_max}")
+    if width > 16 and n_max > mtf_wide.MAX_N:  # the windowed kernel's limit
+        raise ValueError(f"n_max must be at most {mtf_wide.MAX_N}, got {n_max}")
     if seqs.data_ptr() % 16:
         raise ValueError("seqs must be 16-byte aligned")
     out = torch.empty_like(seqs)
     if b == 0:
         return out
-    n_chunks = n_max // CHUNK
-    lib = _lib()
-    with torch.cuda.device(seqs.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        if width == 16:  # each chunk's published table, then a tile counter
-            tables = torch.zeros(b * n_chunks * 16 + 1, dtype=torch.int32, device=seqs.device)
+    if width == 16:
+        n_chunks = n_max // CHUNK
+        lib = _lib()
+        # each chunk's published table, then a tile counter
+        tables = torch.zeros(b * n_chunks * 16 + 1, dtype=torch.int32, device=seqs.device)
+        with torch.cuda.device(seqs.device):
+            stream = torch.cuda.current_stream().cuda_stream
             err = lib.s3t_mtf_narrow16(
                 seqs.data_ptr(), out.data_ptr(), tables.data_ptr(), b, n_chunks, stream,
             )
-        else:
-            tables = torch.empty((b, n_chunks, width), dtype=torch.int32, device=seqs.device)
-            err = lib.s3t_mtf_narrow(
-                seqs.data_ptr(), out.data_ptr(), tables.data_ptr(),
-                b, n_chunks, width, stream,
+        if err != 0:
+            raise RuntimeError(
+                f"mtf_narrow kernel launch failed: CUDA error {err} "
+                f"({lib.s3t_error_string(err).decode()})"
             )
-    if err != 0:
-        raise RuntimeError(
-            f"mtf_narrow kernel launch failed: CUDA error {err} "
-            f"({lib.s3t_error_string(err).decode()})"
-        )
+    else:
+        mtf_wide.launch(seqs, out, width, "mtf_narrow")
     global launches
     launches += 1
     return out
@@ -104,17 +108,13 @@ _LIB = None
 
 
 def _lib():
-    """The kernel library, built from ``csrc/mtf_narrow.cu`` at first use."""
+    """The width-16 kernel library, built from ``csrc/mtf_narrow.cu`` at
+    first use."""
     global _LIB
     if _LIB is None:
         from starch3_tpu_torch._build import build
 
         lib = ctypes.CDLL(str(build("mtf_narrow")))
-        lib.s3t_mtf_narrow.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ]
-        lib.s3t_mtf_narrow.restype = ctypes.c_int
         lib.s3t_mtf_narrow16.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_int, ctypes.c_int, ctypes.c_void_p,

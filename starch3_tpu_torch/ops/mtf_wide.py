@@ -10,8 +10,8 @@ afresh.
 
 ``mtf_ranks_wide_batch`` launches the hand-written CUDA kernel
 (``csrc/mtf_wide.cu``: per-chunk tables, a carry scan, then a warp per
-chunk walking 32 positions a step) for a CUDA tensor, and takes the plain PyTorch
-version ``mtf_ranks_wide_reference`` only for a tensor on the CPU.  It
+chunk walking 32 positions a step) for a CUDA tensor, and takes the plain
+PyTorch version ``mtf_ranks_wide_reference`` only for a tensor on the CPU.  It
 never falls back from one to the other.
 
 A symbol ``>= width`` (or negative) matches no symbol, as in the Pallas
@@ -89,6 +89,20 @@ def mtf_ranks_wide_batch(seqs: torch.Tensor, width: int = 256) -> torch.Tensor:
     out = torch.empty_like(seqs)
     if b == 0:
         return out
+    launch(seqs, out, width, "mtf_wide")
+    global launches
+    launches += 1
+    return out
+
+
+def launch(seqs: torch.Tensor, out: torch.Tensor, width: int, name: str) -> None:
+    """Launch the windowed kernel on ``seqs``' current stream, writing
+    ``out``.  The caller has checked the input (int32[B, n_max] on a CUDA
+    device, contiguous, 16-byte aligned, B > 0, ``n_max`` a multiple of
+    1024 and at most ``MAX_N``) and counts the launch; ``name`` is its
+    own, for the error message.  Widths 32 and 64 are
+    ``mtf_ranks_narrow_batch``'s."""
+    b, n_max = seqs.shape
     n_chunks = n_max // CHUNK
     tables = torch.empty((b, n_chunks, width), dtype=torch.int32, device=seqs.device)
     lib = _lib()
@@ -100,12 +114,9 @@ def mtf_ranks_wide_batch(seqs: torch.Tensor, width: int = 256) -> torch.Tensor:
         )
     if err != 0:
         raise RuntimeError(
-            f"mtf_wide kernel launch failed: CUDA error {err} "
+            f"{name} kernel launch failed: CUDA error {err} "
             f"({lib.s3t_mtf_wide_error_string(err).decode()})"
         )
-    global launches
-    launches += 1
-    return out
 
 
 def mtf_ranks_wide(seq: torch.Tensor) -> torch.Tensor:

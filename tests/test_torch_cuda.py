@@ -55,6 +55,40 @@ def test_kernel_equals_plain(cuda, width, shape):
     assert torch.equal(got, mtf_ranks_narrow_reference(seqs, width))
 
 
+@pytest.mark.parametrize("width", [32, 64])
+def test_windowed_widths_count_as_narrow_launches(cuda, width):
+    """Widths 32/64 run the windowed kernel of csrc/mtf_wide.cu through the
+    narrow wrapper: one narrow launch per call, none of the wide wrapper's,
+    at the smallest narrow shape and at a production one."""
+    for shape in [(1, 4096), (3, 901_120)]:
+        seqs = torch.randint(0, width, shape, generator=torch.Generator().manual_seed(width),
+                             dtype=torch.int32).to(cuda)
+        narrow, wide = mtf_narrow.launches, mtf_wide.launches
+        got = mtf_ranks_narrow_batch(seqs, width)
+        torch.cuda.synchronize()
+        assert (mtf_narrow.launches, mtf_wide.launches) == (narrow + 1, wide)
+        assert torch.equal(got, mtf_ranks_narrow_reference(seqs, width))
+
+
+@pytest.mark.parametrize("width", [32, 64])
+def test_windowed_widths_runs_then_every_symbol(cuda, width):
+    """Rows that hold one symbol for whole windows and chunks, then every
+    symbol of the alphabet inside one window, then runs again; the last
+    row starts with a window of all symbols."""
+    n_max = 16_384
+    seqs = torch.empty((3, n_max), dtype=torch.int32)
+    seqs[0] = 5
+    seqs[0, 3000 : 3000 + width] = torch.arange(width, dtype=torch.int32).flip(0)
+    seqs[1] = torch.arange(n_max, dtype=torch.int32) // 700 % width
+    seqs[1, 2048 : 2048 + width] = torch.randperm(width, generator=torch.Generator().manual_seed(3)).int()
+    seqs[2] = torch.arange(n_max, dtype=torch.int32) % width
+    seqs[2, 64:] = width - 1
+    seqs = seqs.to(cuda)
+    got = mtf_ranks_narrow_batch(seqs, width)
+    torch.cuda.synchronize()
+    assert torch.equal(got, mtf_ranks_narrow_reference(seqs, width))
+
+
 def test_kernel_rejects_bad_input(cuda):
     with pytest.raises(ValueError, match="multiple of 4096"):
         mtf_ranks_narrow_batch(torch.zeros((1, 1000), dtype=torch.int32, device=cuda))
