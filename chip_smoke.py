@@ -51,10 +51,9 @@ The port imports nothing of JAX and nothing of the JAX package
 ``starch3_tpu``; the run fails if either is loaded.  The line before the
 card's name is one JSON object describing each kernel of the path (the
 narrow wrapper's two kernels apart, their launches split by the class of
-the batch); the
-last line is ``{"ok": true, "device": {...}}``.  Without a card, or
-without the rest of the repository, it fails before printing any
-result.
+the batch); the last line is ``{"ok": true, "device": {...}}``.  Without
+a card, or without the rest of the repository, it fails before printing
+any result.
 """
 
 from __future__ import annotations

@@ -21,17 +21,19 @@
 // tables of everything before it:
 //
 //   pass 1 (chunk_last_kernel): one block per 1024-position chunk writes
-//     the chunk's own last-occurrence table, tables[B, T, W].
+//     the chunk's own last-occurrence table, tables[B, T, W]; at W <= 64
+//     (chunk_last_warp_kernel) a warp per chunk, window by window.
 //   pass 2 (carry_scan_kernel): turns the tables, in place, into each
 //     chunk's carry: the exclusive prefix max over the row's chunks,
 //     seeded with L0.  A block takes 32 symbols of a row and cuts the
 //     row's chunks into 32 segments, a thread for each (symbol, segment),
 //     so the work is linear in the number of chunks (880 at n_max =
 //     901,120) and a row spreads over W / 32 blocks.
-//   pass 3 (mtf_rank_kernel): one warp per chunk, 32 positions a step
-//     (a window), one lane per position, with no chain between lanes.
+//   pass 3 (mtf_rank_kernel; mtf_rank_reg_kernel at W <= 64): one warp
+//     per chunk, 32 positions a step (a window), one lane per position,
+//     with no chain between lanes.
 //
-// Pass 3 in detail.  The warp keeps the MTF list of its chunk in shared
+// Pass 3 in detail, at W = 128 and 256.  The warp keeps the MTF list of its chunk in shared
 // memory in both directions: P[s] is the list position of symbol s, L[p]
 // the symbol at position p.  At the chunk's start P[s] is the rank of s's
 // carry entry (the entries are distinct: positions, or -1 - s), found by
@@ -54,14 +56,21 @@
 // flags before each position, and every entry is scattered to its new
 // position in P and L.
 //
+// At W = 32 and 64 the list is one or two positions a lane, so it leaves
+// shared memory: mtf_rank_reg_kernel keeps P alone, in registers, and
+// builds a window's ranks and flags from two prefix ORs over the lanes
+// (see there); L is not needed.
+//
 // What bounds it: instruction issue.  A window costs each lane about 200
-// instructions, none waiting on another lane's previous position, where
-// a walk of one position at a time spends about 30 dependent
-// instructions per position.  Device-memory traffic is small beside
-// that: the symbols are read twice and the ranks written once (12 bytes a
-// position), and the tables are W ints per 1024 positions.
+// instructions at W = 256, none waiting on another lane's previous
+// position, where a walk of one position at a time spends about 30
+// dependent instructions per position.  Device-memory traffic is small
+// beside that: the symbols are read twice and the ranks written once (12
+// bytes a position), and the tables are W ints per 1024 positions.
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -91,6 +100,35 @@ chunk_last_kernel(const int* __restrict__ seqs, int* __restrict__ tables, int n_
   __syncthreads();
   for (int s = j; s < W; s += LAST_THREADS)
     tables[((long long)b * n_chunks + t) * W + s] = tab[s];
+}
+
+// Pass 1 at W <= 64: a warp per chunk, one window of 32 positions at a
+// time, and a lane updates the table only where the next lane's symbol
+// differs, so a run of one symbol (common in BWT output) costs one shared
+// atomic, not one for each of its positions queued on one address.
+template <int W>
+__global__ void __launch_bounds__(RANK_WARPS * 32)
+chunk_last_warp_kernel(const int* __restrict__ seqs, int* __restrict__ tables, int n_chunks) {
+  __shared__ int tab[RANK_WARPS][W];
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  const int t = blockIdx.x * RANK_WARPS + wid, b = blockIdx.y;
+  if (t >= n_chunks) return;  // the whole warp leaves; no block barrier follows
+  int* T = tab[wid];
+  for (int s = lane; s < W; s += 32) T[s] = NEG;
+  const int* src = seqs + ((long long)b * n_chunks + t) * CHUNK;
+  int v[CHUNK / 32];
+#pragma unroll
+  for (int w = 0; w < CHUNK / 32; ++w) v[w] = src[w * 32 + lane];  // all in flight
+  __syncwarp();
+#pragma unroll
+  for (int w = 0; w < CHUNK / 32; ++w) {
+    const int s = v[w];
+    const int next = __shfl_down_sync(FULL, s, 1);
+    if ((unsigned)s < (unsigned)W && (lane == 31 || next != s))
+      atomicMax(&T[s], t * CHUNK + w * 32 + lane);
+  }
+  __syncwarp();
+  for (int s = lane; s < W; s += 32) tables[((long long)b * n_chunks + t) * W + s] = T[s];
 }
 
 template <int W>
@@ -257,19 +295,131 @@ mtf_rank_kernel(const int* __restrict__ seqs, const int* __restrict__ carry,
   }
 }
 
+// Pass 3 at W <= 64: the list is P alone, in registers (lane l holds the
+// positions of symbols l and l + 32), and a window's ranks and flags come
+// from two inclusive prefix ORs over the lanes, with no shared-memory
+// list, no atomics and no prefix sum.
+template <int W>
+__global__ void __launch_bounds__(RANK_WARPS * 32)
+mtf_rank_reg_kernel(const int* __restrict__ seqs, const int* __restrict__ carry,
+                    int* __restrict__ out, int n_chunks) {
+  static_assert(W == 32 || W == 64, "one or two list positions a lane");
+  constexpr int PER = W / 32;
+  using Mask = typename std::conditional<W == 64, unsigned long long, unsigned>::type;
+  __shared__ int sR[RANK_WARPS][2][W];  // a window's symbols' new positions, by symbol
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  const int t = blockIdx.x * RANK_WARPS + wid, b = blockIdx.y;
+  if (t >= n_chunks) return;  // the whole warp leaves; no block barrier follows
+  const unsigned lt = (1u << lane) - 1u, gt = ~lt << 1;
+  int P[PER];  // P[h]: the list position of symbol lane + 32 h
+
+  // a. the list at the chunk's start: sort (carry entry, symbol)
+  // descending, as in mtf_rank_kernel, then each position goes to the
+  // lane that owns its symbol through shared memory
+  {
+    const int* cb = carry + ((long long)b * n_chunks + t) * W;
+    int v[PER];
+#pragma unroll
+    for (int q = 0; q < PER; ++q) {
+      const int s = lane * PER + q;
+      v[q] = ((cb[s] + W + 1) << 8) | s;
+    }
+    warp_sort_desc<PER>(v, lane);
+#pragma unroll
+    for (int q = 0; q < PER; ++q) sR[wid][0][v[q] & 255] = lane * PER + q;
+    __syncwarp();
+#pragma unroll
+    for (int h = 0; h < PER; ++h) P[h] = sR[wid][0][lane + 32 * h];
+  }
+
+  // b. the windows.  Lane i: prev = the last lower lane with its symbol.
+  //   - prev >= 0: rank = the lanes in (prev, i) that hold the last
+  //     occurrence of their symbol in lanes [0, i), i.e. the valid lanes
+  //     in (prev, i) that are no lane's prev: x, the OR of the bits
+  //     1 << prev over lanes [0, i], marks those that are;
+  //   - prev < 0: rank = P[s] + the symbols of lanes [0, i) behind s in
+  //     the list: g, the OR of the bits 1 << P[s] over lanes [0, i],
+  //     counted above P[s].
+  // g at lane 31 flags the list positions of all the window's symbols;
+  // a symbol outside them moves down by the flags below its position,
+  // and the window's symbols take their rank among the window's last
+  // occurrences, written by their last lane (two buffers, so a window's
+  // writes never meet the previous window's reads).  __match_any_sync
+  // stays: one ballot per bit of the symbol measured slower here.
+  const long long off = ((long long)b * n_chunks + t) * CHUNK;
+  const int* src = seqs + off;
+  int* dst = out + off;
+  int nxt = src[lane];
+  for (int base = 0; base < CHUNK; base += 32) {
+    const int s = nxt;
+    if (base + 32 < CHUNK) nxt = src[base + 32 + lane];  // the next window, in flight
+    const bool valid = (unsigned)s < (unsigned)W;
+    const unsigned vl = __ballot_sync(FULL, valid);
+    const unsigned same = __match_any_sync(FULL, s);
+    const unsigned below = same & lt;
+    const int prev = below ? 31 - __clz(below) : -1;
+    int pi = __shfl_sync(FULL, P[0], s & 31);
+    if (PER == 2) {
+      const int p1 = __shfl_sync(FULL, P[PER - 1], s & 31);
+      if (s & 32) pi = p1;
+    }
+    pi = valid ? pi : 0;
+    unsigned x = valid && prev >= 0 ? 1u << prev : 0u;
+    Mask g = valid ? Mask(1) << pi : Mask(0);
+#pragma unroll
+    for (int dd = 1; dd < 32; dd <<= 1) {
+      x |= __shfl_up_sync(FULL, x, dd);
+      g |= __shfl_up_sync(FULL, g, dd);
+    }
+    int rank;
+    if (!valid) {
+      rank = W;
+    } else if (prev >= 0) {
+      rank = __popc(vl & ~x & lt & ~((2u << prev) - 1u));
+    } else if (W == 64) {
+      rank = pi + __popcll((unsigned long long)g & ~((2ull << pi) - 1ull));
+    } else {
+      rank = pi + __popc((unsigned)g & ~((2u << pi) - 1u));
+    }
+    dst[base + lane] = rank;
+
+    // the window's end
+    const Mask flags = __shfl_sync(FULL, g, 31);
+    const bool is_last = valid && (same & gt) == 0;
+    const unsigned lasts = __ballot_sync(FULL, is_last);
+    const int d = __popc(lasts);
+    int* R = sR[wid][1 - ((base >> 5) & 1)];
+    if (is_last) R[s] = __popc(lasts & gt);
+    __syncwarp();
+#pragma unroll
+    for (int h = 0; h < PER; ++h) {
+      const int p = P[h];
+      const Mask under = flags & ((Mask(1) << p) - Mask(1));
+      const int moved = W == 64 ? __popcll((unsigned long long)under) : __popc((unsigned)under);
+      P[h] = (flags >> p) & Mask(1) ? R[lane + 32 * h] : d + p - moved;
+    }
+  }
+}
+
 template <int W>
 int launch(const int* seqs, int* out, int* tables, int batch, int n_chunks,
            cudaStream_t stream) {
-  chunk_last_kernel<W><<<dim3(n_chunks, batch), LAST_THREADS, 0, stream>>>(
-      seqs, tables, n_chunks);
+  const dim3 grid((n_chunks + RANK_WARPS - 1) / RANK_WARPS, batch);
+  if constexpr (W <= 64)
+    chunk_last_warp_kernel<W><<<grid, RANK_WARPS * 32, 0, stream>>>(seqs, tables, n_chunks);
+  else
+    chunk_last_kernel<W><<<dim3(n_chunks, batch), LAST_THREADS, 0, stream>>>(
+        seqs, tables, n_chunks);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   carry_scan_kernel<W><<<dim3(W / SCAN_SYMS, batch), SCAN_SYMS * SCAN_SEGS, 0, stream>>>(
       tables, n_chunks);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((n_chunks + RANK_WARPS - 1) / RANK_WARPS, batch);
-  mtf_rank_kernel<W><<<grid, RANK_WARPS * 32, 0, stream>>>(seqs, tables, out, n_chunks);
+  if constexpr (W <= 64)
+    mtf_rank_reg_kernel<W><<<grid, RANK_WARPS * 32, 0, stream>>>(seqs, tables, out, n_chunks);
+  else
+    mtf_rank_kernel<W><<<grid, RANK_WARPS * 32, 0, stream>>>(seqs, tables, out, n_chunks);
   return (int)cudaGetLastError();
 }
 
