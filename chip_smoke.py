@@ -24,7 +24,9 @@ passes:
      uniform random rows at (3, 458,752) and (3, 901,120); the real MTF
      input of each tier, the BWT of three real blocks of its corpus; short
      rows whose pad holds out-of-range and negative symbols; a rare symbol
-     silent across many chunks.  Median CUDA-event times of kernel and
+     silent across many chunks (on a mismatch the input and both outputs
+     are saved under build/ and both sides run again, on the card and on
+     the CPU).  Median CUDA-event times of kernel and
      plain version on the random rows and of the kernel on the real input
      and on one random row at (1, 901,120) (the one-row form), each beside
      its memory bound, and each CUDA kernel's device time by name under
@@ -39,8 +41,9 @@ passes:
      (bits 6) and the free-text corpus (bits 8, multi-block streams).
      Every stream equals ``bz2.compress(text, 9)``, the device blocks
      equal all blocks, each corpus's class ran on the device, the narrow
-     kernel's launches equal the bits 4/5/6 batches and the wide kernel's
-     the bits-8 batches, and at least one bits-8 block was tie-free;
+     kernel's launches at widths 16, 32 and 64 equal the bits 4, 5 and 6
+     batches and the wide kernel's the bits-8 batches, and at least one
+     bits-8 block was tie-free;
      MB/s beside same-run libbz2 -9;
   6. the entry points, on config 2 and on config 3:
      ``compress_bed_bytes(use_jax=True)`` equals the host path's archive
@@ -50,8 +53,8 @@ passes:
 The port imports nothing of JAX and nothing of the JAX package
 ``starch3_tpu``; the run fails if either is loaded.  The line before the
 card's name is one JSON object describing each kernel of the path (the
-narrow wrapper's two kernels apart, their launches split by the class of
-the batch); the last line is ``{"ok": true, "device": {...}}``.  Without
+narrow wrapper's two kernels apart, each with the launches it counted);
+the last line is ``{"ok": true, "device": {...}}``.  Without
 a card, or without the rest of the repository, it fails before printing
 any result.
 """
@@ -90,13 +93,36 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def check_equal(name: str, got: torch.Tensor, want: torch.Tensor) -> int:
-    """Exact equality; returns the max absolute difference (0)."""
+def check_equal(name: str, got: torch.Tensor, want: torch.Tensor, case=None) -> int:
+    """Exact equality; returns the max absolute difference (0).
+
+    ``case``, for a kernel's check: (input, kernel, plain), the last two
+    functions of the input.  On a mismatch the input and both outputs are
+    saved under ``build/``, and the kernel and the plain version run again
+    on the same input, on the card and (the plain version) on the CPU, to
+    tell which side was wrong."""
     err = int((got.long() - want.long()).abs().max().item()) if got.numel() else 0
-    if got.shape != want.shape or err != 0:
-        bad = (got != want).nonzero()[:5].tolist()
-        raise AssertionError(f"{name}: kernel != plain (max |diff| {err}, first at {bad})")
-    return err
+    if got.shape == want.shape and err == 0:
+        return err
+    msg = f"{name}: kernel != plain (max |diff| {err}"
+    if got.shape == want.shape:
+        bad = (got != want).nonzero()[:5]
+        at = [(pos, int(got[tuple(pos)]), int(want[tuple(pos)])) for pos in bad.tolist()]
+        msg += f", {int((got != want).sum())} positions, first (position, kernel, plain) {at}"
+    msg += ")"
+    if case is not None:
+        seqs, kernel, plain = case
+        path = BUILD_DIR / ("mismatch-" + "".join(c if c.isalnum() else "_" for c in name) + ".pt")
+        torch.save({"seqs": seqs.cpu(), "got": got.cpu(), "want": want.cpu()}, path)
+        again, plain_again = kernel(seqs), plain(seqs)
+        on_cpu = plain(seqs.cpu())
+        msg += (
+            f"; saved to {path}.  Again on the same input: kernel == its first output "
+            f"{torch.equal(again, got)}, plain == its first output {torch.equal(plain_again, want)}, "
+            f"kernel == plain {torch.equal(again, plain_again)}; plain on the CPU == first kernel "
+            f"output {torch.equal(on_cpu, got.cpu())}, == first plain output {torch.equal(on_cpu, want.cpu())}"
+        )
+    raise AssertionError(msg)
 
 
 # name -> (module, kernel wrapper, plain version, main path's width and n_max)
@@ -150,30 +176,31 @@ def phase_kernel(device, seed: int, name: str, texts, buckets=BUCKETS, short=819
     gen = torch.Generator(device="cpu").manual_seed(seed)
     max_err = 0
     cases = []
+
+    def one_row(x, _):  # mtf_ranks_pallas's one-row form, on a [1, n] batch
+        return mtf_wide.mtf_ranks_wide(x[0])[None, :]
+
+    def check(label, seqs, run=kernel):
+        case = (seqs, lambda x: run(x, width), lambda x: plain(x, width))
+        return check_equal(f"{name} w{width} {label}", run(seqs, width), plain(seqs, width), case)
+
     for width in mod.WIDTHS:
         for n_max in buckets:
             seqs = torch.randint(0, width, (3, n_max), generator=gen, dtype=torch.int32).to(device)
-            got = kernel(seqs, width)
-            want = plain(seqs, width)
-            max_err = max(max_err, check_equal(f"{name} w{width} (3, {n_max})", got, want))
+            max_err = max(max_err, check(f"(3, {n_max})", seqs))
             cases.append(timed_case("random", name, width, seqs, reps, plain_reps))
-            del seqs, got, want
+            del seqs
         label, real_buckets = REAL_INPUT[width]
         for n_max in real_buckets:
             seqs = real_mtf_input(texts[label], width, n_max, device)
-            got = kernel(seqs, width)
-            want = plain(seqs, width)
-            max_err = max(max_err, check_equal(f"{name} w{width} real {label} (3, {n_max})", got, want))
+            max_err = max(max_err, check(f"real {label} (3, {n_max})", seqs))
             cases.append(timed_case(f"real {label}", name, width, seqs, reps, 0))
-            del seqs, got, want
+            del seqs
         # short rows: the pad holds symbols outside [0, width)
         seqs = torch.randint(0, width, (2, short), generator=gen, dtype=torch.int32)
         seqs[0, 5000:] = width + 3
         seqs[1, 100:] = -1
-        seqs = seqs.to(device)
-        got = kernel(seqs, width)
-        want = plain(seqs, width)
-        max_err = max(max_err, check_equal(f"{name} w{width} short rows", got, want))
+        max_err = max(max_err, check("short rows", seqs.to(device)))
         # a rare symbol silent across many chunks
         n_max = buckets[0]
         seqs = torch.randint(0, 3, (1, n_max), generator=gen, dtype=torch.int32)
@@ -181,17 +208,12 @@ def phase_kernel(device, seed: int, name: str, texts, buckets=BUCKETS, short=819
         seqs[0, 100] = width - 2
         seqs[0, n_max - 1] = width - 1
         seqs = seqs.to(device)
-        got = kernel(seqs, width)
-        want = plain(seqs, width)
-        max_err = max(max_err, check_equal(f"{name} w{width} rare symbol", got, want))
-        if name == "mtf_wide" and width == 256:  # mtf_ranks_pallas's one-row form
-            got = mtf_wide.mtf_ranks_wide(seqs[0])
-            max_err = max(max_err, check_equal(f"{name} one row", got[None, :], want))
+        max_err = max(max_err, check("rare symbol", seqs))
+        if name == "mtf_wide" and width == 256:
+            max_err = max(max_err, check("one row", seqs, one_row))
             seqs = torch.randint(0, width, (1, n_max), generator=gen, dtype=torch.int32).to(device)
-            got = mtf_wide.mtf_ranks_wide(seqs[0])
-            max_err = max(max_err, check_equal(f"{name} one row random", got[None, :], plain(seqs, width)))
-            cases.append(timed_case("one-row random", name, width, seqs, reps, 0,
-                                    kernel=lambda x, _: mtf_wide.mtf_ranks_wide(x[0])))
+            max_err = max(max_err, check("one row random", seqs, one_row))
+            cases.append(timed_case("one-row random", name, width, seqs, reps, 0, kernel=one_row))
         log(f"{name} width {width}: equal to plain at every shape and input")
     return max_err, cases
 
@@ -215,10 +237,12 @@ def phase_step(device, texts, bits: int, n_max: int):
 
 def phase_end_to_end(device, label: str, texts, classes):
     """Phase 5: device-only encode of one corpus whose blocks fall in
-    ``classes``.  Returns (narrow launches, wide launches, device_stats)
-    of the run."""
+    ``classes``.  Returns (narrow launches by width, wide launches,
+    device_stats) of the run."""
     total = sum(map(len, texts))
     mtf_narrow.launches = 0
+    for w in mtf_narrow.width_launches:
+        mtf_narrow.width_launches[w] = 0
     mtf_wide.launches = 0
     for k in pipeline.device_stats:
         pipeline.device_stats[k] = 0
@@ -226,6 +250,7 @@ def phase_end_to_end(device, label: str, texts, classes):
     encs = pipeline.encode_streams(texts, device=device, host_assist=False)
     dt = time.perf_counter() - t0
     narrow, wide = mtf_narrow.launches, mtf_wide.launches
+    by_width = dict(mtf_narrow.width_launches)
     stats = dict(pipeline.device_stats)
     t1 = time.perf_counter()
     want = [bz2.compress(t, 9) for t in texts]
@@ -239,21 +264,22 @@ def phase_end_to_end(device, label: str, texts, classes):
     for c in classes:
         if stats[f"blocks_bits{c}"] == 0:
             raise AssertionError(f"{label}: no bits=={c} block ran on the device")
-    mid = sum(stats[f"batches_bits{c}"] for c in (4, 5, 6))
-    if narrow != mid or wide != stats["batches_bits8"]:
+    # each narrow width's kernel launched once per batch of its class
+    mid = {w: stats[f"batches_bits{c}"] for w, c in ((16, 4), (32, 5), (64, 6))}
+    if narrow != sum(mid.values()) or by_width != mid or wide != stats["batches_bits8"]:
         raise AssertionError(
-            f"{label}: launches narrow {narrow} wide {wide} != batches bits 4/5/6 {mid}, "
-            f"bits 8 {stats['batches_bits8']}"
+            f"{label}: launches narrow {narrow}, by width {by_width}, wide {wide} != batches of "
+            f"bits 4/5/6 {list(mid.values())}, bits 8 {stats['batches_bits8']}"
         )
     per_class = {c: (stats[f"blocks_bits{c}"], stats[f"batches_bits{c}"],
                      stats[f"tie_reencodes_bits{c}"]) for c in pipeline.CLASSES}
     log(f"{label} end to end (device only): {len(texts)} streams, {total} bytes, {n_blocks} blocks, "
-        f"{stats['batches']} batches, launches narrow {narrow} wide {wide}, "
+        f"{stats['batches']} batches, launches narrow {narrow} (by width {by_width}) wide {wide}, "
         f"{stats['tie_reencodes']} tie re-encodes; (blocks, batches, tie re-encodes) per class "
         f"{per_class}; all streams == bz2.compress(text, 9)")
     log(f"{label} end to end: {total / dt / 1e6:.3f} MB/s ({dt:.3f} s); "
         f"same-run libbz2 -9 one core: {total / dt_bz2 / 1e6:.3f} MB/s ({dt_bz2:.3f} s)")
-    return narrow, wide, stats
+    return by_width, wide, stats
 
 
 def phase_entry_points(device, label: str, bed: bytes):
@@ -334,15 +360,14 @@ def main() -> int:
     checks = {name: phase_kernel(device, args.seed, name, by_label) for name in KERNELS}
     for (label, texts, (bits,)), n_max in zip(runs, (BUCKETS[1],) + (BUCKETS[0],) * 3):
         phase_step(device, texts, bits, n_max)
-    # the narrow wrapper's launches split by the class of their batch
-    # (phase 5 holds its count to the bits 4/5/6 batches): width 16 at
-    # bits 4, the windowed kernel at bits 5/6
+    # the narrow wrapper's launches as its two kernels counted them: width
+    # 16 (csrc/mtf_narrow.cu), widths 32/64 (the windowed kernel)
     launches = {"mtf_narrow": 0, "mtf_narrow_windowed": 0, "mtf_wide": 0}
     exact8 = 0
     for label, texts, classes in runs:
-        narrow, wide, stats = phase_end_to_end(device, label, texts, classes)
-        launches["mtf_narrow"] += stats["batches_bits4"]
-        launches["mtf_narrow_windowed"] += narrow - stats["batches_bits4"]
+        by_width, wide, stats = phase_end_to_end(device, label, texts, classes)
+        launches["mtf_narrow"] += by_width[16]
+        launches["mtf_narrow_windowed"] += by_width[32] + by_width[64]
         launches["mtf_wide"] += wide
         exact8 += stats["blocks_bits8"] - stats["tie_reencodes_bits8"]
     for name, n in launches.items():

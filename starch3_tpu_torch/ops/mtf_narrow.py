@@ -33,8 +33,11 @@ WIDTHS = (16, 32, 64)
 _NEG = -(1 << 30)
 
 # kernel launches made by mtf_ranks_narrow_batch (one per call on a CUDA
-# tensor); callers zero it and read it to prove a run used the kernel
+# tensor), in all and by width (16: csrc/mtf_narrow.cu; 32/64: the
+# windowed kernel of csrc/mtf_wide.cu); callers zero them and read them
+# to prove a run used the kernels
 launches = 0
+width_launches = dict.fromkeys(WIDTHS, 0)
 
 
 def mtf_ranks_narrow_reference(seqs: torch.Tensor, width: int = 16) -> torch.Tensor:
@@ -97,8 +100,10 @@ def mtf_ranks_narrow_batch(seqs: torch.Tensor, width: int = 16) -> torch.Tensor:
                 f"mtf_narrow kernel launch failed: CUDA error {err} "
                 f"({lib.s3t_error_string(err).decode()})"
             )
+        width_launches[16] += 1
     else:
         mtf_wide.launch(seqs, out, width, "mtf_narrow")
+        width_launches[width] += 1
     global launches
     launches += 1
     return out

@@ -22,16 +22,14 @@ bound, and each CUDA kernel's device time by name under
 ``chip_smoke.py`` uses the same helpers.
 
 ``--phases`` splits the rank kernel of widths 32-256 by phase instead.
-It copies the checkout's source of that kernel (``mtf_rank*kernel`` in
-``csrc/mtf_wide.cu``, or in ``csrc/mtf_narrow.cu`` where that file
-exports ``s3t_mtf_narrow``, as before the windowed kernel took widths
-32/64), puts a ``%globaltimer`` stamp of each block's thread 0 at the
-kernel's start, before each comment line of the form ``// a. ...``,
-``// b. ...`` in its body, and at its end, builds the copy into
-``build/`` and runs it.  It prints, per case, each phase's mean time per
-block in microseconds and the span from the first block's start to the
-last block's end.  The stamps cost a few instructions a block; the
-phases are those of the kernel as written, not a separate design.
+It copies the checkout's ``csrc/mtf_wide.cu``, puts a ``%globaltimer``
+stamp of each block's thread 0 at the start of each ``mtf_rank*kernel``,
+before each comment line of the form ``// a. ...``, ``// b. ...`` in its
+body, and at its end, builds the copy into ``build/`` and runs it.  It
+prints, per case, each phase's mean time per block in microseconds and
+the span from the first block's start to the last block's end.  The
+stamps cost a few instructions a block; the phases are those of the
+kernel as written, not a separate design.
 """
 
 from __future__ import annotations
@@ -268,16 +266,8 @@ def instrument(src: str) -> tuple[str, list[str]]:
     return text.replace(inc, inc + _STAMP_HEAD, 1) + _STAMP_TAIL, [" | ".join(n) for n in names.values()]
 
 
-def phase_source(root: str, width: int) -> tuple[Path, str, int]:
-    """(source, C entry, chunk) of the rank kernel at ``width`` in the
-    checkout at ``root``: the two-pass form of ``csrc/mtf_narrow.cu`` where
-    it still exports ``s3t_mtf_narrow`` and takes ``width``, else
-    ``csrc/mtf_wide.cu``."""
-    csrc = Path(root) / "starch3_tpu_torch" / "csrc"
-    narrow = (csrc / "mtf_narrow.cu").read_text()
-    if "s3t_mtf_narrow(" in narrow and f"case {width}:" in narrow:
-        return csrc / "mtf_narrow.cu", "s3t_mtf_narrow", 4096
-    return csrc / "mtf_wide.cu", "s3t_mtf_wide", 1024
+# the rank kernels of every width from 32 up, relative to a checkout
+PHASE_SOURCE = Path("starch3_tpu_torch/csrc/mtf_wide.cu")
 
 
 def phase_case(root: str, seqs, width: int, reps: int) -> dict:
@@ -289,23 +279,24 @@ def phase_case(root: str, seqs, width: int, reps: int) -> dict:
     import torch
 
     from starch3_tpu_torch._build import BUILD_DIR, NVCC_FLAGS, _compile, find_nvcc
+    from starch3_tpu_torch.ops.mtf_wide import CHUNK
 
-    src, entry, chunk = phase_source(root, width)
+    src = Path(root) / PHASE_SOURCE
     text, names = instrument(src.read_text())
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     stem = f"{src.stem}_phases"
     copy = BUILD_DIR / f"{stem}-{len(text)}.cu"
     copy.write_text(text)
     lib = ctypes.CDLL(str(_compile(stem, copy, NVCC_FLAGS, find_nvcc)))
-    getattr(lib, entry).argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.s3t_mtf_wide.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     stamps = torch.zeros((8192, 16), dtype=torch.int64)
     b, n_max = seqs.shape
-    tables = torch.empty((b, n_max // chunk, width), dtype=torch.int32, device=seqs.device)
+    tables = torch.empty((b, n_max // CHUNK, width), dtype=torch.int32, device=seqs.device)
     out = torch.empty_like(seqs)
     per_phase, spans, blocks = [[] for _ in range(len(names))], [], 0
     for rep in range(reps + 1):
-        err = getattr(lib, entry)(seqs.data_ptr(), out.data_ptr(), tables.data_ptr(), b,
-                                  n_max // chunk, width, torch.cuda.current_stream().cuda_stream)
+        err = lib.s3t_mtf_wide(seqs.data_ptr(), out.data_ptr(), tables.data_ptr(), b,
+                               n_max // CHUNK, width, torch.cuda.current_stream().cuda_stream)
         err = err or lib.s3t_take_stamps(ctypes.c_void_p(stamps.data_ptr()))
         if err:
             raise RuntimeError(f"{src.name} with stamps: CUDA error {err}")
@@ -318,10 +309,7 @@ def phase_case(root: str, seqs, width: int, reps: int) -> dict:
             per_phase[k].append(d[:, k].mean().item())
         spans.append((st[:, -1].max() - st[:, 0].min()).item() / 1e3)
         blocks = st.shape[0]
-    from starch3_tpu_torch.ops import mtf_narrow
-
-    if not torch.equal(out, mtf_narrow.mtf_ranks_narrow_reference(seqs, width) if width <= 64
-                       else kernel_for(width)[2](seqs, width)):
+    if not torch.equal(out, kernel_for(width)[2](seqs, width)):
         raise AssertionError(f"{src.name} with stamps, width {width}: != plain")
     return {
         "width": width, "shape": list(seqs.shape), "source": str(src.relative_to(root)),

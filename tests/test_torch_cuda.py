@@ -48,25 +48,29 @@ def test_kernel_equals_plain(cuda, width, shape):
     seqs[0, 1] = width - 1
     seqs[-1, -5:] = width + 1  # outside the alphabet: ranks `width`
     seqs = seqs.to(cuda)
-    before = mtf_narrow.launches
+    before = mtf_narrow.launches, mtf_narrow.width_launches[width]
     got = mtf_ranks_narrow_batch(seqs, width)
     torch.cuda.synchronize()
-    assert mtf_narrow.launches == before + 1
+    assert (mtf_narrow.launches, mtf_narrow.width_launches[width]) == (before[0] + 1, before[1] + 1)
     assert torch.equal(got, mtf_ranks_narrow_reference(seqs, width))
 
 
 @pytest.mark.parametrize("width", [32, 64])
 def test_windowed_widths_count_as_narrow_launches(cuda, width):
     """Widths 32/64 run the windowed kernel of csrc/mtf_wide.cu through the
-    narrow wrapper: one narrow launch per call, none of the wide wrapper's,
-    at the smallest narrow shape and at a production one."""
+    narrow wrapper: one narrow launch per call, counted at its width and
+    not at width 16, none of the wide wrapper's, at the smallest narrow
+    shape and at a production one."""
     for shape in [(1, 4096), (3, 901_120)]:
         seqs = torch.randint(0, width, shape, generator=torch.Generator().manual_seed(width),
                              dtype=torch.int32).to(cuda)
         narrow, wide = mtf_narrow.launches, mtf_wide.launches
+        by_width = dict(mtf_narrow.width_launches)
         got = mtf_ranks_narrow_batch(seqs, width)
         torch.cuda.synchronize()
         assert (mtf_narrow.launches, mtf_wide.launches) == (narrow + 1, wide)
+        by_width[width] += 1
+        assert mtf_narrow.width_launches == by_width
         assert torch.equal(got, mtf_ranks_narrow_reference(seqs, width))
 
 

@@ -86,9 +86,9 @@ def test_batch_rows_reinitialize(rng):
 
 def test_cpu_tensor_runs_plain_version_without_a_launch(rng):
     rows = rng.integers(0, 16, (2, 4096)).astype(np.int32)
-    before = mtf_narrow.launches
+    before = mtf_narrow.launches, dict(mtf_narrow.width_launches)
     got = mtf_ranks_narrow_batch(torch.from_numpy(rows), 16)
-    assert mtf_narrow.launches == before
+    assert (mtf_narrow.launches, mtf_narrow.width_launches) == before
     want = mtf_ranks_narrow_reference(torch.from_numpy(rows), 16)
     assert torch.equal(got, want)
 
