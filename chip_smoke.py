@@ -40,15 +40,28 @@ passes:
      (bits 4, multi-block streams), config 3 (bits 5), the gene-id corpus
      (bits 6) and the free-text corpus (bits 8, multi-block streams).
      Every stream equals ``bz2.compress(text, 9)``, the device blocks
-     equal all blocks, each corpus's class ran on the device, the narrow
-     kernel's launches at widths 16, 32 and 64 equal the bits 4, 5 and 6
+     equal all blocks, no batch was abandoned and the device was never
+     benched (``scheduler_stats``), each corpus's class ran on the
+     device, the narrow kernel's launches at widths 16, 32 and 64 equal the bits 4, 5 and 6
      batches and the wide kernel's the bits-8 batches, and at least one
      bits-8 block was tie-free;
      MB/s beside same-run libbz2 -9;
   6. the entry points, on config 2 and on config 3:
      ``compress_bed_bytes(use_jax=True)`` equals the host path's archive
      and decodes back to the BED, and ``python -m starch3_tpu_torch.cli
-     --jax FILE`` writes the same bytes.
+     --jax FILE`` writes the same bytes.  The hybrid abandons no batch;
+     its demotions, repromotions and class skips, and its blocks on the
+     device against those on the stealers, are printed;
+  7. fault handling on the card, on config 2's texts: the first batch of
+     an encode runs behind a ``torch.cuda._sleep`` spin on its stream
+     (calibrated with CUDA events), with ``_ABANDON_S`` at 0.5 s.  (a) The
+     hybrid abandons the batch and benches the device, and a clean
+     encode after the stall puts blocks on the device again; (b) a
+     device-only encode abandons to the driver and ends; (c) with
+     ``STARCH3_TPU_NO_HOST_FALLBACK=1`` a device-only encode waits out a
+     1.5 s stall, abandons nothing and takes every block from the device.
+     Every stream equals ``bz2.compress(text, 9)``; each case's wall time
+     is printed with the card's name and power limit.
 
 The port imports nothing of JAX and nothing of the JAX package
 ``starch3_tpu``; the run fails if either is loaded.  The line before the
@@ -76,7 +89,7 @@ import torch
 from starch3_tpu_torch import api, corpus, runtime
 from starch3_tpu_torch._build import BUILD_DIR, build
 from starch3_tpu_torch.ops import mtf_narrow, mtf_wide
-from starch3_tpu_torch.parallel import pipeline
+from starch3_tpu_torch.parallel import host, pipeline
 from starch3_tpu_torch.profile_kernels import (
     bound_ms,
     cuda_median_ms,
@@ -123,6 +136,21 @@ def check_equal(name: str, got: torch.Tensor, want: torch.Tensor, case=None) -> 
             f"output {torch.equal(on_cpu, got.cpu())}, == first plain output {torch.equal(on_cpu, want.cpu())}"
         )
     raise AssertionError(msg)
+
+
+def texts_of(bed: bytes) -> list[bytes]:
+    """The transformed per-chromosome texts the archive API encodes."""
+    return [tf.text for tf in api._parse_transform(bed)]
+
+
+def count_blocks(texts) -> int:
+    """The bzip2 blocks of ``texts`` at level 9, as the feeder splits them."""
+    return sum(len(host._split_classify(t, 9)[0]) for t in texts)
+
+
+def stats_since(stats: dict, before: dict) -> dict:
+    """Each counter's change since the snapshot ``before``."""
+    return {k: stats[k] - before[k] for k in before}
 
 
 # name -> (module, kernel wrapper, plain version, main path's width and n_max)
@@ -246,12 +274,16 @@ def phase_end_to_end(device, label: str, texts, classes):
     mtf_wide.launches = 0
     for k in pipeline.device_stats:
         pipeline.device_stats[k] = 0
+    sched = dict(host.scheduler_stats)
     t0 = time.perf_counter()
     encs = pipeline.encode_streams(texts, device=device, host_assist=False)
     dt = time.perf_counter() - t0
     narrow, wide = mtf_narrow.launches, mtf_wide.launches
     by_width = dict(mtf_narrow.width_launches)
     stats = dict(pipeline.device_stats)
+    sched = stats_since(host.scheduler_stats, sched)
+    if sched["abandoned_batches"] or sched["demotions"]:
+        raise AssertionError(f"{label}: the device-only encode fell back to the host: {sched}")
     t1 = time.perf_counter()
     want = [bz2.compress(t, 9) for t in texts]
     dt_bz2 = time.perf_counter() - t1
@@ -274,7 +306,7 @@ def phase_end_to_end(device, label: str, texts, classes):
     per_class = {c: (stats[f"blocks_bits{c}"], stats[f"batches_bits{c}"],
                      stats[f"tie_reencodes_bits{c}"]) for c in pipeline.CLASSES}
     log(f"{label} end to end (device only): {len(texts)} streams, {total} bytes, {n_blocks} blocks, "
-        f"{stats['batches']} batches, launches narrow {narrow} (by width {by_width}) wide {wide}, "
+        f"{stats['batches']} batches, scheduler {sched}, launches narrow {narrow} (by width {by_width}) wide {wide}, "
         f"{stats['tie_reencodes']} tie re-encodes; (blocks, batches, tie re-encodes) per class "
         f"{per_class}; all streams == bz2.compress(text, 9)")
     log(f"{label} end to end: {total / dt / 1e6:.3f} MB/s ({dt:.3f} s); "
@@ -285,9 +317,15 @@ def phase_end_to_end(device, label: str, texts, classes):
 def phase_entry_points(device, label: str, bed: bytes):
     """Phase 6: the archive API and the CLI against the host path."""
     cfg = api.EncodeConfig(use_jax=True)
+    sched, dev_stats = dict(host.scheduler_stats), dict(pipeline.device_stats)
     t0 = time.perf_counter()
     got = api.compress_bed_bytes(bed, cfg, device=device)
     dt = time.perf_counter() - t0
+    sched = stats_since(host.scheduler_stats, sched)
+    dev_stats = stats_since(pipeline.device_stats, dev_stats)
+    if sched["abandoned_batches"]:
+        raise AssertionError(f"{label} compress_bed_bytes: a device batch was abandoned: {sched}")
+    n_blocks = count_blocks(texts_of(bed))
     t1 = time.perf_counter()
     want = api.compress_bed_bytes(bed, api.EncodeConfig())
     dt_host = time.perf_counter() - t1
@@ -298,6 +336,11 @@ def phase_entry_points(device, label: str, bed: bytes):
     log(f"{label} compress_bed_bytes: archive == host path's, decodes to the input; "
         f"{len(bed) / dt / 1e6:.3f} MB/s of BED ({dt:.3f} s); host path "
         f"{len(bed) / dt_host / 1e6:.3f} MB/s ({dt_host:.3f} s)")
+    log(f"{label} compress_bed_bytes scheduler: demotions {sched['demotions']}, repromotions "
+        f"{sched['repromotions']}, class_skips {sched['class_skips']}, abandoned 0; of {n_blocks} blocks "
+        f"{dev_stats['blocks']} went to the device in {dev_stats['batches']} batches "
+        f"({dev_stats['tie_reencodes']} re-encoded for ties) and {n_blocks - dev_stats['blocks']} to the "
+        f"stealers; per-class device rates now {host._class_rate_cache}")
     with tempfile.TemporaryDirectory() as d:
         src, out = os.path.join(d, "in.bed"), os.path.join(d, "out.starch")
         with open(src, "wb") as f:
@@ -313,6 +356,107 @@ def phase_entry_points(device, label: str, bed: bytes):
             if f.read() != want:
                 raise AssertionError(f"{label} CLI --jax archive != host archive")
     log(f"{label} cli --jax: same archive bytes ({dt:.3f} s with process start)")
+
+
+def sleep_cycles_per_s() -> float:
+    """Clock cycles per second of ``torch.cuda._sleep``'s spin on this
+    card, timed with CUDA events."""
+    torch.cuda._sleep(1_000)
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    cycles = 200_000_000
+    a.record()
+    torch.cuda._sleep(cycles)
+    b.record()
+    b.synchronize()
+    return cycles / (a.elapsed_time(b) / 1e3)
+
+
+class StalledDispatch:
+    """``pipeline._dispatch_chunk`` whose first dispatch of the encode
+    first enqueues a spin of ``cycles`` (if any) on the current stream:
+    that batch's kernels, and every later one, run late on a really
+    stalled stream.  Keeps the longest host time of a dispatch, which must
+    stay short: a dispatch that waited on the stream would hide the
+    stall."""
+
+    def __init__(self, dispatch, cycles: int):
+        self.dispatch, self.cycles = dispatch, cycles
+        self.calls = 0
+        self.max_host_s = 0.0
+
+    def __call__(self, block_datas, nm, device, pad_to=None):
+        t0 = time.perf_counter()
+        if self.calls == 0 and self.cycles:
+            torch.cuda._sleep(self.cycles)
+        self.calls += 1
+        out = self.dispatch(block_datas, nm, device, pad_to=pad_to)
+        self.max_host_s = max(self.max_host_s, time.perf_counter() - t0)
+        return out
+
+
+def fault_case(device, label: str, texts, want, stall_s: float, host_assist: bool, smi: str):
+    """One encode of ``texts`` with the first batch stalled ``stall_s``
+    seconds (0: no stall).  Every stream must equal ``want``.  Returns the
+    changes of ``scheduler_stats`` and ``device_stats``."""
+    real = pipeline._dispatch_chunk
+    stalled = StalledDispatch(real, int(stall_s * sleep_cycles_per_s()) if stall_s else 0)
+    pipeline._dispatch_chunk = stalled
+    sched, dev_stats = dict(host.scheduler_stats), dict(pipeline.device_stats)
+    try:
+        t0 = time.perf_counter()
+        encs = pipeline.encode_streams(texts, device=device, host_assist=host_assist)
+        dt = time.perf_counter() - t0
+    finally:
+        pipeline._dispatch_chunk = real
+    torch.cuda.synchronize()  # the stall is over
+    sched = stats_since(host.scheduler_stats, sched)
+    dev_stats = stats_since(pipeline.device_stats, dev_stats)
+    for i, (e, w) in enumerate(zip(encs, want)):
+        if e.data != w:
+            raise AssertionError(f"faults {label} stream {i}: bytes != bz2.compress(text, 9)")
+    log(f"faults {label}: stall {stall_s} s, host_assist {host_assist}, _ABANDON_S {host._ABANDON_S}, "
+        f"no-fallback {host._no_host_fallback()}: {dt:.3f} s wall on {smi}; all streams == "
+        f"bz2.compress(text, 9); scheduler {sched}; device {dev_stats['blocks']} blocks in "
+        f"{dev_stats['batches']} batches; longest dispatch {stalled.max_host_s:.4f} s")
+    return sched, dev_stats
+
+
+def phase_faults(device, texts, smi: str, abandon_s: float = 0.5, stall_s: float = 3.0) -> None:
+    """Phase 7, fault handling on the card: encodes whose first batch runs
+    late on a stalled stream, with ``host._ABANDON_S`` at ``abandon_s``.
+    (a) the hybrid abandons and benches the device, and a clean encode
+    after the stall puts blocks on the device again; (b) a device-only
+    encode abandons to the driver and ends; (c) with
+    ``STARCH3_TPU_NO_HOST_FALLBACK=1`` a device-only encode waits out a
+    stall longer than ``_ABANDON_S`` and takes every block from the rows.
+    The patched names are restored whatever happens."""
+    want = [bz2.compress(t, 9) for t in texts]
+    n_blocks = count_blocks(texts)
+    saved_abandon = host._ABANDON_S
+    saved_env = os.environ.pop("STARCH3_TPU_NO_HOST_FALLBACK", None)
+
+    def expect(label, ok, sched, dev_stats):
+        if not ok:
+            raise AssertionError(f"faults {label}: scheduler {sched}, device {dev_stats}")
+
+    try:
+        host._ABANDON_S = abandon_s
+        sched, dev = fault_case(device, "(a) hybrid", texts, want, stall_s, True, smi)
+        expect("(a)", sched["abandoned_batches"] >= 1 and sched["demotions"] >= 1, sched, dev)
+        sched, dev = fault_case(device, "(a) clean hybrid after the stall", texts, want, 0, True, smi)
+        expect("(a) clean", sched["abandoned_batches"] == 0 and dev["blocks"] >= 1, sched, dev)
+        sched, dev = fault_case(device, "(b) device only", texts, want, stall_s, False, smi)
+        expect("(b)", sched["abandoned_batches"] >= 1, sched, dev)
+        os.environ["STARCH3_TPU_NO_HOST_FALLBACK"] = "1"
+        sched, dev = fault_case(device, "(c) device only, no fallback", texts, want, stall_s / 2, False, smi)
+        expect("(c)", sched["abandoned_batches"] == 0 and sched["demotions"] == 0
+               and dev["blocks"] == n_blocks, sched, dev)
+    finally:
+        host._ABANDON_S = saved_abandon
+        os.environ.pop("STARCH3_TPU_NO_HOST_FALLBACK", None)
+        if saved_env is not None:
+            os.environ["STARCH3_TPU_NO_HOST_FALLBACK"] = saved_env
 
 
 def main() -> int:
@@ -345,9 +489,6 @@ def main() -> int:
                 if "Used" in line or "spill" in line:
                     log(f"  ptxas {lib.stem}: {line.strip()}")
 
-    def texts_of(bed):
-        return [tf.text for tf in api._parse_transform(bed)]
-
     bed2 = corpus.config2_bed(args.seed)
     bed3 = corpus.config3_bed()
     runs = [  # (label, texts, classes)
@@ -377,6 +518,7 @@ def main() -> int:
         raise AssertionError("no bits==8 block was tie-free on the device")
     phase_entry_points(device, "config2", bed2)
     phase_entry_points(device, "config3", bed3)
+    phase_faults(device, texts_of(bed2), smi)
 
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")

@@ -26,10 +26,12 @@ package's, in ``host.py``.  Only the device steps, dispatch and drain,
 and the driver loop are this module's.
 
 Blocks whose packed-prefix sort ties re-encode exactly on the host, as in
-the JAX package; ``device_stats["tie_reencodes"]`` counts them.  Not
-ported yet (ROADMAP queue A): rate-aware demotion, recovery probes and
-stuck-batch abandonment, so a device fault surfaces as an exception and
-not as a host re-encode.
+the JAX package; ``device_stats["tie_reencodes"]`` counts them.  The
+driver's fault handling is the JAX package's too: a device slower than
+half the stealers' aggregate is benched and probed for recovery, and a
+batch that is not ready after ``_ABANDON_S`` is abandoned to the host
+(``scheduler_stats`` counts demotions, repromotions and abandoned
+batches), so a stalled stream cannot hang an encode.
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ import time
 import numpy as np
 import torch
 
+from starch3_tpu_torch.parallel import host
 from starch3_tpu_torch.parallel.host import (
     _PIPELINE_DEPTH,
     _TAIL_RESERVE_PER_STEALER,
@@ -291,16 +294,16 @@ def pack_batch(block_datas, n_max: int, bits: int, b_pad: int | None = None, pin
     lens = np.ones(b_pad, dtype=np.int32)
     nsyms = np.ones(b_pad, dtype=np.int32)
     if bits == 4:
-        host = torch.zeros((b_pad, n_max // 2), dtype=torch.uint8, pin_memory=pin)
-        rows_np = host.numpy()
+        buf = torch.zeros((b_pad, n_max // 2), dtype=torch.uint8, pin_memory=pin)
+        rows_np = buf.numpy()
         pack = _dense_pack4
     elif bits in (5, 6):
-        host = torch.zeros((b_pad, -(-n_max // (30 // bits))), dtype=torch.int32, pin_memory=pin)
-        rows_np = host.numpy().view(np.uint32)
+        buf = torch.zeros((b_pad, -(-n_max // (30 // bits))), dtype=torch.int32, pin_memory=pin)
+        rows_np = buf.numpy().view(np.uint32)
         pack = functools.partial(_dense_pack_words, bits=bits)
     else:
-        host = torch.zeros((b_pad, n_max), dtype=torch.uint8, pin_memory=pin)
-        rows_np = host.numpy()
+        buf = torch.zeros((b_pad, n_max), dtype=torch.uint8, pin_memory=pin)
+        rows_np = buf.numpy()
         pack = _dense_remap
     useds = []
     for i, data in enumerate(block_datas):
@@ -312,7 +315,7 @@ def pack_batch(block_datas, n_max: int, bits: int, b_pad: int | None = None, pin
         if bits != 8 and nsyms[i] > 1 << bits:  # the queue classed this block
             raise RuntimeError(f"block {i} has {nsyms[i]} distinct bytes in the bits=={bits} tier")
         useds.append(used)
-    return host, lens, nsyms, useds
+    return buf, lens, nsyms, useds
 
 
 def step_for_class(seqs, lens, nsyms, bits: int, n_max: int) -> torch.Tensor:
@@ -337,13 +340,16 @@ def _dispatch_chunk(block_datas, nm, device: torch.device, pad_to=None):
     drain hands row views to the tail pool, which reads them later."""
     n_max, bits = nm
     cuda = device.type == "cuda"
-    host, lens, nsyms, useds = pack_batch(block_datas, n_max, bits, pad_to, pin=cuda)
+    packed, lens, nsyms, useds = pack_batch(block_datas, n_max, bits, pad_to, pin=cuda)
+
+    def upload(t: torch.Tensor) -> torch.Tensor:
+        # pinned, so that the copy never waits on a stalled stream
+        if cuda and not t.is_pinned():
+            t = t.pin_memory()
+        return t.to(device, non_blocking=True)
+
     rows = step_for_class(
-        host.to(device, non_blocking=True),
-        torch.from_numpy(lens).to(device, non_blocking=True),
-        torch.from_numpy(nsyms).to(device, non_blocking=True),
-        bits,
-        n_max,
+        upload(packed), upload(torch.from_numpy(lens)), upload(torch.from_numpy(nsyms)), bits, n_max
     )
     b = len(block_datas)
     _count(**{"batches": 1, "blocks": b, f"batches_bits{bits}": 1, f"blocks_bits{bits}": b})
@@ -391,20 +397,83 @@ def _drain_into(results, per_stream_blocks, item, on_done=None):
         on_done()
 
 
+def _host_encode(q: _BlockQueue, results, key) -> None:
+    """Encode one claimed block on the host, in the calling thread, and
+    wake the assembler."""
+    from starch3_tpu_torch.codec.encoder import encode_block_fragment
+
+    si, bi = key
+    results[key] = encode_block_fragment(q.per_stream_blocks[si][bi])
+    with q.cond:
+        q.cond.notify_all()
+
+
+def _pop_for_host(q: _BlockQueue):
+    """Claim one block from the back of the biggest bucket, as a stealer
+    does, or None when every bucket is empty.  Caller holds ``q.cond``."""
+    for nm in sorted(q.buckets, reverse=True):
+        if q.buckets[nm]:
+            return q.buckets[nm].pop()
+    return None
+
+
+def _abandon_batch(q: _BlockQueue, results, entry) -> None:
+    """Take a stuck batch away from the device and bench it, the
+    counterpart of the JAX ``_abandon_batch``.  Blocks go back to the
+    queue front for the stealers; if no stealer thread is still alive
+    (they exit when the queue momentarily drains after feeding), they are
+    host-encoded right here, so the encode terminates either way.  A
+    later duplicate encode of a re-enqueued block is benign (per-block
+    byte determinism).  The caller keeps the batch's handles."""
+    nm, (chunk, _handles), _nbytes, _t0 = entry
+    with q.cond:
+        q.device_demoted = True
+        q.device_probe_at = time.monotonic() + host._DEMOTE_PROBE_S
+        scheduler_stats["demotions"] += 1
+        scheduler_stats["abandoned_batches"] += 1
+        inline = q.live_stealers == 0
+        if not inline:
+            dq = q.buckets.setdefault(nm, q._deque())
+            for key in reversed(chunk):
+                dq.appendleft(key)
+        q.cond.notify_all()
+    if inline:
+        for key in chunk:
+            _host_encode(q, results, key)
+
+
 def _device_driver(q: _BlockQueue, results, errors, device, batch_size, reserve):
     """The device side of the queue: claim batches from the front of a
     bucket, keep ``_PIPELINE_DEPTH`` in flight, drain the oldest, and
     leave the post-feeding tail to the stealer cores (``reserve``).
 
-    The claim loop is that of the JAX ``_device_driver``
-    (``claim_priority`` orders the buckets, ``class_gated`` routes a class
-    to the stealers when its measured device rate loses to theirs).  Its demotion, recovery
-    probes and stuck-batch abandonment are not ported yet."""
-    pending: collections.deque = collections.deque()
+    The claim loop and its fault handling are those of the JAX
+    ``_device_driver``.  ``claim_priority`` orders the buckets and
+    ``class_gated`` routes a class to the stealers when its measured
+    device rate loses to theirs.  The drain-to-drain rate benches
+    ("demotes") the whole device when it falls below ``_DEMOTE_FRACTION``
+    of the stealers' aggregate; a benched device is probed with one batch
+    every ``_DEMOTE_PROBE_S`` and resumes when the probe runs fast enough.
+    A batch not ready ``_ABANDON_S`` after its dispatch is abandoned
+    (``_abandon_batch``) and the device benched, so a stalled stream
+    cannot hang the encode.  With no stealer the driver itself host-encodes
+    while benched, unless ``STARCH3_TPU_NO_HOST_FALLBACK=1``, which keeps a
+    device-only encode pure: nothing is abandoned and the drain blocks.
+
+    Only ``event.query()`` touches a batch that is not ready: a stalled
+    stream blocks every synchronizing CUDA call behind it.  The handles of
+    abandoned batches and of unfinished probes stay referenced until their
+    rows land or the driver returns, so no pinned buffer that a pending copy
+    still targets is dropped here.  The constants are read from ``host`` at
+    call time.  Scheduling only: bytes are claim-order invariant."""
+    pending: collections.deque = collections.deque()  # (nm, (chunk, handle), nbytes, t0)
+    orphans: list = []  # handles of batches given up on before their rows landed
     drain_clock = [None]
+    fallback_ok = not host._no_host_fallback()
 
     def note_drain(nbytes: int, bits: int) -> None:
-        # drain-to-drain rate per alphabet class, read by class_gated
+        # drain-to-drain rate, in all and per alphabet class (read by
+        # class_gated, kept for the next encode in _class_rate_cache)
         now = time.monotonic()
         with q.cond:
             prev = drain_clock[0]
@@ -417,9 +486,28 @@ def _device_driver(q: _BlockQueue, results, errors, device, batch_size, reserve)
             cr = q.class_rate.get(bits)
             q.class_rate[bits] = r if cr is None else 0.6 * cr + 0.4 * r
             q.class_samples[bits] = q.class_samples.get(bits, 0) + 1
+            host._class_rate_cache[bits] = q.class_rate[bits]
+            if (
+                not q.device_demoted
+                and q.n_stealers > 0
+                and q.stealer_rate
+                and q.device_rate_samples >= host._DEMOTE_MIN_SAMPLES
+                and q.device_rate < host._DEMOTE_FRACTION * q.stealer_rate * q.n_stealers
+            ):
+                q.device_demoted = True
+                q.device_probe_at = now + host._DEMOTE_PROBE_S
+                scheduler_stats["demotions"] += 1
+                q.cond.notify_all()
+
+    def keep_orphan(handle) -> None:
+        orphans[:] = [h for h in orphans if not _batch_ready(h)]
+        orphans.append(handle)
+
+    def head_ready() -> bool:
+        return _batch_ready(pending[0][1][1][0])
 
     def drain_oldest() -> None:
-        nm0, item, nbytes = pending.popleft()
+        nm0, item, nbytes, _t0 = pending.popleft()
         _drain_into(
             results, q.per_stream_blocks, item,
             on_done=functools.partial(note_drain, nbytes, nm0[1]),
@@ -427,13 +515,80 @@ def _device_driver(q: _BlockQueue, results, errors, device, batch_size, reserve)
         with q.cond:  # wake the incremental assembler
             q.cond.notify_all()
 
+    def abandon_oldest() -> None:
+        entry = pending.popleft()
+        keep_orphan(entry[1][1][0])
+        _abandon_batch(q, results, entry)
+        # an interval spanning the wait would fake a low device rate
+        drain_clock[0] = None
+
+    def probe(chunk, nm) -> None:
+        """The recovery probe, which holds no block hostage: dispatch the
+        batch, host-encode the same blocks at once, then wait up to
+        ``_ABANDON_S`` for the rows (host-encoding queued blocks meanwhile
+        when no stealer is left) and repromote the device if they came
+        fast enough, or re-arm the probe.  The rows are only a rate
+        signal; the duplicate encode is byte-identical."""
+        datas = [q.per_stream_blocks[si][bi].data for si, bi in chunk]
+        nbytes = sum(map(len, datas))
+        t0 = time.monotonic()
+        handle = _dispatch_chunk(datas, nm, device, pad_to=batch_size)[0]
+        for key in chunk:
+            _host_encode(q, results, key)
+        while (
+            not _batch_ready(handle)
+            and time.monotonic() - t0 < host._ABANDON_S
+            and not errors
+            and not q.cancelled
+        ):
+            fill = None
+            if fallback_ok:
+                with q.cond:
+                    if q.live_stealers == 0:
+                        fill = _pop_for_host(q)
+            if fill is not None:
+                _host_encode(q, results, fill)
+            else:
+                time.sleep(0.01)
+        dt = time.monotonic() - t0
+        rate = nbytes / dt if dt > 0 else 0.0
+        ready = _batch_ready(handle)
+        with q.cond:
+            if ready and (
+                not q.stealer_rate
+                or rate >= host._DEMOTE_FRACTION * q.stealer_rate * q.n_stealers
+            ):
+                q.device_demoted = False
+                q.device_rate = rate
+                q.device_rate_samples = 1
+                scheduler_stats["repromotions"] += 1
+            else:
+                q.device_probe_at = time.monotonic() + host._DEMOTE_PROBE_S
+            q.cond.notify_all()
+        if not ready:
+            keep_orphan(handle)
+        drain_clock[0] = None
+
     try:
         while True:
-            chunk = None
+            chunk = inline_claim = None
             with q.cond:
                 while True:
                     if errors or q.cancelled:
                         return
+                    probe_due = q.device_demoted and time.monotonic() >= q.device_probe_at
+                    if q.device_demoted and not probe_due:
+                        # benched: the stealers own the queue.  Drain what
+                        # is in flight first; with no stealer left the
+                        # driver itself works the queue between probes
+                        if pending or (not q.feeding and not any(q.buckets.values())):
+                            break
+                        if q.live_stealers == 0 and fallback_ok:
+                            inline_claim = _pop_for_host(q)
+                            if inline_claim is not None:
+                                break
+                        q.cond.wait(0.1)
+                        continue
                     for nm in sorted(q.buckets, key=q.claim_priority):
                         dq = q.buckets[nm]
                         remaining = len(dq)
@@ -454,8 +609,10 @@ def _device_driver(q: _BlockQueue, results, errors, device, batch_size, reserve)
                     if chunk is not None or pending or not q.feeding:
                         break
                     q.cond.wait(0.005)
-                if chunk is None and not pending:
+                if chunk is None and inline_claim is None and not pending and not q.feeding:
                     break  # queue fully claimed; stealers own the rest
+                # a claim made while benched is the recovery probe
+                probing = chunk is not None and q.device_demoted
                 # a single-block corpus gets a one-row batch: padding to
                 # batch_size would triple the only dispatch of the run
                 pad = batch_size
@@ -463,26 +620,57 @@ def _device_driver(q: _BlockQueue, results, errors, device, batch_size, reserve)
                     live = [bs for bs in q.per_stream_blocks if bs is not None]
                     if sum(map(len, live)) == 1:
                         pad = 1
+            if inline_claim is not None:
+                _host_encode(q, results, inline_claim)
+                continue
+            if chunk is None and not pending:
+                drain_clock[0] = None  # feed-starved: the idle gap is no device time
+            if probing:
+                probe(chunk, this_nm)
+                continue
             if chunk is not None:
                 datas = [q.per_stream_blocks[si][bi].data for si, bi in chunk]
-                pending.append(
-                    (
-                        this_nm,
-                        (chunk, _dispatch_chunk(datas, this_nm, device, pad_to=pad)),
-                        sum(map(len, datas)),
-                    )
-                )
+                pending.append((
+                    this_nm,
+                    (chunk, _dispatch_chunk(datas, this_nm, device, pad_to=pad)),
+                    sum(map(len, datas)),
+                    time.monotonic(),
+                ))
                 if len(pending) < _PIPELINE_DEPTH:
                     continue
-            # pipeline full: block on the oldest batch; otherwise drain it
-            # only once its rows have landed
-            if len(pending) >= _PIPELINE_DEPTH or _batch_ready(pending[0][1][1][0]):
+            if not pending:
+                continue
+            # Pipeline full, or nothing claimable: drain the oldest batch
+            # once its rows have landed, and block on it only while over
+            # full.  A batch still not ready _ABANDON_S after its dispatch
+            # is abandoned at any depth, unless nothing could take its
+            # blocks (no stealer, no host fallback): then the drain blocks.
+            abandon_ok = q.n_stealers > 0 or fallback_ok
+            while pending:
+                if errors or q.cancelled:
+                    return
+                if head_ready():
+                    break
+                if abandon_ok and time.monotonic() - pending[0][3] > host._ABANDON_S:
+                    abandon_oldest()
+                    continue
+                if len(pending) < _PIPELINE_DEPTH or not abandon_ok:
+                    break
+                time.sleep(0.005)
+            if pending and (len(pending) >= _PIPELINE_DEPTH or head_ready()):
                 drain_oldest()
             elif chunk is None:
                 time.sleep(0.002)  # nothing claimable, batch not ready
+        abandon_ok = q.n_stealers > 0 or fallback_ok
         while pending:
             if errors or q.cancelled:
                 return
+            if abandon_ok and not head_ready():
+                if time.monotonic() - pending[0][3] > host._ABANDON_S:
+                    abandon_oldest()
+                else:
+                    time.sleep(0.005)
+                continue
             drain_oldest()
     except BaseException as e:  # surfaced by the caller
         errors.append(e)
@@ -568,6 +756,10 @@ def encode_streams_iter(
     q.steal_holdback = batch_size
     q.device_low_water = batch_size * _PIPELINE_DEPTH
     q.window_bytes = window_bytes
+    # per-class tier rates from this process's earlier encodes (capped
+    # sample credit: one fresh drain still re-rates quickly)
+    q.class_rate.update(host._class_rate_cache)
+    q.class_samples.update({b: host._CLASS_MIN_SAMPLES for b in host._class_rate_cache})
     results: dict = {}
     errors: list[BaseException] = []
     stealers = _start_host_stealers(q, results, errors, host_assist)

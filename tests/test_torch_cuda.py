@@ -7,8 +7,15 @@ package's test configuration):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 Each kernel must equal its plain PyTorch version exactly, count one
-launch per call, and refuse what it does not take; the device steps on
-the card must equal the same steps on the CPU."""
+launch per call, fill every position of its output even as the first
+launch of a process, and refuse what it does not take; the device steps on
+the card must equal the same steps on the CPU, and the driver must
+survive a stalled stream."""
+
+import json
+import subprocess
+import sys
+from pathlib import Path
 
 import pytest
 import torch
@@ -26,6 +33,7 @@ from starch3_tpu_torch.ops.mtf_wide import (
 from starch3_tpu_torch.parallel import pipeline
 
 pytestmark = pytest.mark.cuda
+ROOT = Path(__file__).resolve().parent.parent
 
 
 @pytest.fixture
@@ -185,3 +193,42 @@ def test_width16_more_blocks_than_fit(cuda):
     got = mtf_ranks_narrow_batch(seqs, 16)
     torch.cuda.synchronize()
     assert torch.equal(got, mtf_ranks_narrow_reference(seqs, 16))
+
+
+# width:n_max:input; the real input of each width as chip_smoke.py uses it
+SENTINEL_CASES = [
+    "16:901120:random", "16:901120:real", "16:458752:random", "16:458752:real",
+    "32:901120:random", "32:901120:real", "64:901120:random", "64:901120:real",
+    "128:901120:random", "128:901120:real", "256:901120:random", "256:901120:real",
+]
+
+
+@pytest.mark.parametrize("case", SENTINEL_CASES)
+def test_first_launch_of_a_process_writes_every_position(cuda, case):
+    """In a fresh process, the kernel's first launch writes every position
+    of an output filled with a sentinel and equals the plain version; at
+    width 16 the tile counter ends at the number of tiles.  Then the
+    wrapper, on an uninitialised output, equals it too (``kernel_check``)."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "starch3_tpu_torch.kernel_check", "--case", case],
+        cwd=ROOT, capture_output=True, text=True, timeout=600,
+    )
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert res["case"] == case
+    assert res["sentinels_left"] == 0 and res["mismatches"] == 0 and res["wrapper_max_abs_err"] == 0
+    if case.startswith("16:"):
+        assert res["tile_counter"] == res["tiles"] == 3 * int(case.split(":")[1]) // 4096
+
+
+def test_driver_survives_a_stalled_stream(cuda):
+    """chip_smoke.py's fault phase at a small size: a stalled first batch
+    is abandoned and the device benched in a hybrid and in a device-only
+    encode, a clean encode after the stall uses the device again, and the
+    no-fallback lane waits the stall out; all bytes exact."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    from starch3_tpu_torch import corpus
+
+    texts = chip_smoke.texts_of(corpus.make_bed(corpus.GENOME_CHROMS[:12], 3_000, seed=3))
+    chip_smoke.phase_faults(cuda, texts, torch.cuda.get_device_name(0), stall_s=2.0)
