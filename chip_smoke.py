@@ -52,7 +52,17 @@ passes:
      --jax FILE`` writes the same bytes.  The hybrid abandons no batch;
      its demotions, repromotions and class skips, and its blocks on the
      device against those on the stealers, are printed;
-  7. fault handling on the card, on config 2's texts: the first batch of
+  7. ``device_huffman`` (mode ``fast_huff``), device only, on the config 2,
+     config 3 and free-text texts, each run between two runs of ``fast``
+     mode on the same texts (fast, fast_huff, fast_huff, fast): every
+     stream equals ``bz2.compress(text, 9)``, no batch was abandoned and
+     the device never benched, the wide kernel launched at width 128 once
+     per bits-4 batch and at width 256 once per other batch, the narrow
+     kernel never; MB/s and the bytes read back per block of each mode are
+     printed.  Then ``compress_bed_bytes(use_jax=True,
+     device_huffman=True)`` and the CLI's ``--jax --device-huffman`` on
+     config 2 equal the host path's archive;
+  8. fault handling on the card, on config 2's texts: the first batch of
      an encode runs behind a ``torch.cuda._sleep`` spin on its stream
      (calibrated with CUDA events), with ``_ABANDON_S`` at 0.5 s.  (a) The
      hybrid abandons the batch and benches the device, and a clean
@@ -67,7 +77,8 @@ The port imports nothing of JAX and nothing of the JAX package
 ``starch3_tpu``; the run fails if either is loaded.  The line before the
 card's name is one JSON object describing each kernel of the path (the
 narrow wrapper's two kernels apart, each with the launches it counted);
-the last line is ``{"ok": true, "device": {...}}``.  Without
+the wide kernel's entry counts its launches by width too; the last line
+is ``{"ok": true, "device": {...}}``.  Without
 a card, or without the rest of the repository, it fails before printing
 any result.
 """
@@ -263,50 +274,66 @@ def phase_step(device, texts, bits: int, n_max: int):
         f"ptrs {got[:, 0].tolist()}, ties {got[:, tie_col].tolist()}")
 
 
+def counted_encode(device, label: str, texts, want, device_huffman: bool = False):
+    """One device-only encode of ``texts`` with every launch counter and
+    ``device_stats`` set to 0 just before it and read just after.  Every
+    stream must equal ``want``, every block must have run on the device,
+    and no batch may have been abandoned or the device benched.  Returns
+    the run: seconds, launches (narrow and wide, in all and by width),
+    ``device_stats``, blocks."""
+    mtf_narrow.launches = mtf_wide.launches = 0
+    for counts in (mtf_narrow.width_launches, mtf_wide.width_launches, pipeline.device_stats):
+        for k in counts:
+            counts[k] = 0
+    sched = dict(host.scheduler_stats)
+    t0 = time.perf_counter()
+    encs = pipeline.encode_streams(texts, device=device, host_assist=False, device_huffman=device_huffman)
+    run = {
+        "seconds": time.perf_counter() - t0,
+        "narrow": mtf_narrow.launches, "narrow_by_width": dict(mtf_narrow.width_launches),
+        "wide": mtf_wide.launches, "wide_by_width": dict(mtf_wide.width_launches),
+        "stats": dict(pipeline.device_stats),
+    }
+    mode = "fast_huff" if device_huffman else "fast"
+    sched = stats_since(host.scheduler_stats, sched)
+    if sched["abandoned_batches"] or sched["demotions"]:
+        raise AssertionError(f"{label} {mode}: the device-only encode fell back to the host: {sched}")
+    for i, (e, w) in enumerate(zip(encs, want)):
+        if e.data != w:
+            raise AssertionError(f"{label} {mode} stream {i}: device bytes != bz2.compress(text, 9)")
+    run["blocks"] = sum(len(e.block_bit_offsets) for e in encs)
+    if run["stats"]["blocks"] != run["blocks"]:
+        raise AssertionError(f"{label} {mode}: device blocks {run['stats']['blocks']} != all blocks {run['blocks']}")
+    return run
+
+
 def phase_end_to_end(device, label: str, texts, classes):
     """Phase 5: device-only encode of one corpus whose blocks fall in
     ``classes``.  Returns (narrow launches by width, wide launches,
     device_stats) of the run."""
     total = sum(map(len, texts))
-    mtf_narrow.launches = 0
-    for w in mtf_narrow.width_launches:
-        mtf_narrow.width_launches[w] = 0
-    mtf_wide.launches = 0
-    for k in pipeline.device_stats:
-        pipeline.device_stats[k] = 0
-    sched = dict(host.scheduler_stats)
-    t0 = time.perf_counter()
-    encs = pipeline.encode_streams(texts, device=device, host_assist=False)
-    dt = time.perf_counter() - t0
-    narrow, wide = mtf_narrow.launches, mtf_wide.launches
-    by_width = dict(mtf_narrow.width_launches)
-    stats = dict(pipeline.device_stats)
-    sched = stats_since(host.scheduler_stats, sched)
-    if sched["abandoned_batches"] or sched["demotions"]:
-        raise AssertionError(f"{label}: the device-only encode fell back to the host: {sched}")
     t1 = time.perf_counter()
     want = [bz2.compress(t, 9) for t in texts]
     dt_bz2 = time.perf_counter() - t1
-    for i, (e, w) in enumerate(zip(encs, want)):
-        if e.data != w:
-            raise AssertionError(f"{label} stream {i}: device bytes != bz2.compress(text, 9)")
-    n_blocks = sum(len(e.block_bit_offsets) for e in encs)
-    if stats["blocks"] != n_blocks:
-        raise AssertionError(f"{label}: device blocks {stats['blocks']} != all blocks {n_blocks}")
+    run = counted_encode(device, label, texts, want)
+    dt, narrow, by_width, wide, stats = (run[k] for k in ("seconds", "narrow", "narrow_by_width", "wide", "stats"))
+    n_blocks = run["blocks"]
     for c in classes:
         if stats[f"blocks_bits{c}"] == 0:
             raise AssertionError(f"{label}: no bits=={c} block ran on the device")
-    # each narrow width's kernel launched once per batch of its class
+    # each narrow width's kernel launched once per batch of its class, the
+    # wide kernel once per bits-8 batch, at width 256
     mid = {w: stats[f"batches_bits{c}"] for w, c in ((16, 4), (32, 5), (64, 6))}
-    if narrow != sum(mid.values()) or by_width != mid or wide != stats["batches_bits8"]:
+    if (narrow != sum(mid.values()) or by_width != mid or wide != stats["batches_bits8"]
+            or run["wide_by_width"] != {128: 0, 256: wide}):
         raise AssertionError(
-            f"{label}: launches narrow {narrow}, by width {by_width}, wide {wide} != batches of "
-            f"bits 4/5/6 {list(mid.values())}, bits 8 {stats['batches_bits8']}"
+            f"{label}: launches narrow {narrow}, by width {by_width}, wide {run['wide_by_width']} != "
+            f"batches of bits 4/5/6 {list(mid.values())}, bits 8 {stats['batches_bits8']}"
         )
     per_class = {c: (stats[f"blocks_bits{c}"], stats[f"batches_bits{c}"],
                      stats[f"tie_reencodes_bits{c}"]) for c in pipeline.CLASSES}
     log(f"{label} end to end (device only): {len(texts)} streams, {total} bytes, {n_blocks} blocks, "
-        f"{stats['batches']} batches, scheduler {sched}, launches narrow {narrow} (by width {by_width}) wide {wide}, "
+        f"{stats['batches']} batches, 0 abandons and demotions, launches narrow {narrow} (by width {by_width}) wide {wide}, "
         f"{stats['tie_reencodes']} tie re-encodes; (blocks, batches, tie re-encodes) per class "
         f"{per_class}; all streams == bz2.compress(text, 9)")
     log(f"{label} end to end: {total / dt / 1e6:.3f} MB/s ({dt:.3f} s); "
@@ -314,9 +341,45 @@ def phase_end_to_end(device, label: str, texts, classes):
     return by_width, wide, stats
 
 
-def phase_entry_points(device, label: str, bed: bytes):
-    """Phase 6: the archive API and the CLI against the host path."""
-    cfg = api.EncodeConfig(use_jax=True)
+def phase_fast_huff(device, label: str, texts) -> dict:
+    """Phase 7: device-only ``device_huffman`` encodes of one corpus, each
+    between two ``fast`` encodes of the same texts (fast, fast_huff,
+    fast_huff, fast).  Every stream equals ``bz2.compress(text, 9)``; in
+    ``fast_huff`` the wide kernel launches at width 128 once per bits-4
+    batch and at 256 once per other batch, the narrow kernel never.
+    Returns the wide kernel's ``fast_huff`` launches by width."""
+    want = [bz2.compress(t, 9) for t in texts]
+    total = sum(map(len, texts))
+    launches = {128: 0, 256: 0}
+    runs = {"fast": [], "fast_huff": []}
+    for device_huffman in (False, True, True, False):
+        run = counted_encode(device, label, texts, want, device_huffman)
+        stats = run["stats"]
+        if device_huffman:
+            b4 = stats["batches_bits4"]
+            if run["narrow"] or run["wide_by_width"] != {128: b4, 256: stats["batches"] - b4}:
+                raise AssertionError(
+                    f"{label} fast_huff: launches narrow {run['narrow']}, wide by width "
+                    f"{run['wide_by_width']} != bits-4 batches {b4}, other batches {stats['batches'] - b4}"
+                )
+            for w in launches:
+                launches[w] += run["wide_by_width"][w]
+        runs["fast_huff" if device_huffman else "fast"].append(run)
+    for mode, rs in runs.items():
+        stats = rs[0]["stats"]
+        log(f"{label} {mode} (device only): {total / rs[0]['seconds'] / 1e6:.3f} and "
+            f"{total / rs[1]['seconds'] / 1e6:.3f} MB/s ({rs[0]['seconds']:.3f}, {rs[1]['seconds']:.3f} s); "
+            f"{rs[0]['blocks']} blocks in {stats['batches']} batches (bits-4 {stats['batches_bits4']}); "
+            f"read back {stats['d2h_bytes']} bytes, {stats['d2h_bytes'] / rs[0]['blocks']:.0f} per block; "
+            f"tie re-encodes {stats['tie_reencodes']}, emit-overflow re-encodes {stats['huff_host_reencodes']}; "
+            f"wide launches by width {rs[0]['wide_by_width']}, narrow {rs[0]['narrow']}; all streams == "
+            f"bz2.compress(text, 9), 0 abandons and demotions")
+    return launches
+
+
+def phase_entry_points(device, label: str, bed: bytes, device_huffman: bool = False):
+    """Phases 6 and 7: the archive API and the CLI against the host path."""
+    cfg = api.EncodeConfig(use_jax=True, device_huffman=device_huffman)
     sched, dev_stats = dict(host.scheduler_stats), dict(pipeline.device_stats)
     t0 = time.perf_counter()
     got = api.compress_bed_bytes(bed, cfg, device=device)
@@ -347,6 +410,8 @@ def phase_entry_points(device, label: str, bed: bytes):
             f.write(bed)
         cmd = [sys.executable, "-m", "starch3_tpu_torch.cli", "--jax",
                f"--platform={device.type}", "-o", out, src]
+        if device_huffman:
+            cmd.insert(4, "--device-huffman")
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True)
         dt = time.perf_counter() - t0
@@ -355,7 +420,7 @@ def phase_entry_points(device, label: str, bed: bytes):
         with open(out, "rb") as f:
             if f.read() != want:
                 raise AssertionError(f"{label} CLI --jax archive != host archive")
-    log(f"{label} cli --jax: same archive bytes ({dt:.3f} s with process start)")
+    log(f"{label} cli {' '.join(cmd[3:-3])}: same archive bytes ({dt:.3f} s with process start)")
 
 
 def sleep_cycles_per_s() -> float:
@@ -385,12 +450,12 @@ class StalledDispatch:
         self.calls = 0
         self.max_host_s = 0.0
 
-    def __call__(self, block_datas, nm, device, pad_to=None):
+    def __call__(self, block_datas, nm, device, pad_to=None, mode="fast"):
         t0 = time.perf_counter()
         if self.calls == 0 and self.cycles:
             torch.cuda._sleep(self.cycles)
         self.calls += 1
-        out = self.dispatch(block_datas, nm, device, pad_to=pad_to)
+        out = self.dispatch(block_datas, nm, device, pad_to=pad_to, mode=mode)
         self.max_host_s = max(self.max_host_s, time.perf_counter() - t0)
         return out
 
@@ -423,7 +488,7 @@ def fault_case(device, label: str, texts, want, stall_s: float, host_assist: boo
 
 
 def phase_faults(device, texts, smi: str, abandon_s: float = 0.5, stall_s: float = 3.0) -> None:
-    """Phase 7, fault handling on the card: encodes whose first batch runs
+    """Phase 8, fault handling on the card: encodes whose first batch runs
     late on a stalled stream, with ``host._ABANDON_S`` at ``abandon_s``.
     (a) the hybrid abandons and benches the device, and a clean encode
     after the stall puts blocks on the device again; (b) a device-only
@@ -504,12 +569,14 @@ def main() -> int:
     # the narrow wrapper's launches as its two kernels counted them: width
     # 16 (csrc/mtf_narrow.cu), widths 32/64 (the windowed kernel)
     launches = {"mtf_narrow": 0, "mtf_narrow_windowed": 0, "mtf_wide": 0}
+    wide_by_width = dict.fromkeys(mtf_wide.WIDTHS, 0)
     exact8 = 0
     for label, texts, classes in runs:
         by_width, wide, stats = phase_end_to_end(device, label, texts, classes)
         launches["mtf_narrow"] += by_width[16]
         launches["mtf_narrow_windowed"] += by_width[32] + by_width[64]
         launches["mtf_wide"] += wide
+        wide_by_width[256] += wide
         exact8 += stats["blocks_bits8"] - stats["tie_reencodes_bits8"]
     for name, n in launches.items():
         if n == 0:
@@ -518,6 +585,16 @@ def main() -> int:
         raise AssertionError("no bits==8 block was tie-free on the device")
     phase_entry_points(device, "config2", bed2)
     phase_entry_points(device, "config3", bed3)
+    huff_launches = {128: 0, 256: 0}
+    for label in ("config2", "config3", "wide8"):
+        for w, n in phase_fast_huff(device, label, by_label[label]).items():
+            huff_launches[w] += n
+    if not all(huff_launches.values()):
+        raise AssertionError(f"fast_huff: the wide kernel did not launch at every width: {huff_launches}")
+    for w, n in huff_launches.items():
+        wide_by_width[w] += n
+        launches["mtf_wide"] += n
+    phase_entry_points(device, "config2 fast_huff", bed2, device_huffman=True)
     phase_faults(device, texts_of(bed2), smi)
 
     if "jax" in sys.modules:
@@ -556,6 +633,8 @@ def main() -> int:
             "share_of_bound": main["share_of_bound"],
             "widths": cases,
         })
+        if name == "mtf_wide":
+            kernels[-1]["launches_by_width"] = {str(w): n for w, n in wide_by_width.items()}
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -91,7 +91,7 @@ def _on_device(config: EncodeConfig) -> bool:
     device modes not ported yet."""
     if not (config.use_jax and config.method is CompressionMethod.BZIP2):
         return False
-    _pipe.check_modes(config.fast_bwt, config.device_rle2, config.device_huffman)
+    _pipe.check_modes(config.fast_bwt, config.device_rle2)
     return True
 
 
@@ -100,6 +100,7 @@ def _encode_kwargs(config: EncodeConfig, device) -> dict:
         "level": config.block_size_100k,
         "device": device,
         "batch_size": config.blocks_per_batch,
+        "device_huffman": config.device_huffman,
     }
 
 

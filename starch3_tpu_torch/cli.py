@@ -36,6 +36,8 @@ USAGE = f"""\
   The options of starch3-tpu, with the device path on a torch device:
 
   --jax                   Run the device path (BWT and MTF on the device)
+  --device-huffman        With --jax: Huffman costing and bit packing on
+                          the device too (mode fast_huff; same bytes)
   --platform=cuda|cpu     Device of the device path (default cuda; cpu
                           runs the plain PyTorch versions).  A --jax
                           encode without a card needs --platform=cpu.
@@ -51,7 +53,7 @@ USAGE = f"""\
   --help | -h             Show this usage message
   --version | -v          Show binary version
 
-  Not ported yet: --device-huffman (ROADMAP A10), --num-hosts > 1 (A9).
+  Not ported yet: --num-hosts > 1 (ROADMAP A9).
 """
 
 
@@ -224,12 +226,11 @@ def main(argv: list[str] | None = None) -> int:
                 ),
             )
             if opts["jax"]:
-                from starch3_tpu_torch.parallel.pipeline import check_modes, resolve_device
+                from starch3_tpu_torch.parallel.pipeline import resolve_device
 
                 try:
-                    check_modes(device_huffman=config.device_huffman)
                     resolve_device(platform)
-                except (NotImplementedError, RuntimeError) as e:
+                except RuntimeError as e:
                     raise OptionError(str(e)) from None
             from starch3_tpu_torch.api import compress_bed_file, compress_bed_stream
 

@@ -31,8 +31,10 @@ MAX_N = 1 << 22
 _NEG = -(1 << 30)
 
 # kernel launches made by mtf_ranks_wide_batch (one per call on a CUDA
-# tensor); callers zero it and read it to prove a run used the kernel
+# tensor), in all and by width; callers zero them and read them to prove
+# a run used the kernel at the widths it should
 launches = 0
+width_launches = dict.fromkeys(WIDTHS, 0)
 
 
 def mtf_ranks_wide_reference(seqs: torch.Tensor, width: int = 256) -> torch.Tensor:
@@ -90,6 +92,7 @@ def mtf_ranks_wide_batch(seqs: torch.Tensor, width: int = 256) -> torch.Tensor:
     if b == 0:
         return out
     launch(seqs, out, width, "mtf_wide")
+    width_launches[width] += 1
     global launches
     launches += 1
     return out

@@ -19,6 +19,16 @@ distinct bytes at feed time (``_bits_class``) and batched with its class:
   host:    native RLE2 (bits 4-6) + Huffman + bit emission per block on
            the tail pool, and stream assembly in block order
 
+``device_huffman`` (``mode="fast_huff"``) keeps the Huffman stage on the
+device too: every class runs ``step_fast2`` (the one-sort BWT and the
+wide MTF at width 128 for bits 4, at width 256 with the byte remap for
+every other class, then RLE2), whose symbols and group histograms
+(ops/huff.py) stay on the device while only ``[ptr, m, ties, freq]``
+comes home.  A finisher thread per batch (``_drain_fast_huff``) refines
+the tables in 4 device cost/select rounds with the native length heap
+between them, emits the coded bits on the device (ops/bitpack.py) and
+downloads only the occupied prefix of the selectors and the words.
+
 The MTF stages are hand-written CUDA kernels on a CUDA device.  The host
 tier (the block queue and its stealers, classing, the row decoders, the
 tail pool and the stream assembler) is the port's own copy of the JAX
@@ -26,7 +36,9 @@ package's, in ``host.py``.  Only the device steps, dispatch and drain,
 and the driver loop are this module's.
 
 Blocks whose packed-prefix sort ties re-encode exactly on the host, as in
-the JAX package; ``device_stats["tie_reencodes"]`` counts them.  The
+the JAX package; ``device_stats["tie_reencodes"]`` counts them, and
+``huff_host_reencodes`` the ``fast_huff`` blocks whose coded bits overflow
+the emit's capacity, which the reference re-encodes on the host too.  The
 driver's fault handling is the JAX package's too: a device slower than
 half the stealers' aggregate is benched and probed for recovery, and a
 batch that is not ready after ``_ABANDON_S`` is abandoned to the host
@@ -44,6 +56,9 @@ import time
 import numpy as np
 import torch
 
+from starch3_tpu_torch.codec.bitio import BitWriter
+from starch3_tpu_torch.ops.bitpack import emit_coded_padded
+from starch3_tpu_torch.ops.huff import ALPHA_MAX, GROUP_SIZE, N_TABLES, cost_and_select, group_hist_padded
 from starch3_tpu_torch.parallel import host
 from starch3_tpu_torch.parallel.host import (
     _PIPELINE_DEPTH,
@@ -66,10 +81,12 @@ CLASSES = (4, 5, 6, 8)  # the alphabet classes of _bits_class
 
 # cumulative device-path events for this process, in total and per
 # alphabet class (chip_smoke.py and the tests read these; encode results
-# never depend on them)
+# never depend on them): batches and blocks dispatched, blocks re-encoded
+# on the host for ties and (fast_huff) for an emit overflow, and the
+# bytes the host reads back from the device
 device_stats = {
     f"{k}{c}": 0
-    for k in ("batches", "blocks", "tie_reencodes")
+    for k in ("batches", "blocks", "tie_reencodes", "huff_host_reencodes", "d2h_bytes")
     for c in ("",) + tuple(f"_bits{c}" for c in CLASSES)
 }
 _stats_lock = threading.Lock()
@@ -96,7 +113,7 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def check_modes(fast_bwt=True, device_rle2=False, device_huffman=False) -> None:
+def check_modes(fast_bwt=True, device_rle2=False) -> None:
     """Raise for the encode modes the port does not run yet."""
     if not fast_bwt:
         raise NotImplementedError(
@@ -104,8 +121,6 @@ def check_modes(fast_bwt=True, device_rle2=False, device_huffman=False) -> None:
         )
     if device_rle2:
         raise NotImplementedError("device_rle2 is not ported yet: ROADMAP A13")
-    if device_huffman:
-        raise NotImplementedError("device_huffman is not ported yet: ROADMAP A10")
 
 
 def _unpack_nibbles(packed: torch.Tensor) -> torch.Tensor:
@@ -234,6 +249,32 @@ def step_fast(seqs: torch.Tensor, lens: torch.Tensor, nsyms: torch.Tensor, bits:
     return step_rle2_pack(ptrs, ties, ranks, lens, nsyms, bits)
 
 
+def step_rle2_raw(ptrs, ties, ranks, lens, nsyms):
+    """RLE2 for the device Huffman stage, counterpart of
+    ``_jitted_rle2_raw(n_max)``: (small int32[B, 263] rows ``[ptr, m,
+    ties, freq[260]]``, the only part that goes home, and the symbol
+    streams int32[B, n_max + 2], which stay on the device)."""
+    syms, m, freq = rle2_from_ranks_padded(ranks, lens, nsyms)
+    small = torch.cat([ptrs[:, None], m[:, None], ties[:, None], freq], dim=1)
+    return small, syms
+
+
+def step_fast2(seqs: torch.Tensor, lens: torch.Tensor, nsyms: torch.Tensor, bits: int):
+    """``fast_huff``'s device step, counterpart of
+    ``_jitted_fused_step_fast2(n_max, bits)``: ``step_bwt_mtf_fast`` (the
+    wide MTF at width 128 for bits 4, 256 for bits 8) then
+    ``step_rle2_raw``."""
+    ptrs, ties, ranks = step_bwt_mtf_fast(seqs, lens, bits)
+    return step_rle2_raw(ptrs, ties, ranks, lens, nsyms)
+
+
+def _emit_w_cap(n_max: int) -> int:
+    """The emit's capacity in words: about 5.3 coded bits per input
+    symbol.  A block that needs more is re-encoded on the host, which
+    its ``total_bits`` tells (the reference's rule)."""
+    return (n_max + 2) // 6 + 64
+
+
 def _dense_pack4(arr: np.ndarray, out_row: np.ndarray):
     """Dense-remap one block and pack two symbols per byte into
     ``out_row``: the native pass, or the same in NumPy without the native
@@ -329,18 +370,24 @@ def step_for_class(seqs, lens, nsyms, bits: int, n_max: int) -> torch.Tensor:
     return step_fast(seqs, lens, nsyms, 8)
 
 
-def _dispatch_chunk(block_datas, nm, device: torch.device, pad_to=None):
+def _dispatch_chunk(block_datas, nm, device: torch.device, pad_to=None, mode: str = "fast"):
     """Pack, upload and launch one batch without waiting for it.
 
     ``nm`` is the queue's ``(n_max, bits class)`` bucket key; the batch is
-    padded to ``pad_to`` rows.  Returns ``((rows, event), aux)``: on a
-    CUDA device ``rows`` is a pinned host tensor that a non-blocking copy
-    is filling and ``event`` marks its end; on the CPU ``rows`` is ready
-    and ``event`` is None.  Each batch gets its own pinned buffer: the
-    drain hands row views to the tail pool, which reads them later."""
+    padded to ``pad_to`` rows.  Returns ``(handle, aux)``.  The handle
+    starts ``(rows, event)``: on a CUDA device ``rows`` is a pinned host
+    tensor that a non-blocking copy is filling and ``event`` marks the
+    end of the batch's work; on the CPU ``rows`` is ready and ``event`` is
+    None.  In ``fast_huff`` the rows are ``step_fast2``'s small rows and
+    the handle goes on with the device tensors the finisher reads,
+    ``(syms, m, hist)``.  Each batch gets its own pinned buffer: the drain
+    hands row views to the tail pool, which reads them later."""
     n_max, bits = nm
+    # fast_huff packs bits 4 as nibbles and every other class as bytes
+    # (the reference's dispatch: no word pack at bits 5/6 there)
+    step_bits = bits if mode == "fast" else (4 if bits == 4 else 8)
     cuda = device.type == "cuda"
-    packed, lens, nsyms, useds = pack_batch(block_datas, n_max, bits, pad_to, pin=cuda)
+    packed, lens, nsyms, useds = pack_batch(block_datas, n_max, step_bits, pad_to, pin=cuda)
 
     def upload(t: torch.Tensor) -> torch.Tensor:
         # pinned, so that the copy never waits on a stalled stream
@@ -348,31 +395,77 @@ def _dispatch_chunk(block_datas, nm, device: torch.device, pad_to=None):
             t = t.pin_memory()
         return t.to(device, non_blocking=True)
 
-    rows = step_for_class(
-        upload(packed), upload(torch.from_numpy(lens)), upload(torch.from_numpy(nsyms)), bits, n_max
-    )
+    args = (upload(packed), upload(torch.from_numpy(lens)), upload(torch.from_numpy(nsyms)))
+    if mode == "fast_huff":
+        rows, syms = step_fast2(*args, step_bits)
+        m = rows[:, 1].contiguous()
+        # the histograms launch at once; they stay on the device with syms
+        on_device = (syms, m, group_hist_padded(syms, m, n_max))
+    else:
+        rows = step_for_class(*args, bits, n_max)
+        on_device = ()
     b = len(block_datas)
-    _count(**{"batches": 1, "blocks": b, f"batches_bits{bits}": 1, f"blocks_bits{bits}": b})
-    aux = {"useds": useds, "lens": lens, "bits": bits}
+    counts = {"batches": 1, "blocks": b, f"batches_bits{bits}": 1, f"blocks_bits{bits}": b}
+    if mode == "fast":  # a fast_huff finisher counts its own downloads
+        counts.update({"d2h_bytes": rows.nbytes, f"d2h_bytes_bits{bits}": rows.nbytes})
+    _count(**counts)
+    aux = {"useds": useds, "lens": lens, "bits": bits, "mode": mode, "n_max": n_max}
     if not cuda:
-        return (rows, None), aux
+        return (rows, None) + on_device, aux
     out = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=True)
     out.copy_(rows, non_blocking=True)
     event = torch.cuda.Event()
     event.record(torch.cuda.current_stream(device))
-    return (out, event), aux
+    return (out, event) + on_device, aux
 
 
 def _batch_ready(handle) -> bool:
-    """True when a dispatched batch's rows are on the host."""
-    _rows, event = handle
+    """True when a dispatched batch's work is done and its rows are on
+    the host."""
+    event = handle[1]
     return event is None or event.query()
 
 
-def _drain_into(results, per_stream_blocks, item, on_done=None):
+def _drain_into(results, per_stream_blocks, item, on_done=None, huff=None):
     """Hand one dispatched batch's rows to the host tail.  A row whose
-    sort tied re-encodes exactly on the host, here."""
-    chunk, ((rows, event), aux) = item
+    sort tied re-encodes exactly on the host, here.
+
+    A ``fast_huff`` batch drains asynchronously, as in the reference: each
+    of its blocks gets a ``Future`` in ``results`` at once, and the
+    finisher (``_drain_fast_huff``) runs on ``huff``, the encode's
+    ``_huff_pool()``, so its device round trips and host heaps overlap the
+    driver's next dispatch.  ``on_done`` (the driver's drain-rate hook)
+    then fires from the finisher thread, when the blocks exist; a failed
+    finisher sets its exception on every future of the batch."""
+    chunk, (handle, aux) = item
+    if aux.get("mode") == "fast_huff":
+        from concurrent.futures import Future
+
+        pool, slots = huff
+        slots.acquire()  # bounds the batches whose device tensors are alive
+        futs = {key: Future() for key in chunk}
+        results.update(futs)
+
+        def finish():
+            nonlocal handle
+            try:
+                local: dict = {}
+                _drain_fast_huff(local, per_stream_blocks, chunk, handle, aux)
+            except BaseException as e:
+                for f in futs.values():
+                    f.set_exception(e)
+            else:
+                for key, f in futs.items():
+                    f.set_result(local[key])
+                if on_done is not None:
+                    on_done()
+            finally:
+                handle = None  # free the batch's device tensors now
+                slots.release()
+
+        pool.submit(finish)
+        return
+    rows, event = handle
     if event is not None:
         event.synchronize()
     out = rows.numpy()
@@ -395,6 +488,171 @@ def _drain_into(results, per_stream_blocks, item, on_done=None):
     _count(**{"tie_reencodes": ties, f"tie_reencodes_bits{bits}": ties})
     if on_done is not None:
         on_done()
+
+
+def _download(t: torch.Tensor) -> np.ndarray:
+    """A device tensor's values on the host: a blocking copy on the
+    calling thread's current stream, which waits for that stream only."""
+    return t.cpu().numpy()
+
+
+def _drain_fast_huff(results, per_stream_blocks, chunk, handle, aux) -> None:
+    """Finish a ``fast_huff`` batch, the counterpart of the reference's
+    ``_drain_fast_huff``: 4 device cost/select rounds, each followed by
+    the native code-length heaps on the host, then one device emit of the
+    coded bits; the host writes the block headers and splices in the
+    words.  A block whose sort tied, or whose coded bits overflow the
+    emit's capacity, is re-encoded on the host (the reference's rule).
+
+    On a CUDA device the finisher waits for its batch's event only, and
+    runs its device work on a stream of its own, so its round trips do
+    not queue behind the driver's next dispatch; every read-back is a
+    blocking copy on that stream, never a device-wide synchronize."""
+    from starch3_tpu_torch.codec import huffman
+    from starch3_tpu_torch.codec.encoder import encode_block_fragment, write_block_header
+    from starch3_tpu_torch.runtime import (
+        refine_lengths_batch_native,
+        selector_mtf_native,
+        write_block_header_native,
+    )
+
+    small_h, event, syms, m_d, hist = handle
+    n_max, bits = aux["n_max"], aux["bits"]
+    dev = syms.device
+    stream = None
+    if event is not None:
+        event.synchronize()
+        stream = torch.cuda.Stream(dev)
+        stream.wait_event(event)
+    small = small_h.numpy()
+    d2h = small.nbytes
+    b = len(chunk)
+    ptrs, ms, ties, freqs = small[:, 0], small[:, 1], small[:, 2], small[:, 3:263]
+    b_pad = small.shape[0]
+
+    # host: initial tables + refinement bookkeeping (padded to 6 tables)
+    lens = np.zeros((b_pad, N_TABLES, ALPHA_MAX), dtype=np.int32)
+    masks = np.zeros((b_pad, N_TABLES), dtype=bool)
+    n_groups = np.zeros(b_pad, dtype=np.int64)
+    alphas = np.zeros(b_pad, dtype=np.int64)
+    for i in range(b):
+        alpha = int(aux["useds"][i].sum()) + 2
+        m = int(ms[i])
+        ng = huffman.n_groups_for(m)
+        init = huffman.initial_lengths(freqs[i][:alpha].astype(np.int64), alpha, m)
+        lens[i, :ng, :alpha] = init
+        lens[i, :ng, alpha:] = huffman.GREATER_ICOST
+        masks[i, :ng] = True
+        n_groups[i] = ng
+        alphas[i] = alpha
+    masks[b:, 0] = True  # padding rows: keep the selection well-defined
+
+    try:
+        with torch.cuda.stream(stream):
+            masks_d = torch.from_numpy(masks).to(dev)
+            sel_d = None
+            for _ in range(huffman.N_ITERS):
+                sel_d, rfreq_d = cost_and_select(hist, torch.from_numpy(lens).to(dev), masks_d)
+                rfreq = _download(rfreq_d)
+                d2h += rfreq.nbytes
+                # one native call per round covers every (block, table) heap
+                rfreq64 = np.ascontiguousarray(rfreq[:b], dtype=np.int64)
+                if not refine_lengths_batch_native(rfreq64, n_groups[:b], alphas[:b], lens):
+                    for i in range(b):
+                        alpha = int(alphas[i])
+                        for t in range(int(n_groups[i])):
+                            lens[i, t, :alpha] = huffman.make_code_lengths(
+                                rfreq[i, t, :alpha].astype(np.int64), alpha
+                            )
+
+            # canonical codes -> packed (code << 5) | len LUT per block
+            luts = np.zeros((b_pad, N_TABLES * ALPHA_MAX), dtype=np.int32)
+            for i in range(b):
+                alpha = int(alphas[i])
+                for t in range(int(n_groups[i])):
+                    codes = huffman.assign_codes(lens[i, t, :alpha].astype(np.int64))
+                    luts[i, t * ALPHA_MAX : t * ALPHA_MAX + alpha] = (
+                        codes.astype(np.int64) << 5
+                    ) | lens[i, t, :alpha]
+
+            w_cap = _emit_w_cap(n_max)
+            words_d, totals_d = emit_coded_padded(syms, m_d, sel_d, torch.from_numpy(luts).to(dev), n_max, w_cap)
+            totals = _download(totals_d)
+            # only the occupied prefix of the selectors (~m / 50) and of
+            # the words (~the coded size) crosses the link
+            n_sel_need = max((int(ms[i]) + GROUP_SIZE - 1) // GROUP_SIZE for i in range(b))
+            sel = _download(sel_d[:, :n_sel_need])
+            w_need = max((min(int(totals[i]), 32 * w_cap) + 31) // 32 for i in range(b))
+            words = _download(words_d.view(torch.int32)[:, :w_need]).view(np.uint32)
+            d2h += totals.nbytes + sel.nbytes + words.nbytes
+    finally:
+        if stream is not None:
+            stream.synchronize()  # nothing of this batch may be freed in flight
+
+    overflows = ties_n = 0
+    for i, (si, bi) in enumerate(chunk):
+        m = int(ms[i])
+        total = int(totals[i])
+        blk = per_stream_blocks[si][bi]
+        if int(ties[i]) != 0 or total > 32 * w_cap:
+            results[(si, bi)] = encode_block_fragment(blk)
+            if int(ties[i]) != 0:
+                ties_n += 1
+            else:
+                overflows += 1
+            continue
+        n_sel = (m + GROUP_SIZE - 1) // GROUP_SIZE
+        selectors = sel[i, :n_sel].astype(np.int64)
+        alpha = int(alphas[i])
+        ng = int(n_groups[i])
+        hdr = write_block_header_native(
+            blk.crc, int(ptrs[i]), aux["useds"][i], lens[i, :ng, :alpha], selectors
+        )
+        frag = BitWriter()
+        if hdr is not None:
+            frag._out += hdr[0]
+            frag._acc, frag._nbits = hdr[1], hdr[2]
+        else:  # no native lib: the Python header writer
+            sel_mtf = selector_mtf_native(selectors)
+            if sel_mtf is None:
+                pos = list(range(ng))
+                sel_mtf = np.empty(n_sel, dtype=np.int64)
+                for k, s in enumerate(selectors.tolist()):
+                    j = pos.index(s)
+                    sel_mtf[k] = j
+                    pos.pop(j)
+                    pos.insert(0, s)
+            write_block_header(
+                frag, blk.crc, int(ptrs[i]), aux["useds"][i], ng,
+                lens[i, :ng, :alpha].astype(np.int64), sel_mtf,
+            )
+        # splice the device-packed words: whole bytes + a <8-bit tail
+        raw = words[i, : (total + 31) // 32].astype(">u4").tobytes()
+        full_bytes, tail_bits = divmod(total, 8)
+        coded = BitWriter()
+        coded._out += raw[:full_bytes]
+        if tail_bits:
+            coded._acc = raw[full_bytes] >> (8 - tail_bits)
+            coded._nbits = tail_bits
+        frag.append_writer(coded)
+        results[(si, bi)] = frag
+    _count(**{
+        "tie_reencodes": ties_n, f"tie_reencodes_bits{bits}": ties_n,
+        "huff_host_reencodes": overflows, f"huff_host_reencodes_bits{bits}": overflows,
+        "d2h_bytes": d2h, f"d2h_bytes_bits{bits}": d2h,
+    })
+
+
+def _huff_pool():
+    """A ``fast_huff`` encode's finisher executor and its in-flight bound,
+    as the reference's: 2 threads, so that consecutive batches' rounds
+    overlap (each finisher's 4 rounds are sequential), and 3 slots,
+    bounding the batches whose symbols and histograms are alive on the
+    device (two running, one queued).  Each encode makes its own and shuts
+    it down at its end, so no finisher outlives the encode."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    return ThreadPoolExecutor(2, thread_name_prefix="s3huff"), threading.Semaphore(3)
 
 
 def _host_encode(q: _BlockQueue, results, key) -> None:
@@ -442,10 +700,14 @@ def _abandon_batch(q: _BlockQueue, results, entry) -> None:
             _host_encode(q, results, key)
 
 
-def _device_driver(q: _BlockQueue, results, errors, device, batch_size, reserve):
+def _device_driver(q: _BlockQueue, results, errors, device, batch_size, reserve, mode="fast",
+                   huff=None):
     """The device side of the queue: claim batches from the front of a
     bucket, keep ``_PIPELINE_DEPTH`` in flight, drain the oldest, and
     leave the post-feeding tail to the stealer cores (``reserve``).
+    Batches run in ``mode``; a ``fast_huff`` batch drains to a finisher
+    on ``huff`` (``_drain_into``), and a finisher once started is not
+    abandoned, as in the reference.
 
     The claim loop and its fault handling are those of the JAX
     ``_device_driver``.  ``claim_priority`` orders the buckets and
@@ -510,7 +772,7 @@ def _device_driver(q: _BlockQueue, results, errors, device, batch_size, reserve)
         nm0, item, nbytes, _t0 = pending.popleft()
         _drain_into(
             results, q.per_stream_blocks, item,
-            on_done=functools.partial(note_drain, nbytes, nm0[1]),
+            on_done=functools.partial(note_drain, nbytes, nm0[1]), huff=huff,
         )
         with q.cond:  # wake the incremental assembler
             q.cond.notify_all()
@@ -532,7 +794,7 @@ def _device_driver(q: _BlockQueue, results, errors, device, batch_size, reserve)
         datas = [q.per_stream_blocks[si][bi].data for si, bi in chunk]
         nbytes = sum(map(len, datas))
         t0 = time.monotonic()
-        handle = _dispatch_chunk(datas, nm, device, pad_to=batch_size)[0]
+        handle = _dispatch_chunk(datas, nm, device, pad_to=batch_size, mode=mode)[0]
         for key in chunk:
             _host_encode(q, results, key)
         while (
@@ -632,7 +894,7 @@ def _device_driver(q: _BlockQueue, results, errors, device, batch_size, reserve)
                 datas = [q.per_stream_blocks[si][bi].data for si, bi in chunk]
                 pending.append((
                     this_nm,
-                    (chunk, _dispatch_chunk(datas, this_nm, device, pad_to=pad)),
+                    (chunk, _dispatch_chunk(datas, this_nm, device, pad_to=pad, mode=mode)),
                     sum(map(len, datas)),
                     time.monotonic(),
                 ))
@@ -744,8 +1006,10 @@ def encode_streams_iter(
 
     ``host_assist`` (default: on when the native runtime is built) runs
     every CPU core as a work stealer beside the device; off, every block
-    goes through the device.  Bytes are the same either way."""
-    check_modes(fast_bwt, device_rle2, device_huffman)
+    goes through the device.  ``device_huffman`` runs ``mode="fast_huff"``,
+    the Huffman stage on the device too.  Bytes are the same either way."""
+    check_modes(fast_bwt, device_rle2)
+    mode = "fast_huff" if device_huffman else "fast"
     dev = resolve_device(device)
     if host_assist is None:
         from starch3_tpu_torch.runtime import get_lib
@@ -764,9 +1028,10 @@ def encode_streams_iter(
     errors: list[BaseException] = []
     stealers = _start_host_stealers(q, results, errors, host_assist)
     reserve = _TAIL_RESERVE_PER_STEALER * len(stealers)
+    huff = _huff_pool() if mode == "fast_huff" else None
     driver = threading.Thread(
         target=_device_driver,
-        args=(q, results, errors, dev, batch_size, reserve),
+        args=(q, results, errors, dev, batch_size, reserve, mode, huff),
         name="s3tdevice",
         daemon=True,
     )
@@ -851,6 +1116,8 @@ def encode_streams_iter(
         driver.join()
         for t in stealers:
             t.join()
+        if huff is not None:  # the finishers of batches drained before the end
+            huff[0].shutdown(wait=True)
 
 
 def torch_bz2_compress(data: bytes, config=None, device="cuda") -> bytes:

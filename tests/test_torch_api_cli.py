@@ -92,8 +92,15 @@ def test_no_final_newline_and_duplicate_chromosome(rng):
 
 
 def test_unported_device_mode_raises(bed):
-    with pytest.raises(NotImplementedError, match="A10"):
-        api.compress_bed_bytes(bed, EncodeConfig(use_jax=True, device_huffman=True), device="cpu")
+    with pytest.raises(NotImplementedError, match="A13"):
+        api.compress_bed_bytes(bed, EncodeConfig(use_jax=True, device_rle2=True), device="cpu")
+
+
+def test_device_huffman_archive_equals_host(bed, host_archive):
+    """``device_huffman`` (mode fast_huff) through the archive API."""
+    got = api.compress_bed_bytes(bed, EncodeConfig(use_jax=True, device_huffman=True), device="cpu")
+    assert got == host_archive
+    assert api.decompress_starch_bytes(got) == bed
 
 
 def test_cli_cpu_platform_same_bytes(bed, host_archive, tmp_path):
@@ -107,6 +114,16 @@ def test_cli_cpu_platform_same_bytes(bed, host_archive, tmp_path):
     assert r.stdout == host_archive
     r = run(["--decode"], input_=host_archive)
     assert r.returncode == 0 and r.stdout == bed
+
+
+def test_cli_device_huffman_same_bytes(bed, host_archive, tmp_path):
+    """``--jax --device-huffman`` writes the host path's archive, as the
+    reference's CLI does (tests/test_cli.py)."""
+    src = tmp_path / "in.bed"
+    src.write_bytes(bed)
+    r = run(["--jax", "--device-huffman", "--platform=cpu", str(src)])
+    assert r.returncode == 0, r.stderr.decode()
+    assert r.stdout == host_archive
 
 
 def test_cli_without_card_exits_nonzero(bed, tmp_path):
@@ -125,7 +142,7 @@ def test_cli_without_card_exits_nonzero(bed, tmp_path):
     [
         (["--num-hosts=2", "--host-id=0"], b"not yet ported"),
         (["--platform=tpu", "--jax"], b"--platform"),
-        (["--platform=cpu", "--jax", "--device-huffman"], b"A10"),
+        (["--chrom=chr1"], b"--chrom requires --decode"),
     ],
 )
 def test_cli_rejects(args, msg, bed):

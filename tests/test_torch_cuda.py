@@ -10,7 +10,11 @@ Each kernel must equal its plain PyTorch version exactly, count one
 launch per call, fill every position of its output even as the first
 launch of a process, and refuse what it does not take; the device steps on
 the card must equal the same steps on the CPU, and the driver must
-survive a stalled stream."""
+survive a stalled stream.  The device Huffman ops (``ops/huff.py``,
+``ops/bitpack.py``) on the card must equal their CPU results, and a
+``device_huffman`` encode of every class must equal libbz2 -9."""
+
+import bz2
 
 import json
 import subprocess
@@ -117,10 +121,12 @@ def test_wide_kernel_equals_plain(cuda, width, shape):
     seqs[-1, -5:] = width + 1  # outside the alphabet: ranks `width`
     seqs[0, -3:] = -2  # negative: outside too
     seqs = seqs.to(cuda)
-    before = mtf_wide.launches
+    before, by_width = mtf_wide.launches, dict(mtf_wide.width_launches)
     got = mtf_ranks_wide_batch(seqs, width)
     torch.cuda.synchronize()
     assert mtf_wide.launches == before + 1
+    by_width[width] += 1
+    assert mtf_wide.width_launches == by_width
     assert torch.equal(got, mtf_ranks_wide_reference(seqs, width))
 
 
@@ -232,3 +238,98 @@ def test_driver_survives_a_stalled_stream(cuda):
 
     texts = chip_smoke.texts_of(corpus.make_bed(corpus.GENOME_CHROMS[:12], 3_000, seed=3))
     chip_smoke.phase_faults(cuda, texts, torch.cuda.get_device_name(0), stall_s=2.0)
+
+
+def _huff_inputs(n_max: int, seed: int):
+    """Symbol streams, counts, tables and selectors of a batch of three,
+    one row empty, one full, one part-filled with symbols past 257."""
+    from starch3_tpu_torch.ops import huff
+
+    gen = torch.Generator().manual_seed(seed)
+    syms = torch.randint(0, 40, (3, n_max + 2), generator=gen, dtype=torch.int32)
+    syms[2, ::9] = 300
+    m = torch.tensor([0, n_max + 2, n_max // 3], dtype=torch.int32)
+    lens = torch.randint(1, 18, (3, 6, huff.ALPHA_MAX), generator=gen, dtype=torch.int32)
+    lens[1, 3:] = lens[1, 0]  # tied tables
+    masks = torch.ones((3, 6), dtype=torch.bool)
+    masks[0, 2:] = False
+    codes = torch.randint(0, 1 << 17, (3, 6 * huff.ALPHA_MAX), generator=gen) & ((1 << lens.reshape(3, -1)) - 1)
+    lut = ((codes << 5) | lens.reshape(3, -1)).to(torch.int32)
+    return syms, m, lens, masks, lut
+
+
+@pytest.mark.parametrize("n_max", [16_384, 901_120])
+def test_huff_ops_equal_cpu(cuda, n_max):
+    """Group histograms, cost/select, the emit (below and above its
+    capacity) and the field packer on the card equal their CPU results."""
+    from starch3_tpu_torch.ops import bitpack, huff
+
+    syms, m, lens, masks, lut = _huff_inputs(n_max, 7)
+    hist = huff.group_hist_padded(syms, m, n_max)
+    hist_d = huff.group_hist_padded(syms.to(cuda), m.to(cuda), n_max)
+    assert torch.equal(hist_d.cpu(), hist)
+    sel, rfreq = huff.cost_and_select(hist, lens, masks)
+    sel_d, rfreq_d = huff.cost_and_select(hist_d, lens.to(cuda), masks.to(cuda))
+    assert torch.equal(sel_d.cpu(), sel) and torch.equal(rfreq_d.cpu(), rfreq)
+    w_cap = pipeline._emit_w_cap(n_max)
+    words, totals = bitpack.emit_coded_padded(syms, m, sel, lut, n_max, w_cap)
+    words_d, totals_d = bitpack.emit_coded_padded(
+        syms.to(cuda), m.to(cuda), sel_d, lut.to(cuda), n_max, w_cap
+    )
+    assert torch.equal(totals_d.cpu(), totals) and int(totals[1]) > 32 * w_cap
+    assert words_d.dtype == torch.uint32
+    assert (words_d.cpu().numpy() == words.numpy()).all()
+    nbits = torch.randint(0, 33, (5000,), generator=torch.Generator().manual_seed(3))
+    vals = torch.randint(0, 1 << 32, (5000,), generator=torch.Generator().manual_seed(4)) & ((1 << nbits) - 1)
+    w, t = bitpack.pack_bits_device(vals, nbits, 4000)
+    w_d, t_d = bitpack.pack_bits_device(vals.to(cuda), nbits.to(cuda), 4000)
+    assert int(t_d) == int(t) and (w_d.cpu().numpy() == w.numpy()).all()
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+def test_step_fast2_equals_cpu(cuda, bits):
+    """``fast_huff``'s step on the card (K3 at width 128 for bits 4, 256
+    for bits 8) against the CPU, on random tie-free rows and a short row."""
+    gen = torch.Generator().manual_seed(bits + 40)
+    n_max = 16_384
+    syms = torch.randint(0, 16 if bits == 4 else 200, (3, n_max), generator=gen).to(torch.uint8)
+    lens = torch.tensor([n_max, 9_000, 1], dtype=torch.int32)
+    nsyms = torch.tensor([16 if bits == 4 else 200] * 2 + [1], dtype=torch.int32)
+    seqs = syms[:, 0::2] | (syms[:, 1::2] << 4) if bits == 4 else syms
+    before = dict(mtf_wide.width_launches)
+    got = pipeline.step_fast2(seqs.to(cuda), lens.to(cuda), nsyms.to(cuda), bits)
+    torch.cuda.synchronize()
+    before[128 if bits == 4 else 256] += 1
+    assert mtf_wide.width_launches == before
+    for g, w in zip(got, pipeline.step_fast2(seqs, lens, nsyms, bits)):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_device_huffman_encode_every_class(cuda):
+    """One device-only ``device_huffman`` encode with blocks of every class,
+    a tied block and one whose coded bits overflow the emit: every stream
+    equals libbz2 -9, K3 ran at width 128 once per bits-4 batch and at 256
+    once per other batch, and the narrow kernels never ran."""
+    import numpy as np
+
+    rng = np.random.default_rng(8)
+    texts = [
+        bytes(rng.integers(0, 16, 12_000, dtype=np.uint8)),
+        bytes(rng.integers(0, 24, 6_000, dtype=np.uint8)),
+        bytes(rng.integers(0, 50, 7_000, dtype=np.uint8)),
+        bytes(rng.integers(0, 200, 9_000, dtype=np.uint8)),
+        b"1723\n481\np100\n" * 1000,
+        bytes(rng.integers(0, 256, 16_000, dtype=np.uint8)),
+    ]
+    for k in pipeline.device_stats:
+        pipeline.device_stats[k] = 0
+    narrow, by_width = mtf_narrow.launches, dict(mtf_wide.width_launches)
+    got = pipeline.encode_streams(texts, device=cuda, host_assist=False, device_huffman=True)
+    assert [g.data for g in got] == [bz2.compress(t, 9) for t in texts]
+    stats = pipeline.device_stats
+    assert stats["blocks"] == 6
+    assert all(stats[f"blocks_bits{c}"] for c in pipeline.CLASSES)
+    assert stats["tie_reencodes"] == 1 and stats["huff_host_reencodes"] == 1
+    assert mtf_narrow.launches == narrow
+    assert mtf_wide.width_launches[128] - by_width[128] == stats["batches_bits4"]
+    assert mtf_wide.width_launches[256] - by_width[256] == stats["batches"] - stats["batches_bits4"]

@@ -96,7 +96,8 @@ class FakeDevice:
         self.blocks = 0
         self.drained = 0  # batches whose rows the driver took
 
-    def dispatch(self, block_datas, nm, device, pad_to=None):
+    def dispatch(self, block_datas, nm, device, pad_to=None, mode="fast"):
+        assert mode == "fast", mode  # the rows it builds are fast mode's
         rows, aux = _rows(block_datas, nm, pad_to)
         with self.cond:
             dead = self.dispatched < self.dead_first

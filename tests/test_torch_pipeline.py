@@ -156,12 +156,60 @@ def test_wide8_corpus_is_multi_block():
     [
         ({"fast_bwt": False}, "A13"),
         ({"device_rle2": True}, "A13"),
-        ({"device_huffman": True}, "A10"),
     ],
 )
 def test_unported_modes_raise(kwargs, item):
     with pytest.raises(NotImplementedError, match=item):
         pipeline.encode_streams([b"12\n"], device="cpu", **kwargs)
+
+
+def _huff_texts(rng):
+    """Blocks of every fast_huff route in the smallest bucket: bits 4,
+    class 5 and bits 8 (the byte remap), a periodic bits-4 block whose
+    sort ties, and a high-entropy bits-8 block whose coded bits overflow
+    the emit's capacity (16,000 random bytes need about 8 bits a symbol,
+    the capacity of the 16,384 bucket is about 5.5)."""
+    return [
+        bytes(rng.integers(0, 16, 12_000, dtype=np.uint8)),
+        bytes(rng.integers(0, 24, 6_000, dtype=np.uint8)),
+        bytes(rng.integers(0, 200, 9_000, dtype=np.uint8)),
+        b"1723\n481\np100\n" * 1000,
+        bytes(rng.integers(0, 256, 16_000, dtype=np.uint8)),
+    ]
+
+
+@pytest.mark.parametrize("host_assist", [False, True])
+def test_device_huffman_matches_bz2(rng, host_assist):
+    """``device_huffman=True`` (mode fast_huff) on the CPU device: every
+    stream equals libbz2 -9; device only, every class ran through the
+    finisher, and both of its host re-encodes fired (ties, overflow)."""
+    texts = _huff_texts(rng)
+    _reset_stats()
+    got = pipeline.encode_streams(texts, device="cpu", host_assist=host_assist, device_huffman=True)
+    assert [g.data for g in got] == [bz2.compress(t, 9) for t in texts]
+    stats = pipeline.device_stats
+    if not host_assist:
+        assert stats["blocks"] == 5 and stats["batches"] == 3  # one batch per class
+        assert (stats["blocks_bits4"], stats["blocks_bits5"], stats["blocks_bits8"]) == (2, 1, 2)
+        assert stats["tie_reencodes"] == stats["tie_reencodes_bits4"] == 1
+        assert stats["huff_host_reencodes"] == stats["huff_host_reencodes_bits8"] == 1
+        # 263-column small rows per padded row, plus the finisher's reads
+        assert stats["d2h_bytes"] > stats["batches"] * 3 * 263 * 4
+
+
+def test_device_huffman_finisher_error_raises(rng, monkeypatch):
+    """A failing finisher raises through its blocks' futures: the encode
+    raises, and nothing falls back to fast mode or the host."""
+
+    class Boom(Exception):
+        pass
+
+    def emit(*args, **kwargs):
+        raise Boom()
+
+    monkeypatch.setattr(pipeline, "emit_coded_padded", emit)
+    with pytest.raises(Boom):
+        pipeline.encode_streams(_huff_texts(rng)[:1], device="cpu", host_assist=False, device_huffman=True)
 
 
 def test_cuda_without_a_card_raises():

@@ -11,7 +11,10 @@ alphabet tier plus pad rows.  Tolerance: zero.
 - ``step_fast`` vs ``_jitted_fused_step_fast(n_max, bits, False)``, rows
   ``[ptr, m, ties, freq[260], packed]``: the whole row where ties == 0,
   columns 0 and 2 elsewhere (the JAX sort's payload order among tied
-  rotations is unstable)."""
+  rotations is unstable).
+- ``step_fast2`` vs ``_jitted_fused_step_fast2(n_max, bits, False)`` at
+  bits 4 and 8: the small rows ``[ptr, m, ties, freq[260]]`` and the
+  symbol streams whole where ties == 0, columns 0 and 2 elsewhere."""
 
 import numpy as np
 import pytest
@@ -19,6 +22,7 @@ import torch
 
 from starch3_tpu.parallel.pipeline import (
     _jitted_fused_step_fast,
+    _jitted_fused_step_fast2,
     _jitted_fused_step_ranks4,
     _jitted_fused_step_ranks_mid,
 )
@@ -27,6 +31,7 @@ from starch3_tpu_torch.parallel.pipeline import (
     _dense_pack4,
     pack_batch,
     step_fast,
+    step_fast2,
     step_ranks4,
     step_ranks_mid,
 )
@@ -144,6 +149,33 @@ def test_fast_bits4_rows_match_jax_step(rng):
     for i in range(3):
         cols = slice(None) if want[i, 2] == 0 else [0, 2]
         assert got[i, cols].tolist() == want[i, cols].tolist(), i
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+def test_fast2_rows_and_syms_match_jax_step(rng, bits):
+    """``fast_huff``'s step: K3 at width 128 on nibble-packed bits-4 rows,
+    at width 256 on byte-remapped rows; the symbols stay on the device."""
+    n_max = 4096
+    if bits == 4:
+        seqs, lens = _batch(rng, n_max)
+        nib = np.stack([seqs & 0xF, seqs >> 4], axis=2).reshape(3, n_max)
+        nsyms = np.array([np.unique(nib[i, : lens[i]]).size for i in range(3)], np.int32)
+    else:
+        seqs, lens, nsyms = _tier_rows(8, n_max)
+    want_small, want_syms = map(np.asarray, _jitted_fused_step_fast2(n_max, bits, False)(seqs, lens, nsyms))
+    small, syms = step_fast2(
+        torch.from_numpy(seqs), torch.from_numpy(lens), torch.from_numpy(nsyms), bits
+    )
+    small, syms = small.numpy(), syms.numpy()
+    assert small.shape == want_small.shape == (len(lens), 263)
+    assert syms.shape == want_syms.shape == (len(lens), n_max + 2)
+    assert want_small[:, 2].any() and not want_small[:, 2].all()  # tied and tie-free rows
+    for i in range(len(lens)):
+        if want_small[i, 2] == 0:
+            assert small[i].tolist() == want_small[i].tolist(), i
+            assert syms[i].tolist() == want_syms[i].tolist(), i
+        else:
+            assert small[i, [0, 2]].tolist() == want_small[i, [0, 2]].tolist(), i
 
 
 def test_mid_rejects_a_wrong_word_count():
