@@ -9,8 +9,8 @@ Run from the root of the repository on a machine with one NVIDIA GPU
 It drives the port's device paths through the entry points a user calls:
 the bits==4 encode of whole-genome 3-column BED (BASELINE config 2) and
 the remainder-column tiers, bits 5/6 (BASELINE config 3 and gene-id BED)
-and bits 8 (BED6 with free-text names).  It exits 0 only if every phase
-passes:
+and bits 8 (BED6 with free-text names), and the device decode of their
+streams and archives.  It exits 0 only if every phase passes:
 
   1. the card: its name and power limit (nvidia-smi) and torch's name;
   2. the builds, all started together (timed): each kernel source of
@@ -71,7 +71,20 @@ passes:
      ``STARCH3_TPU_NO_HOST_FALLBACK=1`` a device-only encode waits out a
      1.5 s stall, abandons nothing and takes every block from the device.
      Every stream equals ``bz2.compress(text, 9)``; each case's wall time
-     is printed with the card's name and power limit.
+     is printed with the card's name and power limit;
+  9. device decode on the card: ``step_decode`` on one production batch
+     of 8 real blocks at 901,120 (config 2's big chromosome, then wide8,
+     then config 3) equals the same step on the CPU, and each op and part
+     of the step is timed by CUDA events (irle2; imtf pass 1, pass 2 and
+     gathers; ibwt sort, jumping and placement); ``decode_streams(device=
+     "cuda")`` of every phase-5 corpus's level-9 streams gives back every
+     text, with ``device_stats["decode_batches"]`` and ``["decode_blocks"]``
+     (set to 0 just before) equal to the batches and blocks dispatched and
+     no MTF kernel launched; MB/s of text beside single-thread
+     ``bz2.decompress``, and the host's ms per block for the symbol walk,
+     ``rle1_decode`` and the CRC; on configs 2 and 3,
+     ``decompress_starch_bytes(archive, use_jax=True)`` equals the native
+     block-parallel decode and the BED, with the MB/s of BED of both.
 
 The port imports nothing of JAX and nothing of the JAX package
 ``starch3_tpu``; the run fails if either is loaded.  The line before the
@@ -87,6 +100,7 @@ from __future__ import annotations
 
 import argparse
 import bz2
+import collections
 import concurrent.futures
 import json
 import os
@@ -99,6 +113,8 @@ import torch
 
 from starch3_tpu_torch import api, corpus, runtime
 from starch3_tpu_torch._build import BUILD_DIR, build
+from starch3_tpu_torch.codec.crc32 import crc32_bytes
+from starch3_tpu_torch.codec.rle1 import rle1_decode
 from starch3_tpu_torch.ops import mtf_narrow, mtf_wide
 from starch3_tpu_torch.parallel import host, pipeline
 from starch3_tpu_torch.profile_kernels import (
@@ -524,6 +540,136 @@ def phase_faults(device, texts, smi: str, abandon_s: float = 0.5, stall_s: float
             os.environ["STARCH3_TPU_NO_HOST_FALLBACK"] = saved_env
 
 
+DECODE_N_MAX = 901_120
+
+
+def decode_batch(streams: dict, labels, n_max: int = DECODE_N_MAX, b: int = 8) -> list:
+    """The first ``b`` blocks of bucket ``n_max`` in the streams of
+    ``labels``, in order, as the host walk gives them."""
+    metas = [m for label in labels for s in streams[label] for m in pipeline.read_stream_blocks(s)[0]
+             if host._bucket_for(m[4]) == n_max]
+    if len(metas) < b:
+        raise AssertionError(f"only {len(metas)} blocks of bucket {n_max} in {labels}")
+    return metas[:b]
+
+
+def phase_decode_step(device, metas, smi: str, reps: int = 7) -> dict:
+    """Phase 9, the step: ``step_decode`` on the card against the CPU on
+    one production batch (blocks and n equal), then per batch, for each op
+    and part of the step on the card, the CUDA-event median (which counts
+    the host's launches where they hold the card back) and the device
+    time summed over its CUDA kernels under ``torch.profiler``."""
+    from starch3_tpu_torch.ops import ibwt, imtf, irle2
+
+    n_max = DECODE_N_MAX
+    args = pipeline.pack_decode_batch(metas, n_max)
+    want_b, want_n = pipeline.step_decode(*args, n_max)
+    syms, m, alphabet, ptr = (a.to(device) for a in args)
+    got_b, got_n = pipeline.step_decode(syms, m, alphabet, ptr, n_max)
+    check_equal(f"decode step n ({len(metas)}, {n_max})", got_n.cpu(), want_n)
+    check_equal(f"decode step blocks ({len(metas)}, {n_max})", got_b.cpu(), want_b)
+    if want_n.tolist() != [meta[4] for meta in metas]:
+        raise AssertionError(f"decode step: n {want_n.tolist()} != the host's counts")
+    # each part on its own input, made once by the part before it
+    ranks, n = irle2.irle2_decode_padded(syms, m, n_max)
+    q, fronts = imtf.tile_permutations(ranks, n, n_max)
+    c_pre = imtf.compose_exclusive(q)
+    last = imtf.gather_symbols(c_pre, fronts, alphabet).to(torch.uint8)
+    lf = ibwt.lf_mapping(last, n, n_max)
+    d, nxt = ibwt.jump(lf, ptr, n, n_max)
+    parts = {
+        "step": lambda: pipeline.step_decode(syms, m, alphabet, ptr, n_max),
+        "irle2": lambda: irle2.irle2_decode_padded(syms, m, n_max),
+        "imtf pass 1": lambda: imtf.tile_permutations(ranks, n, n_max),
+        "imtf pass 2": lambda: imtf.compose_exclusive(q),
+        "imtf gathers": lambda: imtf.gather_symbols(c_pre, fronts, alphabet),
+        "ibwt sort": lambda: ibwt.lf_mapping(last, n, n_max),
+        "ibwt jumping": lambda: ibwt.jump(lf, ptr, n, n_max),
+        "ibwt placement": lambda: ibwt.place(last, d, nxt, ptr, n, n_max),
+    }
+    ms = {name: cuda_median_ms(fn, reps) for name, fn in parts.items()}
+    device_ms = {name: sum(device_us_by_kernel(fn, 2).values()) / 1e3 for name, fn in parts.items()}
+    log(f"decode step: card == CPU at ({len(metas)}, {n_max}), n {want_n.tolist()}; per batch on {smi}, "
+        f"ms: CUDA-event median of {reps} {json.dumps(ms)}; device time (torch.profiler, mean of 2) "
+        f"{json.dumps(device_ms)}")
+    return {"ms": ms, "device_ms": device_ms}
+
+
+def phase_device_decode(device, label: str, texts, streams, smi: str, rle1_blocks: int = 3) -> dict:
+    """Phase 9, device-only decode of one corpus's level-9 streams: every
+    text back, the decode counters (set to 0 just before, read just after)
+    equal to the blocks and batches dispatched, and no MTF kernel
+    launched.  MB/s of text beside same-run single-thread
+    ``bz2.decompress``, and the host's ms per block for the symbol walk,
+    ``rle1_decode`` (on ``rle1_blocks`` blocks) and the CRC."""
+    total = sum(map(len, texts))
+    t0 = time.perf_counter()
+    walked = [pipeline.read_stream_blocks(s)[0] for s in streams]
+    walk_s = time.perf_counter() - t0
+    n_blocks = sum(map(len, walked))
+    buckets = dict(collections.Counter(host._bucket_for(blk[4]) for blocks in walked for blk in blocks))
+    n_batches = sum(-(-c // 8) for c in buckets.values())
+    mtf_narrow.launches = mtf_wide.launches = 0
+    pipeline.device_stats["decode_batches"] = pipeline.device_stats["decode_blocks"] = 0
+    t0 = time.perf_counter()
+    got = pipeline.decode_streams(streams, device=device)
+    dt = time.perf_counter() - t0
+    stats = {k: pipeline.device_stats[k] for k in ("decode_batches", "decode_blocks")}
+    if got != texts:
+        raise AssertionError(f"{label} device decode: a stream != its text")
+    if stats != {"decode_batches": n_batches, "decode_blocks": n_blocks} or mtf_narrow.launches or mtf_wide.launches:
+        raise AssertionError(f"{label} device decode: counters {stats}, MTF launches {mtf_narrow.launches} "
+                             f"{mtf_wide.launches} != {n_batches} batches, {n_blocks} blocks, 0 launches")
+    t0 = time.perf_counter()
+    for s in streams:
+        bz2.decompress(s)
+    dt_bz2 = time.perf_counter() - t0
+    rle1_in = [b.data for t in texts for b in host._split_classify(t, 9)[0]][:rle1_blocks]
+    t0 = time.perf_counter()
+    rle1_out = [rle1_decode(x) for x in rle1_in]
+    rle1_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for x in rle1_out:
+        crc32_bytes(x)
+    crc_s = time.perf_counter() - t0
+    run = {
+        "mb_s": total / dt / 1e6, "seconds": dt, "bz2_mb_s": total / dt_bz2 / 1e6, "blocks": n_blocks,
+        "batches": n_batches, "buckets": buckets, "walk_ms_per_block": walk_s / n_blocks * 1e3,
+        "rle1_ms_per_block": rle1_s / len(rle1_in) * 1e3, "crc_ms_per_block": crc_s / len(rle1_in) * 1e3,
+        "rle1_bytes_per_block": sum(map(len, rle1_in)) / len(rle1_in),
+    }
+    log(f"{label} device decode (decode_streams, device only): {len(streams)} streams, {total} bytes, "
+        f"{n_blocks} blocks in {n_batches} batches {buckets}, all == text; {run['mb_s']:.3f} MB/s of text "
+        f"({dt:.3f} s); same-run bz2.decompress one thread {run['bz2_mb_s']:.3f} MB/s; host per block: "
+        f"walk {run['walk_ms_per_block']:.3f} ms, rle1_decode {run['rle1_ms_per_block']:.3f} ms "
+        f"({run['rle1_bytes_per_block']:.0f} B in), CRC {run['crc_ms_per_block']:.3f} ms; on {smi}")
+    return run
+
+
+def phase_archive_decode(device, label: str, bed: bytes, smi: str) -> None:
+    """Phase 9, the entry: ``decompress_starch_bytes(archive, use_jax=True)``
+    equals the native block-parallel decode and the BED; MB/s of BED of
+    both and of single-thread ``bz2.decompress`` of the archive's streams."""
+    archive = api.compress_bed_bytes(bed, api.EncodeConfig())
+    t0 = time.perf_counter()
+    got = api.decompress_starch_bytes(archive, use_jax=True, device=device.type)
+    dt = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    native = api.decompress_starch_bytes(archive)
+    dt_native = time.perf_counter() - t0
+    if not got == native == bed:
+        raise AssertionError(f"{label} decompress_starch_bytes(use_jax=True) != host decode or BED")
+    streams = [s for _meta, s in api.StarchReader.from_bytes(archive).iter_streams()]
+    t0 = time.perf_counter()
+    for s in streams:
+        bz2.decompress(s)
+    dt_bz2 = time.perf_counter() - t0
+    log(f"{label} decompress_starch_bytes(use_jax=True) == native == BED; MB/s of BED: device "
+        f"{len(bed) / dt / 1e6:.3f} ({dt:.3f} s), native block-parallel ({os.cpu_count()} workers) "
+        f"{len(bed) / dt_native / 1e6:.3f} ({dt_native:.3f} s), bz2.decompress of its streams, one thread "
+        f"{len(bed) / dt_bz2 / 1e6:.3f} ({dt_bz2:.3f} s); on {smi}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=5)
@@ -596,6 +742,12 @@ def main() -> int:
         launches["mtf_wide"] += n
     phase_entry_points(device, "config2 fast_huff", bed2, device_huffman=True)
     phase_faults(device, texts_of(bed2), smi)
+    streams = {label: [bz2.compress(t, 9) for t in texts] for label, texts, _ in runs}
+    phase_decode_step(device, decode_batch(streams, ("config2", "wide8", "config3")), smi)
+    for label, texts, _ in runs:
+        phase_device_decode(device, label, texts, streams[label], smi)
+    phase_archive_decode(device, "config2", bed2, smi)
+    phase_archive_decode(device, "config3", bed3, smi)
 
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")

@@ -18,8 +18,11 @@ package:
   - ``ops.mtf_wide``:   wide-alphabet MTF (widths 128/256); a hand-written
                         CUDA kernel (``csrc/mtf_wide.cu``) on a CUDA device
   - ``ops.rle2``:       zero-run coding of MTF ranks, batched, in torch ops
+  - ``ops.irle2``, ``ops.imtf``, ``ops.ibwt``: the decode side's inverse
+                        RLE2, MTF and BWT, batched, in torch ops
   - ``parallel.pipeline``: the device steps of the bits 4, 5/6 and 8
-                        tiers, dispatch, drain and driver
+                        tiers, dispatch, drain and driver; the decode
+                        step and ``decode_streams``
   - ``parallel.host``:  the host scheduler, tail and stream assembly,
                         copied from ``starch3_tpu/parallel/pipeline.py``
   - ``api``, ``cli``:   entry points with an explicit torch ``device``;

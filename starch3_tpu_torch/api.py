@@ -6,8 +6,8 @@ archive format, decode, listing and random access) are the port's own
 copies of the JAX package's functions, with the same bytes.  The device
 branches differ: ``use_jax=True`` selects the port's device path, which
 runs on the explicit ``device`` (``"cuda"`` by default, ``"cpu"`` for the
-plain PyTorch versions).  Decode runs on the host (device decode is
-ROADMAP A12).
+plain PyTorch versions), in encode and in decode
+(``decompress_starch_bytes(use_jax=True)``).
 """
 
 from __future__ import annotations
@@ -812,15 +812,24 @@ def _join_stream_blocks(meta, stream: bytes, sf) -> bytes | None:
         raise FormatError(f"{meta.chromosome}: {e}") from e
 
 
-def decompress_starch_bytes(data: bytes, workers: int | None = None) -> bytes:
-    """.starch archive bytes -> BED text (byte-exact round trip), on the
-    host (device decode is ROADMAP A12).
+def decompress_starch_bytes(
+    data: bytes, workers: int | None = None, use_jax: bool = False, mesh=None, device="cuda"
+) -> bytes:
+    """.starch archive bytes -> BED text (byte-exact round trip).
 
     Streams are independent, so decode runs them through a thread pool
     (the native decoder releases the GIL); results concatenate in
     metadata order regardless of completion order.  Multi-block streams
     additionally decode block-parallel via the metadata block index.
+
+    ``use_jax`` routes the vectorizable decode stages of a bzip2 archive
+    (inverse RLE2 -> MTF -> BWT) through the device path on ``device``
+    (``"cuda"`` needs a card; ``"cpu"`` runs the same torch ops there),
+    batched over all streams' blocks (parallel/pipeline.decode_streams).
+    A gzip archive decodes on the host either way.  ``mesh`` must be
+    None: the multi-GPU layer is ROADMAP A9.
     """
+    _pipe.check_mesh(mesh)
     reader = StarchReader.from_bytes(data)
     fmt = reader.metadata.compression_format
 
@@ -829,7 +838,13 @@ def decompress_starch_bytes(data: bytes, workers: int | None = None) -> bytes:
         import os
 
         workers = os.cpu_count() or 1
-    if workers > 1 and items:
+    if use_jax and fmt == "bzip2" and items:
+        texts = _pipe.decode_streams([stream for _meta, stream in items], device=device)
+        parts = [
+            _decode_stream_to_bed(meta, stream, fmt, text)
+            for (meta, stream), text in zip(items, texts)
+        ]
+    elif workers > 1 and items:
         from concurrent.futures import ThreadPoolExecutor
 
         from starch3_tpu_torch.runtime import get_lib

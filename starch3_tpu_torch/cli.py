@@ -249,7 +249,9 @@ def main(argv: list[str] | None = None) -> int:
             )
             return 0
         if opts["decode"] and opts["jax"]:
-            # decode runs on the host (device decode is ROADMAP A12)
+            # the reference's behaviour: decode runs on the host; the device
+            # decode is decompress_starch_bytes(use_jax=True), whose on-card
+            # figures beside the native decoder's are in PERF.md
             print(
                 "starch3: note: --jax applies to encode; decode uses the "
                 "native block-parallel path",

@@ -44,6 +44,12 @@ half the stealers' aggregate is benched and probed for recovery, and a
 batch that is not ready after ``_ABANDON_S`` is abandoned to the host
 (``scheduler_stats`` counts demotions, repromotions and abandoned
 batches), so a stalled stream cannot hang an encode.
+
+Decode (``decode_streams``, reached by ``decompress_starch_bytes(use_jax=
+True)``) is the reference's mirror path: the host walks each block to its
+RLE2 symbols, ``step_decode`` runs inverse RLE2 (ops/irle2.py), inverse
+MTF (ops/imtf.py) and inverse BWT (ops/ibwt.py) on batches of 8 blocks of
+one bucket, and the host inverts RLE1 and checks the CRCs.
 """
 
 from __future__ import annotations
@@ -56,7 +62,13 @@ import time
 import numpy as np
 import torch
 
-from starch3_tpu_torch.codec.bitio import BitWriter
+from starch3_tpu_torch.codec.bitio import BitReader, BitWriter
+from starch3_tpu_torch.codec.crc32 import combine_block_crc, crc32_bytes
+from starch3_tpu_torch.codec.decoder import read_block_symbols
+from starch3_tpu_torch.codec.encoder import BLOCK_MAGIC, STREAM_END_MAGIC
+from starch3_tpu_torch.codec.randtable import derandomize
+from starch3_tpu_torch.codec.rle1 import rle1_decode
+from starch3_tpu_torch.errors import FormatError
 from starch3_tpu_torch.ops.bitpack import emit_coded_padded
 from starch3_tpu_torch.ops.huff import ALPHA_MAX, GROUP_SIZE, N_TABLES, cost_and_select, group_hist_padded
 from starch3_tpu_torch.parallel import host
@@ -73,22 +85,26 @@ from starch3_tpu_torch.parallel.host import (
     scheduler_stats,
 )
 from starch3_tpu_torch.ops.bwt_fast import bwt_sort_fast, bwt_sort_fast3, bwt_sort_fast_mid
+from starch3_tpu_torch.ops.ibwt import ibwt_padded
+from starch3_tpu_torch.ops.imtf import imtf_decode_padded
+from starch3_tpu_torch.ops.irle2 import irle2_decode_padded
 from starch3_tpu_torch.ops.mtf_narrow import mtf_ranks_narrow_batch
 from starch3_tpu_torch.ops.mtf_wide import mtf_ranks_wide_batch
 from starch3_tpu_torch.ops.rle2 import rle2_from_ranks_padded
+from starch3_tpu_torch.runtime import read_block_symbols_native
 
 CLASSES = (4, 5, 6, 8)  # the alphabet classes of _bits_class
 
 # cumulative device-path events for this process, in total and per
-# alphabet class (chip_smoke.py and the tests read these; encode results
-# never depend on them): batches and blocks dispatched, blocks re-encoded
-# on the host for ties and (fast_huff) for an emit overflow, and the
-# bytes the host reads back from the device
+# alphabet class (chip_smoke.py and the tests read these; results never
+# depend on them): batches and blocks dispatched, blocks re-encoded on the
+# host for ties and (fast_huff) for an emit overflow, and the bytes the
+# host reads back from the device; and the decode batches and blocks
 device_stats = {
     f"{k}{c}": 0
     for k in ("batches", "blocks", "tie_reencodes", "huff_host_reencodes", "d2h_bytes")
     for c in ("",) + tuple(f"_bits{c}" for c in CLASSES)
-}
+} | {"decode_batches": 0, "decode_blocks": 0}
 _stats_lock = threading.Lock()
 
 
@@ -1134,3 +1150,194 @@ def torch_bz2_compress(data: bytes, config=None, device="cuda") -> bytes:
         fast_bwt=getattr(config, "fast_bwt", True),
         device_huffman=getattr(config, "device_huffman", False),
     )[0].data
+
+
+# ---------------------------------------------------------------------------
+# Device decode, the counterpart of the JAX package's decode half.  The
+# host walks each block's bits down to Huffman-decoded RLE2 symbols (bit
+# positions are inherently sequential), the device runs inverse RLE2 ->
+# MTF -> BWT batched over every stream's blocks, and the host finishes with
+# the RLE1 inversion and the CRCs.
+# ---------------------------------------------------------------------------
+
+
+def check_mesh(mesh) -> None:
+    """Raise for a device mesh: the port's multi-GPU layer is not ported."""
+    if mesh is not None:
+        raise NotImplementedError("a device mesh (multi-GPU decode) is not ported yet: ROADMAP A9")
+
+
+def step_decode(syms: torch.Tensor, m: torch.Tensor, alphabet: torch.Tensor, ptr: torch.Tensor, n_max: int):
+    """The decode step, counterpart of ``_jitted_device_decode_step(n_max)``.
+
+    Args:
+      syms: int32[B, n_max] RLE2 symbols, EOB stripped
+      m: int32[B] symbol counts
+      alphabet: int32[B, 256] each block's used bytes in order
+      ptr: int32[B] orig_ptr of each block
+      n_max: the bucket, a multiple of 512
+    Returns:
+      (blocks uint8[B, n_max], n int32[B]): each block's bytes as the BWT
+      took them, RLE1-coded (the valid prefix of length n), and n as the
+      symbols expand, which the host holds to its own count.
+    """
+    ranks, n = irle2_decode_padded(syms, m, n_max)
+    n_c = torch.clamp(n, max=n_max)  # corrupt streams: the host re-validates n
+    byts = imtf_decode_padded(ranks, n_c, alphabet, n_max)
+    return ibwt_padded(byts.to(torch.uint8), ptr, n_c, n_max), n
+
+
+def _rle2_decoded_len(syms: np.ndarray) -> int:
+    """Decoded byte count of an RLE2 symbol stream (EOB stripped) — the
+    host-side twin of the contribution sum in ops/irle2_jax.py; used to
+    pick the geometry bucket and validate before dispatch."""
+    if syms.size == 0:
+        return 0
+    is_run = syms <= 1
+    t = np.arange(syms.size, dtype=np.int64)
+    starts = is_run & np.concatenate([[True], ~is_run[:-1]])
+    start_pos = np.maximum.accumulate(np.where(starts, t, -1))
+    k = np.minimum(t - start_pos, 21)
+    contrib = np.where(is_run, (syms.astype(np.int64) + 1) << k, 1)
+    return int(contrib.sum())
+
+
+def read_stream_blocks(stream: bytes):
+    """The host half before the device: walk one bzip2 stream's blocks down
+    to their RLE2 symbols (native, or the Python walk without the native
+    runtime) and check each block's geometry.  Returns (blocks, stored
+    stream CRC), each block ``(crc, ptr, in_use, symbols, n_exp,
+    randomised)``.  Raises ``FormatError`` on a corrupt stream."""
+    if len(stream) < 4 or stream[:3] != b"BZh":
+        raise FormatError("bzip2: bad stream header")
+    level = stream[3] - 0x30
+    if not 1 <= level <= 9:
+        raise FormatError("bzip2: bad block-size digit")
+    max_block = 100_000 * level + 64
+    br = BitReader(stream)
+    br.read(32)
+    blocks = []
+    while True:
+        magic_pos = br.bit_pos
+        magic = br.read(48)
+        if magic == STREAM_END_MAGIC:
+            return blocks, br.read(32)
+        if magic != BLOCK_MAGIC:
+            raise FormatError("bzip2: bad block magic")
+        try:
+            native = read_block_symbols_native(stream, magic_pos, level)
+        except ValueError as e:
+            raise FormatError(str(e)) from None
+        if native is not None:
+            crc, ptr, in_use, symbols, next_pos, randomised = native
+            br._pos = next_pos
+        else:
+            crc, ptr, in_use, symbols, randomised = read_block_symbols(br)
+        n_exp = _rle2_decoded_len(np.asarray(symbols))
+        if not 0 < n_exp <= max_block or ptr >= n_exp:
+            raise FormatError("bzip2: bad block geometry")
+        blocks.append((crc, ptr, in_use, np.asarray(symbols), n_exp, randomised))
+
+
+def pack_decode_batch(block_metas, n_max: int, pin: bool = False):
+    """The step's inputs for ``read_stream_blocks`` blocks: (syms int32[B,
+    n_max], m int32[B], alphabet int32[B, 256], ptr int32[B]) on the CPU,
+    pinned with ``pin``."""
+    b = len(block_metas)
+    syms = torch.zeros((b, n_max), dtype=torch.int32, pin_memory=pin)
+    ms = torch.zeros(b, dtype=torch.int32, pin_memory=pin)
+    alphas = torch.zeros((b, 256), dtype=torch.int32, pin_memory=pin)
+    ptrs = torch.zeros(b, dtype=torch.int32, pin_memory=pin)
+    syms_np, ms_np, alphas_np, ptrs_np = (t.numpy() for t in (syms, ms, alphas, ptrs))
+    for i, (_crc, ptr, in_use, symbols, _n_exp, _rand) in enumerate(block_metas):
+        syms_np[i, : symbols.size] = symbols
+        ms_np[i] = symbols.size
+        seq = np.flatnonzero(in_use)
+        alphas_np[i, : seq.size] = seq
+        ptrs_np[i] = ptr
+    return syms, ms, alphas, ptrs
+
+
+def decode_streams(stream_datas: list[bytes], device="cuda", batch_size: int = 8, mesh=None) -> list[bytes]:
+    """Decompress many bzip2 streams through one device queue; the
+    counterpart of the JAX ``decode_streams`` with ``device`` beside
+    ``mesh`` (which must be None: ROADMAP A9).
+
+    Every stream's blocks share geometry-bucketed batches of
+    ``batch_size``, pipelined two deep: batch k+1 is dispatched before
+    batch k is drained.  The bytes equal the host decoder's, and any
+    corruption, a CRC mismatch included, is a ``FormatError``.
+    ``device_stats`` counts ``decode_batches`` and ``decode_blocks``."""
+    check_mesh(mesh)
+    device = resolve_device(device)
+    per_stream = [read_stream_blocks(stream) for stream in stream_datas]
+
+    by_bucket: dict[int, list[tuple[int, int]]] = {}
+    for si, (blocks, _stored) in enumerate(per_stream):
+        for bi, blk in enumerate(blocks):
+            by_bucket.setdefault(host._bucket_for(blk[4]), []).append((si, bi))
+
+    decoded: dict[tuple[int, int], bytes] = {}
+    for n_max, items in by_bucket.items():
+        pending = []
+        for lo in range(0, len(items), batch_size):
+            chunk = items[lo : lo + batch_size]
+            metas = [per_stream[si][0][bi] for si, bi in chunk]
+            pending.append((chunk, _dispatch_decode_chunk(metas, n_max, device)))
+            if len(pending) > 1:
+                _drain_decode(decoded, per_stream, pending.pop(0))
+        while pending:
+            _drain_decode(decoded, per_stream, pending.pop(0))
+
+    out = []
+    for si, (blocks, stored) in enumerate(per_stream):
+        combined = 0
+        parts = []
+        for bi, (crc, *_rest) in enumerate(blocks):
+            data = rle1_decode(decoded[(si, bi)])
+            if crc32_bytes(data) != crc:
+                raise FormatError("bzip2: block CRC mismatch")
+            combined = combine_block_crc(combined, crc)
+            parts.append(data)
+        if combined != stored:
+            raise FormatError("bzip2: stream CRC mismatch")
+        out.append(b"".join(parts))
+    return out
+
+
+def _dispatch_decode_chunk(block_metas, n_max: int, device: torch.device):
+    """Upload and launch one decode batch without waiting for it.  Returns
+    (blocks, n, event): on a CUDA device pinned host tensors that
+    non-blocking copies are filling and the event that marks the end of
+    the batch's work; on the CPU the results and None."""
+    cuda = device.type == "cuda"
+    args = tuple(t.to(device, non_blocking=True) for t in pack_decode_batch(block_metas, n_max, pin=cuda))
+    blocks, n = step_decode(*args, n_max)
+    _count(decode_batches=1, decode_blocks=len(block_metas))
+    if not cuda:
+        return blocks, n, None
+    out = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in (blocks, n))
+    for dst, src in zip(out, (blocks, n)):
+        dst.copy_(src, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(device))
+    return out + (event,)
+
+
+def _drain_decode(decoded, per_stream, item) -> None:
+    """Wait for one dispatched decode batch and keep each block's bytes,
+    de-randomising legacy randomised blocks.  A block that did not expand
+    to the host's count is a ``FormatError``."""
+    chunk, (blocks_t, n_t, event) = item
+    if event is not None:
+        event.synchronize()
+    blocks = blocks_t.numpy()
+    ns = n_t.numpy()
+    for i, (si, bi) in enumerate(chunk):
+        n_exp = per_stream[si][0][bi][4]
+        if int(ns[i]) != n_exp:
+            raise FormatError("bzip2: inconsistent block expansion")
+        out_block = blocks[i, :n_exp]
+        if per_stream[si][0][bi][5]:  # legacy randomised block
+            out_block = derandomize(out_block)
+        decoded[(si, bi)] = out_block.tobytes()

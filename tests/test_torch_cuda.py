@@ -12,7 +12,9 @@ launch of a process, and refuse what it does not take; the device steps on
 the card must equal the same steps on the CPU, and the driver must
 survive a stalled stream.  The device Huffman ops (``ops/huff.py``,
 ``ops/bitpack.py``) on the card must equal their CPU results, and a
-``device_huffman`` encode of every class must equal libbz2 -9."""
+``device_huffman`` encode of every class must equal libbz2 -9.  The
+decode step on the card must equal the CPU, and a device decode of
+multi-block streams must equal ``bz2.decompress``."""
 
 import bz2
 
@@ -333,3 +335,40 @@ def test_device_huffman_encode_every_class(cuda):
     assert mtf_narrow.launches == narrow
     assert mtf_wide.width_launches[128] - by_width[128] == stats["batches_bits4"]
     assert mtf_wide.width_launches[256] - by_width[256] == stats["batches"] - stats["batches_bits4"]
+
+
+def _decode_metas(texts, level: int):
+    """The host walk's blocks of ``texts`` compressed at ``level``."""
+    return [m for t in texts for m in pipeline.read_stream_blocks(bz2.compress(t, level))[0]]
+
+
+def test_step_decode_equals_cpu(cuda):
+    """The decode step on the card equals the CPU on one batch of real
+    blocks at 901,120 (config-3 style BED, three full level-9 blocks)."""
+    from starch3_tpu_torch import api, corpus
+    from starch3_tpu_torch.parallel import host
+
+    texts = [tf.text for tf in api._parse_transform(corpus.config3_bed(seed=3, n_per=40_000))]
+    metas = [m for m in _decode_metas(texts[:3], 9) if host._bucket_for(m[4]) == 901_120]
+    assert len(metas) == 3
+    args = pipeline.pack_decode_batch(metas, 901_120)
+    got_b, got_n = pipeline.step_decode(*(a.to(cuda) for a in args), 901_120)
+    want_b, want_n = pipeline.step_decode(*args, 901_120)
+    assert torch.equal(got_n.cpu(), want_n) and got_n.tolist() == [m[4] for m in metas]
+    assert torch.equal(got_b.cpu(), want_b)
+
+
+def test_decode_streams_on_card_equals_bz2(cuda):
+    """``decode_streams(device="cuda")`` on a level-1 multi-block stream
+    and a level-9 one equals ``bz2.decompress``; every block ran on the
+    card."""
+    from starch3_tpu_torch import corpus
+
+    bed = corpus.wide8_bed(seed=5, chroms=("chr1",), n_per=12_000)
+    streams = [bz2.compress(bed, 1), bz2.compress(bed[:50_000], 9)]
+    before = dict(pipeline.device_stats)
+    got = pipeline.decode_streams(streams, device="cuda")
+    assert got == [bz2.decompress(s) for s in streams]
+    n_blocks = sum(len(pipeline.read_stream_blocks(s)[0]) for s in streams)
+    assert n_blocks >= 4
+    assert pipeline.device_stats["decode_blocks"] - before["decode_blocks"] == n_blocks
