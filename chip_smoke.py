@@ -85,12 +85,30 @@ streams and archives.  It exits 0 only if every phase passes:
      ``rle1_decode`` and the CRC; on configs 2 and 3,
      ``decompress_starch_bytes(archive, use_jax=True)`` equals the native
      block-parallel decode and the BED, with the MB/s of BED of both.
+  10. the exact modes (``fast_bwt=False``: ``ranks``, and ``rle2`` with
+     ``device_rle2``), at full width: (a) the prefix-doubling BWT
+     (``ops/bwt.py``) on the card equals the CPU at (3, 901,120) on real
+     config-3 and wide8 blocks, periodic rows and a row of length 1, and
+     the host sort on one block, with the CUDA-event and profiler ms of
+     the whole sort and of one round; (b) ``step_exact`` and
+     ``step_exact_rle2`` rows equal the CPU's on three config-3 blocks,
+     with their ms; (c) device-only encodes of config 2 (with its
+     400,000-interval chromosome), config 3 and wide8 in turns with fast
+     mode (fast, ranks, rle2, rle2, ranks, fast): every stream equals
+     ``bz2.compress(text, 9)``, K3 launched at width 256 once per exact
+     batch, the narrow kernel never, no re-encode; MB/s of text and bytes
+     read back per block of each mode; (d) ``compress_bed_bytes`` with
+     ``fast_bwt=False``, with and without ``device_rle2``, and with
+     ``device_rle2`` alone (fast mode) equals the host archive on config
+     2; (e) a device-only ``ranks`` encode with its first batch stalled
+     abandons, as phase 8 (b) does in fast mode.
 
 The port imports nothing of JAX and nothing of the JAX package
 ``starch3_tpu``; the run fails if either is loaded.  The line before the
 card's name is one JSON object describing each kernel of the path (the
 narrow wrapper's two kernels apart, each with the launches it counted);
-the wide kernel's entry counts its launches by width too; the last line
+the wide kernel's entry counts its launches by width too, phase 10's
+included; the last line
 is ``{"ok": true, "device": {...}}``.  Without
 a card, or without the rest of the repository, it fails before printing
 any result.
@@ -109,6 +127,7 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 
 from starch3_tpu_torch import api, corpus, runtime
@@ -290,33 +309,35 @@ def phase_step(device, texts, bits: int, n_max: int):
         f"ptrs {got[:, 0].tolist()}, ties {got[:, tie_col].tolist()}")
 
 
-def counted_encode(device, label: str, texts, want, device_huffman: bool = False):
-    """One device-only encode of ``texts`` with every launch counter and
-    ``device_stats`` set to 0 just before it and read just after.  Every
-    stream must equal ``want``, every block must have run on the device,
-    and no batch may have been abandoned or the device benched.  Returns
-    the run: seconds, launches (narrow and wide, in all and by width),
-    ``device_stats``, blocks."""
+def counted_encode(device, label: str, texts, want, device_huffman: bool = False, fast_bwt: bool = True,
+                   device_rle2: bool = False):
+    """One device-only encode of ``texts`` in the mode of the flags, with
+    every launch counter and ``device_stats`` set to 0 just before it and
+    read just after.  Every stream must equal ``want``, every block must
+    have run on the device, and no batch may have been abandoned or the
+    device benched.  Returns the run: seconds, launches (narrow and wide,
+    in all and by width), ``device_stats``, blocks."""
     mtf_narrow.launches = mtf_wide.launches = 0
     for counts in (mtf_narrow.width_launches, mtf_wide.width_launches, pipeline.device_stats):
         for k in counts:
             counts[k] = 0
     sched = dict(host.scheduler_stats)
     t0 = time.perf_counter()
-    encs = pipeline.encode_streams(texts, device=device, host_assist=False, device_huffman=device_huffman)
+    encs = pipeline.encode_streams(texts, device=device, host_assist=False, device_huffman=device_huffman,
+                                   fast_bwt=fast_bwt, device_rle2=device_rle2)
     run = {
         "seconds": time.perf_counter() - t0,
         "narrow": mtf_narrow.launches, "narrow_by_width": dict(mtf_narrow.width_launches),
         "wide": mtf_wide.launches, "wide_by_width": dict(mtf_wide.width_launches),
         "stats": dict(pipeline.device_stats),
     }
-    mode = "fast_huff" if device_huffman else "fast"
+    mode = pipeline.encode_mode(fast_bwt, device_rle2, device_huffman)
     sched = stats_since(host.scheduler_stats, sched)
     if sched["abandoned_batches"] or sched["demotions"]:
         raise AssertionError(f"{label} {mode}: the device-only encode fell back to the host: {sched}")
     for i, (e, w) in enumerate(zip(encs, want)):
         if e.data != w:
-            raise AssertionError(f"{label} {mode} stream {i}: device bytes != bz2.compress(text, 9)")
+            raise AssertionError(f"{label} {mode} stream {i}: device bytes != the host encoder's")
     run["blocks"] = sum(len(e.block_bit_offsets) for e in encs)
     if run["stats"]["blocks"] != run["blocks"]:
         raise AssertionError(f"{label} {mode}: device blocks {run['stats']['blocks']} != all blocks {run['blocks']}")
@@ -476,17 +497,19 @@ class StalledDispatch:
         return out
 
 
-def fault_case(device, label: str, texts, want, stall_s: float, host_assist: bool, smi: str):
+def fault_case(device, label: str, texts, want, stall_s: float, host_assist: bool, smi: str, **mode):
     """One encode of ``texts`` with the first batch stalled ``stall_s``
-    seconds (0: no stall).  Every stream must equal ``want``.  Returns the
-    changes of ``scheduler_stats`` and ``device_stats``."""
+    seconds (0: no stall), in the mode of the flags ``mode``.  Every
+    stream must equal ``want``.  Returns the changes of
+    ``scheduler_stats`` and ``device_stats``, and the longest host time of
+    a dispatch."""
     real = pipeline._dispatch_chunk
     stalled = StalledDispatch(real, int(stall_s * sleep_cycles_per_s()) if stall_s else 0)
     pipeline._dispatch_chunk = stalled
     sched, dev_stats = dict(host.scheduler_stats), dict(pipeline.device_stats)
     try:
         t0 = time.perf_counter()
-        encs = pipeline.encode_streams(texts, device=device, host_assist=host_assist)
+        encs = pipeline.encode_streams(texts, device=device, host_assist=host_assist, **mode)
         dt = time.perf_counter() - t0
     finally:
         pipeline._dispatch_chunk = real
@@ -497,10 +520,10 @@ def fault_case(device, label: str, texts, want, stall_s: float, host_assist: boo
         if e.data != w:
             raise AssertionError(f"faults {label} stream {i}: bytes != bz2.compress(text, 9)")
     log(f"faults {label}: stall {stall_s} s, host_assist {host_assist}, _ABANDON_S {host._ABANDON_S}, "
-        f"no-fallback {host._no_host_fallback()}: {dt:.3f} s wall on {smi}; all streams == "
-        f"bz2.compress(text, 9); scheduler {sched}; device {dev_stats['blocks']} blocks in "
-        f"{dev_stats['batches']} batches; longest dispatch {stalled.max_host_s:.4f} s")
-    return sched, dev_stats
+        f"no-fallback {host._no_host_fallback()}, mode {pipeline.encode_mode(**mode)}: {dt:.3f} s wall on "
+        f"{smi}; all streams == bz2.compress(text, 9); scheduler {sched}; device {dev_stats['blocks']} "
+        f"blocks in {dev_stats['batches']} batches; longest dispatch {stalled.max_host_s:.4f} s")
+    return sched, dev_stats, stalled.max_host_s
 
 
 def phase_faults(device, texts, smi: str, abandon_s: float = 0.5, stall_s: float = 3.0) -> None:
@@ -523,14 +546,14 @@ def phase_faults(device, texts, smi: str, abandon_s: float = 0.5, stall_s: float
 
     try:
         host._ABANDON_S = abandon_s
-        sched, dev = fault_case(device, "(a) hybrid", texts, want, stall_s, True, smi)
+        sched, dev, _ = fault_case(device, "(a) hybrid", texts, want, stall_s, True, smi)
         expect("(a)", sched["abandoned_batches"] >= 1 and sched["demotions"] >= 1, sched, dev)
-        sched, dev = fault_case(device, "(a) clean hybrid after the stall", texts, want, 0, True, smi)
+        sched, dev, _ = fault_case(device, "(a) clean hybrid after the stall", texts, want, 0, True, smi)
         expect("(a) clean", sched["abandoned_batches"] == 0 and dev["blocks"] >= 1, sched, dev)
-        sched, dev = fault_case(device, "(b) device only", texts, want, stall_s, False, smi)
+        sched, dev, _ = fault_case(device, "(b) device only", texts, want, stall_s, False, smi)
         expect("(b)", sched["abandoned_batches"] >= 1, sched, dev)
         os.environ["STARCH3_TPU_NO_HOST_FALLBACK"] = "1"
-        sched, dev = fault_case(device, "(c) device only, no fallback", texts, want, stall_s / 2, False, smi)
+        sched, dev, _ = fault_case(device, "(c) device only, no fallback", texts, want, stall_s / 2, False, smi)
         expect("(c)", sched["abandoned_batches"] == 0 and sched["demotions"] == 0
                and dev["blocks"] == n_blocks, sched, dev)
     finally:
@@ -538,6 +561,28 @@ def phase_faults(device, texts, smi: str, abandon_s: float = 0.5, stall_s: float
         os.environ.pop("STARCH3_TPU_NO_HOST_FALLBACK", None)
         if saved_env is not None:
             os.environ["STARCH3_TPU_NO_HOST_FALLBACK"] = saved_env
+
+
+def phase_exact_fault(device, texts, smi: str, abandon_s: float = 0.5, stall_s: float = 3.0) -> None:
+    """Phase 10 (e), run after the exact modes' kernels have loaded: a
+    device-only encode in ``ranks`` mode with its first batch stalled,
+    ``_ABANDON_S`` at ``abandon_s``, abandons as fast mode does (phase 8
+    b).  So no exact-mode dispatch waits on the stream: a batch's clock
+    starts when its dispatch returns, and the longest dispatch must stay
+    below ``abandon_s``."""
+    want = [bz2.compress(t, 9) for t in texts]
+    saved_abandon = host._ABANDON_S
+    saved_env = os.environ.pop("STARCH3_TPU_NO_HOST_FALLBACK", None)
+    try:
+        host._ABANDON_S = abandon_s
+        sched, dev, host_s = fault_case(device, "(e) device only, ranks mode", texts, want, stall_s, False, smi,
+                                        fast_bwt=False)
+    finally:
+        host._ABANDON_S = saved_abandon
+        if saved_env is not None:
+            os.environ["STARCH3_TPU_NO_HOST_FALLBACK"] = saved_env
+    if not (sched["abandoned_batches"] >= 1 and host_s < abandon_s):
+        raise AssertionError(f"faults (e) ranks mode: scheduler {sched}, device {dev}, longest dispatch {host_s} s")
 
 
 DECODE_N_MAX = 901_120
@@ -670,6 +715,170 @@ def phase_archive_decode(device, label: str, bed: bytes, smi: str) -> None:
         f"{len(bed) / dt_bz2 / 1e6:.3f} ({dt_bz2:.3f} s); on {smi}")
 
 
+EXACT_N_MAX = 901_120
+
+
+def first_blocks(texts, n_max: int, k: int) -> list[bytes]:
+    """The first ``k`` post-RLE1 blocks of bucket ``n_max`` in ``texts``."""
+    out = [blk.data for t in texts for blk in host._split_classify(t, 9)[0]
+           if host._bucket_for(len(blk.data)) == n_max]
+    if len(out) < k:
+        raise AssertionError(f"only {len(out)} blocks of bucket {n_max}")
+    return out[:k]
+
+
+def profiled_ms(fn) -> float:
+    """Device time of one call of ``fn``, summed over its CUDA kernels
+    under ``torch.profiler`` (mean of 2 calls)."""
+    return sum(device_us_by_kernel(fn, 2).values()) / 1e3
+
+
+def device_ops(fn) -> int:
+    """The kernels and copies that one call of ``fn`` enqueues on the
+    card, counted by ``torch.profiler``."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(evt.count for evt in prof.key_averages()
+               if getattr(evt, "device_type", None) == torch.autograd.DeviceType.CUDA)
+
+
+def phase_exact_bwt(device, by_label, smi: str, reps: int = 5) -> dict:
+    """Phase 10 (a): the prefix-doubling BWT on the card against the CPU
+    at (3, 901,120), on two batches: real blocks of config 3 and wide8
+    with a periodic row, then a second wide8 block, a row of length 1 and
+    a periodic row of length 901,120; the first config-3 block against
+    the host sort too.  Then the CUDA-event median and the device time of
+    the whole sort and of one round on the first batch."""
+    from starch3_tpu_torch.codec.bwt import bwt_encode as host_bwt
+    from starch3_tpu_torch.ops import bwt
+
+    n_max = EXACT_N_MAX
+    c3, w8 = first_blocks(by_label["config3"], n_max, 1), first_blocks(by_label["wide8"], n_max, 2)
+    batches = {
+        "config3, wide8, periodic": [c3[0], w8[0], b"1723\n481\np100\n" * 40_000],
+        "wide8, length 1, periodic of length n_max": [w8[1], b"\x07", b"ACGT" * (n_max // 4)],
+    }
+    first = None
+    for label, datas in batches.items():
+        raw, lens = pipeline.raw_batch(datas, n_max)
+        lens = torch.from_numpy(lens)
+        raw_d, lens_d = raw.to(device), lens.to(device)
+        last, ptr = bwt.bwt_encode_padded(raw_d, lens_d)
+        want_last, want_ptr = bwt.bwt_encode_padded(raw, lens)
+        check_equal(f"exact bwt last ({label})", last.cpu(), want_last)
+        check_equal(f"exact bwt orig_ptr ({label})", ptr.cpu(), want_ptr)
+        log(f"exact bwt ({label}) {tuple(raw.shape)}: card == CPU; lens {lens.tolist()}, ptrs {ptr.tolist()}")
+        first = first or (raw_d, lens_d, last, ptr)
+    h_last, h_ptr = host_bwt(np.frombuffer(c3[0], np.uint8))
+    if first[2][0, : len(c3[0])].cpu().numpy().tobytes() != h_last.tobytes() or int(first[3][0]) != h_ptr:
+        raise AssertionError("exact bwt: the config-3 block != the host sort (codec.bwt.bwt_encode)")
+    raw_d, lens_d = first[:2]
+    state = bwt.initial_state(raw_d, lens_d)
+    parts = {
+        "whole sort": lambda: bwt.bwt_encode_padded(raw_d, lens_d),
+        "one round (k=1)": lambda: bwt.doubling_round(*state[:2], 1, *state[2:]),
+    }
+    run = {name: {"ms": cuda_median_ms(fn, reps), "device_ms": profiled_ms(fn), "device_ops": device_ops(fn)}
+           for name, fn in parts.items()}
+    run["rounds"] = bwt.n_rounds(n_max)
+    log(f"exact bwt: the config-3 block == host sort; at {tuple(raw_d.shape)}, {run['rounds']} rounds, on {smi}: "
+        f"CUDA-event median of {reps}, device ms (torch.profiler, mean of 2) and kernels and copies enqueued "
+        f"per call {json.dumps(run)}")
+    return run
+
+
+def phase_exact_steps(device, by_label, smi: str, reps: int = 5) -> dict:
+    """Phase 10 (b): ``step_exact`` and ``step_exact_rle2`` rows on the card
+    equal the CPU's on three config-3 blocks at 901,120, K3 launching once
+    a call at width 256; CUDA-event median and device ms of each."""
+    raw, lens = pipeline.raw_batch(first_blocks(by_label["config3"], EXACT_N_MAX, 3), EXACT_N_MAX)
+    lens = torch.from_numpy(lens)
+    raw_d, lens_d = raw.to(device), lens.to(device)
+    run = {}
+    for name in ("step_exact", "step_exact_rle2"):
+        step = getattr(pipeline, name)
+        before = mtf_wide.width_launches[256]
+        got = step(raw_d, lens_d)
+        torch.cuda.synchronize()
+        if mtf_wide.width_launches[256] != before + 1:
+            raise AssertionError(f"{name}: K3 did not launch once at width 256")
+        check_equal(f"{name} rows {tuple(raw.shape)}", got.cpu(), step(raw, lens))
+        fn = lambda step=step: step(raw_d, lens_d)  # noqa: E731
+        run[name] = {"ms": cuda_median_ms(fn, reps), "device_ms": profiled_ms(fn), "device_ops": device_ops(fn)}
+    log(f"exact steps: card rows == CPU rows at {tuple(raw.shape)} (config 3, lens {lens.tolist()}); on {smi}: "
+        f"CUDA-event median of {reps}, device ms and kernels and copies enqueued per call {json.dumps(run)}")
+    return run
+
+
+def phase_exact_modes(device, label: str, texts, smi: str) -> int:
+    """Phase 10 (c): device-only encodes of one corpus in the exact modes
+    between fast-mode encodes of the same texts (fast, ranks, rle2, rle2,
+    ranks, fast).  Every stream equals ``bz2.compress(text, 9)``; in the
+    exact modes K3 launches at width 256 once per batch, the narrow kernel
+    never, and no block is re-encoded.  Returns the exact runs' K3
+    launches."""
+    want = [bz2.compress(t, 9) for t in texts]
+    total = sum(map(len, texts))
+    order = [("fast", {}), ("ranks", {"fast_bwt": False}), ("rle2", {"fast_bwt": False, "device_rle2": True})]
+    runs = {mode: [] for mode, _ in order}
+    launches = 0
+    for mode, flags in order + order[:0:-1] + order[:1]:
+        run = counted_encode(device, label, texts, want, **flags)
+        stats = run["stats"]
+        if mode != "fast":
+            if (run["narrow"] or run["wide_by_width"] != {128: 0, 256: stats["batches"]}
+                    or stats["tie_reencodes"]):
+                raise AssertionError(
+                    f"{label} {mode}: launches narrow {run['narrow']}, wide by width {run['wide_by_width']}, "
+                    f"tie re-encodes {stats['tie_reencodes']} != 0, {{256: {stats['batches']} batches}}, 0")
+            launches += run["wide"]
+        runs[mode].append(run)
+    for mode, rs in runs.items():
+        stats = rs[0]["stats"]
+        log(f"{label} {mode} (device only, in turns with the other modes): {total / rs[0]['seconds'] / 1e6:.3f} "
+            f"and {total / rs[1]['seconds'] / 1e6:.3f} MB/s of text ({rs[0]['seconds']:.3f}, "
+            f"{rs[1]['seconds']:.3f} s); {rs[0]['blocks']} blocks in {stats['batches']} batches; read back "
+            f"{stats['d2h_bytes']} bytes, {stats['d2h_bytes'] / rs[0]['blocks']:.0f} per block; tie re-encodes "
+            f"{stats['tie_reencodes']}; launches narrow {rs[0]['narrow']}, wide by width {rs[0]['wide_by_width']}; "
+            f"all streams == bz2.compress(text, 9), 0 abandons and demotions; on {smi}")
+    return launches
+
+
+def phase_exact_archives(device, bed: bytes, smi: str) -> None:
+    """Phase 10 (d): ``compress_bed_bytes(use_jax=True)`` with
+    ``fast_bwt=False``, with and without ``device_rle2``, and with
+    ``device_rle2`` alone (fast mode, as in the reference) equals the host
+    path's archive; no batch is abandoned, and the batches that went to
+    the device ran the mode's kernels (config 2 is all bits 4: fast mode
+    runs the narrow kernel, the exact modes K3 at width 256)."""
+    t0 = time.perf_counter()
+    want = api.compress_bed_bytes(bed, api.EncodeConfig())
+    dt_host = time.perf_counter() - t0
+    for flags in ({"fast_bwt": False}, {"fast_bwt": False, "device_rle2": True}, {"device_rle2": True}):
+        mode = pipeline.encode_mode(**flags)
+        sched, dev_stats = dict(host.scheduler_stats), dict(pipeline.device_stats)
+        narrow, wide256 = mtf_narrow.launches, mtf_wide.width_launches[256]
+        t0 = time.perf_counter()
+        got = api.compress_bed_bytes(bed, api.EncodeConfig(use_jax=True, **flags), device=device)
+        dt = time.perf_counter() - t0
+        sched = stats_since(host.scheduler_stats, sched)
+        dev_stats = stats_since(pipeline.device_stats, dev_stats)
+        narrow, wide256 = mtf_narrow.launches - narrow, mtf_wide.width_launches[256] - wide256
+        if got != want:
+            raise AssertionError(f"config2 compress_bed_bytes {flags}: device archive != host archive")
+        expected = (dev_stats["batches"], 0) if mode == "fast" else (0, dev_stats["batches"])
+        if sched["abandoned_batches"] or (narrow, wide256) != expected:
+            raise AssertionError(f"config2 compress_bed_bytes {flags}: scheduler {sched}, launches narrow {narrow}, "
+                                 f"K3 at 256 {wide256}, device batches {dev_stats['batches']}")
+        log(f"config2 compress_bed_bytes {flags} (mode {mode}): archive == host path's; {len(bed) / dt / 1e6:.3f} MB/s "
+            f"of BED ({dt:.3f} s), host path {len(bed) / dt_host / 1e6:.3f} MB/s; {dev_stats['blocks']} blocks on "
+            f"the device in {dev_stats['batches']} batches, launches narrow {narrow}, K3 at 256 {wide256}; on {smi}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=5)
@@ -748,6 +957,13 @@ def main() -> int:
         phase_device_decode(device, label, texts, streams[label], smi)
     phase_archive_decode(device, "config2", bed2, smi)
     phase_archive_decode(device, "config3", bed3, smi)
+    phase_exact_bwt(device, by_label, smi)
+    phase_exact_steps(device, by_label, smi)
+    exact = sum(phase_exact_modes(device, label, by_label[label], smi) for label in ("config2", "config3", "wide8"))
+    wide_by_width[256] += exact
+    launches["mtf_wide"] += exact
+    phase_exact_archives(device, bed2, smi)
+    phase_exact_fault(device, texts_of(bed2), smi)
 
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")

@@ -12,6 +12,8 @@ package:
 
   - ``ops.bwt_fast``:   one-sort BWTs of every alphabet tier, batched, in
                         torch ops
+  - ``ops.bwt``:        the exact prefix-doubling BWT of the legacy exact
+                        modes (``fast_bwt=False``), batched, in torch ops
   - ``ops.mtf_narrow``: narrow-alphabet MTF (widths 16/32/64); a
                         hand-written CUDA kernel (``csrc/mtf_narrow.cu``)
                         on a CUDA device
@@ -21,8 +23,8 @@ package:
   - ``ops.irle2``, ``ops.imtf``, ``ops.ibwt``: the decode side's inverse
                         RLE2, MTF and BWT, batched, in torch ops
   - ``parallel.pipeline``: the device steps of the bits 4, 5/6 and 8
-                        tiers, dispatch, drain and driver; the decode
-                        step and ``decode_streams``
+                        tiers and of the exact modes, dispatch, drain and
+                        driver; the decode step and ``decode_streams``
   - ``parallel.host``:  the host scheduler, tail and stream assembly,
                         copied from ``starch3_tpu/parallel/pipeline.py``
   - ``api``, ``cli``:   entry points with an explicit torch ``device``;

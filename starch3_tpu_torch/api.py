@@ -87,12 +87,8 @@ def _gzip_members(
 
 
 def _on_device(config: EncodeConfig) -> bool:
-    """True when ``config`` selects the device path; raises for the
-    device modes not ported yet."""
-    if not (config.use_jax and config.method is CompressionMethod.BZIP2):
-        return False
-    _pipe.check_modes(config.fast_bwt, config.device_rle2)
-    return True
+    """True when ``config`` selects the device path."""
+    return config.use_jax and config.method is CompressionMethod.BZIP2
 
 
 def _encode_kwargs(config: EncodeConfig, device) -> dict:
@@ -100,6 +96,8 @@ def _encode_kwargs(config: EncodeConfig, device) -> dict:
         "level": config.block_size_100k,
         "device": device,
         "batch_size": config.blocks_per_batch,
+        "device_rle2": config.device_rle2,
+        "fast_bwt": config.fast_bwt,
         "device_huffman": config.device_huffman,
     }
 

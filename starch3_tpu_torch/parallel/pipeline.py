@@ -29,6 +29,16 @@ the tables in 4 device cost/select rounds with the native length heap
 between them, emits the coded bits on the device (ops/bitpack.py) and
 downloads only the occupied prefix of the selectors and the words.
 
+The legacy exact modes (``fast_bwt=False``) upload raw bytes and run
+the prefix-doubling BWT (ops/bwt.py) on every class, so no block ties and
+none is re-encoded on the host: ``mode="ranks"`` (``step_exact``: BWT ->
+byte remap -> wide MTF at width 256 -> rows ``[orig_ptr, used[256], four
+ranks per word]``, RLE2 and Huffman on the host) and, with
+``device_rle2``, ``mode="rle2"`` (``step_exact_rle2``: RLE2 on the device
+too, rows ``[ptr, m, used[256], freq[260], two symbols per word]``).
+Their tuples go straight to the stream assembler.  ``device_rle2`` with
+``fast_bwt`` is fast mode, as in the reference (``encode_mode``).
+
 The MTF stages are hand-written CUDA kernels on a CUDA device.  The host
 tier (the block queue and its stealers, classing, the row decoders, the
 tail pool and the stream assembler) is the port's own copy of the JAX
@@ -84,6 +94,7 @@ from starch3_tpu_torch.parallel.host import (
     _tail_pool,
     scheduler_stats,
 )
+from starch3_tpu_torch.ops.bwt import bwt_encode_padded
 from starch3_tpu_torch.ops.bwt_fast import bwt_sort_fast, bwt_sort_fast3, bwt_sort_fast_mid
 from starch3_tpu_torch.ops.ibwt import ibwt_padded
 from starch3_tpu_torch.ops.imtf import imtf_decode_padded
@@ -129,14 +140,14 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def check_modes(fast_bwt=True, device_rle2=False) -> None:
-    """Raise for the encode modes the port does not run yet."""
-    if not fast_bwt:
-        raise NotImplementedError(
-            "fast_bwt=False (prefix-doubling BWT) is not ported yet: ROADMAP A13"
-        )
-    if device_rle2:
-        raise NotImplementedError("device_rle2 is not ported yet: ROADMAP A13")
+def encode_mode(fast_bwt: bool = True, device_rle2: bool = False, device_huffman: bool = False) -> str:
+    """The reference's mode for an encode's flags: with ``fast_bwt``,
+    ``"fast_huff"`` if ``device_huffman`` else ``"fast"`` (``device_rle2``
+    is then moot); without it, the exact modes, ``"rle2"`` if
+    ``device_rle2`` else ``"ranks"``."""
+    if fast_bwt:
+        return "fast_huff" if device_huffman else "fast"
+    return "rle2" if device_rle2 else "ranks"
 
 
 def _unpack_nibbles(packed: torch.Tensor) -> torch.Tensor:
@@ -284,6 +295,117 @@ def step_fast2(seqs: torch.Tensor, lens: torch.Tensor, nsyms: torch.Tensor, bits
     return step_rle2_raw(ptrs, ties, ranks, lens, nsyms)
 
 
+def bwt_remap(blocks: torch.Tensor, lens: torch.Tensor):
+    """The exact modes' prologue, counterpart of ``_bwt_remap`` mapped over
+    a batch: the prefix-doubling BWT (ops/bwt.py), each row's used-byte
+    map and the dense remap of its last column.  Returns (ptrs int32[B],
+    used int32[B, 256], seqs int32[B, n_max] zero past each length)."""
+    last, ptrs = bwt_encode_padded(blocks, lens)
+    b, n_max = blocks.shape
+    idx = torch.arange(n_max, device=blocks.device, dtype=torch.int32)
+    valid = idx[None, :] < lens[:, None]
+    ix = last.to(torch.int64)
+    # the used map by scatter, its padding writes into a spare column
+    used = torch.zeros((b, 257), device=blocks.device, dtype=torch.int32)
+    used.scatter_(1, torch.where(valid, ix, 256), 1)
+    used = used[:, :256].contiguous()
+    u2s = torch.cumsum(used, dim=1, dtype=torch.int32) - 1  # codec/mtf.py symbol_map
+    seqs = torch.where(valid, torch.gather(u2s, 1, ix), 0)
+    return ptrs, used, seqs
+
+
+def _exact_ranks(blocks: torch.Tensor, lens: torch.Tensor):
+    """``bwt_remap``, then the wide MTF at width 256 zeroed past each
+    length (the kernel branch of the reference's ``_batch_ranks``)."""
+    ptrs, used, seqs = bwt_remap(blocks, lens)
+    return ptrs, used, _mask_past_length(mtf_ranks_wide_batch(seqs, 256), lens)
+
+
+def step_exact(blocks: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
+    """The ``ranks`` mode's device step, counterpart of
+    ``_jitted_fused_step(n_max)``.
+
+    Args:
+      blocks: uint8[B, n_max] raw post-RLE1 bytes, n_max a multiple of 1024
+      lens: int32[B] true lengths (1 <= len <= n_max)
+    Returns:
+      int32[B, 257 + n_max // 4] rows ``[orig_ptr, used[256], ranks]``,
+      four ranks per word, little-endian (the reference's
+      ``bitcast_convert_type``), ranks past each row's length zero.
+    """
+    ptrs, used, ranks = _exact_ranks(blocks, lens)
+    packed = ranks.to(torch.uint8).view(torch.int32)
+    return torch.cat([ptrs[:, None], used, packed], dim=1)
+
+
+def step_exact_rle2(blocks: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
+    """The ``rle2`` mode's device step, counterpart of
+    ``_jitted_fused_step_rle2(n_max)``: ``step_exact``'s ranks, then RLE2
+    with each row's used bytes as its alphabet.  Returns int32[B, 518 +
+    (n_max + 3) // 2] rows ``[ptr, m, used[256], freq[260], symbols]``,
+    two 16-bit symbols per word."""
+    ptrs, used, ranks = _exact_ranks(blocks, lens)
+    syms, m, freq = rle2_from_ranks_padded(ranks, lens, used.sum(dim=1))
+    packed = _pack_words(syms, 2, 16)
+    return torch.cat([ptrs[:, None], m[:, None], used, freq, packed], dim=1)
+
+
+def _unpack_results(out: np.ndarray, lens, b: int, n_max: int) -> list:
+    """``step_exact`` rows on the host -> per block ``(used bool[256],
+    orig_ptr, ranks uint8[n])``, the ranks a view of ``out``."""
+    used = out[:, 1:257].astype(bool)
+    ranks = out[:, 257:].view(np.uint8).reshape(out.shape[0], n_max)
+    return [(used[i], int(out[i, 0]), ranks[i, : lens[i]]) for i in range(b)]
+
+
+def _unpack_results_rle2(out: np.ndarray, b: int) -> list:
+    """``step_exact_rle2`` rows on the host -> per block ``(used
+    bool[256], orig_ptr, symbols int32[m], freq int32[260])``."""
+    res = []
+    for row in out[:b]:
+        m = int(row[1])
+        packed = row[518:]
+        syms = np.empty(packed.size * 2, dtype=np.int32)
+        syms[0::2] = packed & 0xFFFF
+        syms[1::2] = (packed >> 16) & 0xFFFF
+        res.append((row[2:258].astype(bool), int(row[0]), syms[:m], row[258:518]))
+    return res
+
+
+def raw_batch(block_datas, n_max: int, b_pad: int | None = None, pin: bool = False):
+    """The exact modes' upload: raw bytes, uint8[b_pad, n_max], padding
+    rows of length 1 and zero bytes.  ``pin`` pins the tensor.  Returns
+    (tensor, lens int32[b_pad])."""
+    b_pad = max(len(block_datas), b_pad or 0)
+    buf = torch.zeros((b_pad, n_max), dtype=torch.uint8, pin_memory=pin)
+    rows_np = buf.numpy()
+    lens = np.ones(b_pad, dtype=np.int32)
+    for i, data in enumerate(block_datas):
+        arr = np.frombuffer(data, dtype=np.uint8)
+        if arr.size > n_max:
+            raise ValueError(f"block {i} exceeds n_max ({arr.size} > {n_max})")
+        rows_np[i, : arr.size] = arr
+        lens[i] = arr.size
+    return buf, lens
+
+
+def device_encode_blocks(block_datas: list[bytes], n_max: int = host.N_MAX_BLOCK, mesh=None,
+                         device="cuda") -> list:
+    """Run the ``ranks`` mode's device step on a batch of post-RLE1 blocks
+    and wait for it; the counterpart of the JAX ``device_encode_blocks``,
+    with ``device`` beside ``mesh`` (which must be None: ROADMAP A9).
+
+    Returns per block: (in_use bool[256], orig_ptr, mtf ranks uint8[n])."""
+    check_mesh(mesh)
+    dev = resolve_device(device)
+    b = len(block_datas)
+    if b == 0:
+        return []
+    batch, lens = raw_batch(block_datas, n_max)
+    out = step_exact(batch.to(dev), torch.from_numpy(lens).to(dev)).cpu().numpy()
+    return _unpack_results(out, lens, b, n_max)
+
+
 def _emit_w_cap(n_max: int) -> int:
     """The emit's capacity in words: about 5.3 coded bits per input
     symbol.  A block that needs more is re-encoded on the host, which
@@ -396,8 +518,11 @@ def _dispatch_chunk(block_datas, nm, device: torch.device, pad_to=None, mode: st
     end of the batch's work; on the CPU ``rows`` is ready and ``event`` is
     None.  In ``fast_huff`` the rows are ``step_fast2``'s small rows and
     the handle goes on with the device tensors the finisher reads,
-    ``(syms, m, hist)``.  Each batch gets its own pinned buffer: the drain
-    hands row views to the tail pool, which reads them later."""
+    ``(syms, m, hist)``.  The exact modes go to ``_dispatch_exact``.
+    Each batch gets its own pinned buffer: the drain hands row views to
+    the tail pool or the assembler, which read them later."""
+    if mode in ("ranks", "rle2"):
+        return _dispatch_exact(block_datas, nm, device, pad_to, mode)
     n_max, bits = nm
     # fast_huff packs bits 4 as nibbles and every other class as bytes
     # (the reference's dispatch: no word pack at bits 5/6 there)
@@ -420,11 +545,7 @@ def _dispatch_chunk(block_datas, nm, device: torch.device, pad_to=None, mode: st
     else:
         rows = step_for_class(*args, bits, n_max)
         on_device = ()
-    b = len(block_datas)
-    counts = {"batches": 1, "blocks": b, f"batches_bits{bits}": 1, f"blocks_bits{bits}": b}
-    if mode == "fast":  # a fast_huff finisher counts its own downloads
-        counts.update({"d2h_bytes": rows.nbytes, f"d2h_bytes_bits{bits}": rows.nbytes})
-    _count(**counts)
+    _count_batch(len(block_datas), bits, 0 if mode == "fast_huff" else rows.nbytes)
     aux = {"useds": useds, "lens": lens, "bits": bits, "mode": mode, "n_max": n_max}
     if not cuda:
         return (rows, None) + on_device, aux
@@ -433,6 +554,86 @@ def _dispatch_chunk(block_datas, nm, device: torch.device, pad_to=None, mode: st
     event = torch.cuda.Event()
     event.record(torch.cuda.current_stream(device))
     return (out, event) + on_device, aux
+
+
+def _count_batch(b: int, bits: int, d2h_bytes: int) -> None:
+    """Count one dispatched batch of ``b`` blocks of class ``bits`` and the
+    bytes its rows will bring back (a fast_huff finisher counts its own
+    downloads)."""
+    counts = {"batches": 1, "blocks": b, f"batches_bits{bits}": 1, f"blocks_bits{bits}": b}
+    if d2h_bytes:
+        counts.update({"d2h_bytes": d2h_bytes, f"d2h_bytes_bits{bits}": d2h_bytes})
+    _count(**counts)
+
+
+class _Launched:
+    """The end of an exact-mode batch whose kernels the launcher thread
+    enqueues: ``query`` and ``synchronize`` as the CUDA event's that the
+    launcher records after them.  A launch error raises from both."""
+
+    def __init__(self, future):
+        self.future = future
+
+    def query(self) -> bool:
+        return self.future.done() and self.future.result().query()
+
+    def synchronize(self) -> None:
+        self.future.result().synchronize()
+
+
+_LAUNCHER = None
+_launcher_lock = threading.Lock()
+
+
+def _launcher():
+    """The process's exact-mode launcher: one thread, so batches enqueue in
+    dispatch order.  An exact step enqueues 48 kernels and copies a
+    doubling round and about 1,400 a batch at (3, 901,120) (``chip_smoke.py``
+    phase 10 a and b, NVIDIA H100 80GB HBM3, 700 W), more than a CUDA stream
+    queues ahead of a stalled card: a launch then blocks until the card
+    drains, and a dispatch on the driver's thread waited out a whole 3 s
+    stall (phase 10 e, same card).  Off the driver's thread only the
+    launcher waits, and the driver can abandon the batch, as in fast
+    mode."""
+    global _LAUNCHER
+    with _launcher_lock:
+        if _LAUNCHER is None:
+            from concurrent.futures import ThreadPoolExecutor
+
+            _LAUNCHER = ThreadPoolExecutor(1, thread_name_prefix="s3tlaunch")
+        return _LAUNCHER
+
+
+def _dispatch_exact(block_datas, nm, device: torch.device, pad_to, mode: str):
+    """``_dispatch_chunk`` of the exact modes: raw bytes, whatever the
+    class, through ``step_exact`` (``ranks``) or ``step_exact_rle2``
+    (``rle2``).  On the CPU the rows are ready; on a CUDA device the handle
+    is ``(rows, _Launched)``: the pinned rows, which the launcher's
+    non-blocking copy fills."""
+    n_max, bits = nm
+    cuda = device.type == "cuda"
+    raw, lens = raw_batch(block_datas, n_max, pad_to, pin=cuda)
+    lens_t = torch.from_numpy(lens)
+    step = step_exact if mode == "ranks" else step_exact_rle2
+    aux = {"lens": lens, "bits": bits, "mode": mode, "n_max": n_max}
+    if not cuda:
+        rows = step(raw, lens_t)
+        _count_batch(len(block_datas), bits, rows.nbytes)
+        return (rows, None), aux
+    width = 257 + n_max // 4 if mode == "ranks" else 518 + (n_max + 3) // 2
+    out = torch.empty((raw.shape[0], width), dtype=torch.int32, pin_memory=True)
+    lens_t = lens_t.pin_memory()
+    _count_batch(len(block_datas), bits, out.nbytes)
+
+    def launch() -> torch.cuda.Event:
+        with torch.cuda.device(device):
+            rows = step(raw.to(device, non_blocking=True), lens_t.to(device, non_blocking=True))
+            out.copy_(rows, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(device))
+        return event
+
+    return (out, _Launched(_launcher().submit(launch))), aux
 
 
 def _batch_ready(handle) -> bool:
@@ -444,7 +645,9 @@ def _batch_ready(handle) -> bool:
 
 def _drain_into(results, per_stream_blocks, item, on_done=None, huff=None):
     """Hand one dispatched batch's rows to the host tail.  A row whose
-    sort tied re-encodes exactly on the host, here.
+    sort tied re-encodes exactly on the host, here.  An exact-mode batch
+    (``ranks``, ``rle2``) puts its blocks' tuples straight into
+    ``results``: its sort never ties.
 
     A ``fast_huff`` batch drains asynchronously, as in the reference: each
     of its blocks gets a ``Future`` in ``results`` at once, and the
@@ -485,6 +688,20 @@ def _drain_into(results, per_stream_blocks, item, on_done=None, huff=None):
     if event is not None:
         event.synchronize()
     out = rows.numpy()
+    mode = aux.get("mode")
+    if mode in ("ranks", "rle2"):
+        # the exact modes: no tie column, no host re-encode; the tuples go
+        # to _assemble_stream, which writes their blocks
+        b = len(chunk)
+        unpacked = (
+            _unpack_results_rle2(out, b)
+            if mode == "rle2"
+            else _unpack_results(out, aux["lens"], b, aux["n_max"])
+        )
+        results.update(zip(chunk, unpacked))
+        if on_done is not None:
+            on_done()
+        return
     bits = aux["bits"]
     tie_col = 2 if bits == 8 else 1  # rows [ptr, m, ties, ...] at bits 8
     ties = 0
@@ -1023,9 +1240,10 @@ def encode_streams_iter(
     ``host_assist`` (default: on when the native runtime is built) runs
     every CPU core as a work stealer beside the device; off, every block
     goes through the device.  ``device_huffman`` runs ``mode="fast_huff"``,
-    the Huffman stage on the device too.  Bytes are the same either way."""
-    check_modes(fast_bwt, device_rle2)
-    mode = "fast_huff" if device_huffman else "fast"
+    the Huffman stage on the device too; ``fast_bwt=False`` the exact
+    modes, ``"ranks"``, or ``"rle2"`` with ``device_rle2``
+    (``encode_mode``).  Bytes are the same either way."""
+    mode = encode_mode(fast_bwt, device_rle2, device_huffman)
     dev = resolve_device(device)
     if host_assist is None:
         from starch3_tpu_torch.runtime import get_lib
@@ -1164,7 +1382,7 @@ def torch_bz2_compress(data: bytes, config=None, device="cuda") -> bytes:
 def check_mesh(mesh) -> None:
     """Raise for a device mesh: the port's multi-GPU layer is not ported."""
     if mesh is not None:
-        raise NotImplementedError("a device mesh (multi-GPU decode) is not ported yet: ROADMAP A9")
+        raise NotImplementedError("a device mesh (multi-GPU) is not ported yet: ROADMAP A9")
 
 
 def step_decode(syms: torch.Tensor, m: torch.Tensor, alphabet: torch.Tensor, ptr: torch.Tensor, n_max: int):

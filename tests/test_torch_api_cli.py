@@ -91,9 +91,59 @@ def test_no_final_newline_and_duplicate_chromosome(rng):
         api.compress_bed_bytes(dup, EncodeConfig(use_jax=True), device="cpu")
 
 
-def test_unported_device_mode_raises(bed):
-    with pytest.raises(NotImplementedError, match="A13"):
-        api.compress_bed_bytes(bed, EncodeConfig(use_jax=True, device_rle2=True), device="cpu")
+def _device_only(monkeypatch):
+    """Start no host stealer, so that every block goes to the device; and
+    record each encode's mode and each wide MTF call's width."""
+    from starch3_tpu_torch.parallel import pipeline
+
+    seen = {"modes": [], "wide_widths": []}
+    driver, wide = pipeline._device_driver, pipeline.mtf_ranks_wide_batch
+
+    def spy_driver(*args):
+        seen["modes"].append(args[6])  # (q, results, errors, device, batch_size, reserve, mode, huff)
+        return driver(*args)
+
+    def spy_wide(seqs, width=256):
+        seen["wide_widths"].append(width)
+        return wide(seqs, width)
+
+    monkeypatch.setattr(pipeline, "_start_host_stealers", lambda *args: [])
+    monkeypatch.setattr(pipeline, "_device_driver", spy_driver)
+    monkeypatch.setattr(pipeline, "mtf_ranks_wide_batch", spy_wide)
+    for k in pipeline.device_stats:
+        pipeline.device_stats[k] = 0
+    return seen, pipeline.device_stats
+
+
+def test_device_rle2_with_fast_bwt_runs_fast_mode(bed, host_archive, monkeypatch):
+    """``device_rle2=True`` with the default ``fast_bwt`` is fast mode, as
+    in the reference: the JAX package's bytes, the bits-4 class counters
+    move, the rows read back are fast mode's ``[ptr, ties, nibbles]``, and
+    the wide MTF never runs at width 256 on a bits-4 block."""
+    seen, stats = _device_only(monkeypatch)
+    got = api.compress_bed_bytes(bed, EncodeConfig(use_jax=True, device_rle2=True), device="cpu")
+    assert got == jax_api.compress_bed_bytes(bed, JaxEncodeConfig(use_jax=True, device_rle2=True))
+    assert got == host_archive
+    assert seen["modes"] == ["fast"] and 256 not in seen["wide_widths"]
+    assert stats["blocks_bits4"] == stats["blocks"] == 3 and stats["batches_bits4"] == 1
+    assert stats["d2h_bytes_bits4"] == 3 * (2 + 131_072 // 8) * 4
+
+
+@pytest.mark.parametrize("device_rle2", [False, True])
+def test_exact_mode_archives_equal_host(bed, host_archive, monkeypatch, device_rle2):
+    """``fast_bwt=False``, with and without ``device_rle2``, through
+    ``compress_bed_bytes`` and ``compress_bed_stream``: the host path's
+    archive, every block on the device at width 256."""
+    seen, stats = _device_only(monkeypatch)
+    cfg = EncodeConfig(use_jax=True, fast_bwt=False, device_rle2=device_rle2)
+    assert api.compress_bed_bytes(bed, cfg, device="cpu") == host_archive
+    out = io.BytesIO()
+    api.compress_bed_stream(io.BytesIO(bed), out, cfg, chunk_bytes=4096, device="cpu")
+    assert out.getvalue() == host_archive
+    mode = "rle2" if device_rle2 else "ranks"
+    assert seen["modes"] == [mode, mode]
+    assert stats["blocks"] == 6 and stats["tie_reencodes"] == 0
+    assert seen["wide_widths"] == [256] * stats["batches"]
 
 
 def test_device_huffman_archive_equals_host(bed, host_archive):

@@ -14,7 +14,9 @@ survive a stalled stream.  The device Huffman ops (``ops/huff.py``,
 ``ops/bitpack.py``) on the card must equal their CPU results, and a
 ``device_huffman`` encode of every class must equal libbz2 -9.  The
 decode step on the card must equal the CPU, and a device decode of
-multi-block streams must equal ``bz2.decompress``."""
+multi-block streams must equal ``bz2.decompress``.  The exact modes' BWT
+and steps on the card must equal the CPU, and an encode in each exact
+mode must equal libbz2 -9."""
 
 import bz2
 
@@ -242,6 +244,18 @@ def test_driver_survives_a_stalled_stream(cuda):
     chip_smoke.phase_faults(cuda, texts, torch.cuda.get_device_name(0), stall_s=2.0)
 
 
+def test_exact_mode_abandons_a_stalled_stream(cuda):
+    """chip_smoke.py's phase 10 (e) at a small size: a device-only ``ranks``
+    encode whose first batch is stalled abandons it, its dispatches stay
+    short (the launcher thread waits, not the driver), bytes exact."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    from starch3_tpu_torch import corpus
+
+    texts = chip_smoke.texts_of(corpus.make_bed(corpus.GENOME_CHROMS[:12], 3_000, seed=3))
+    chip_smoke.phase_exact_fault(cuda, texts, torch.cuda.get_device_name(0), stall_s=2.0)
+
+
 def _huff_inputs(n_max: int, seed: int):
     """Symbol streams, counts, tables and selectors of a batch of three,
     one row empty, one full, one part-filled with symbols past 257."""
@@ -372,3 +386,77 @@ def test_decode_streams_on_card_equals_bz2(cuda):
     n_blocks = sum(len(pipeline.read_stream_blocks(s)[0]) for s in streams)
     assert n_blocks >= 4
     assert pipeline.device_stats["decode_blocks"] - before["decode_blocks"] == n_blocks
+
+
+EXACT_N_MAX = 131_072
+
+
+def _exact_blocks():
+    """Raw blocks at 131,072: a full-length BED6 block (class 5), a
+    shorter free-text one (bits 8) and an exactly periodic one."""
+    from starch3_tpu_torch import api, corpus
+
+    bed6 = api._parse_transform(corpus.config3_bed(seed=3, n_per=4_000))[0].text
+    wide = api._parse_transform(corpus.wide8_bed(seed=5, chroms=("chr1",), n_per=2_000))[0].text
+    return [bed6[:EXACT_N_MAX], wide[:90_000], b"1723\n481\np100\n" * 5_000]
+
+
+def test_exact_bwt_equals_cpu(cuda):
+    """``bwt_encode_padded`` on the card equals the CPU at (3, 131,072),
+    a periodic row included, and the host sort on each row."""
+    from starch3_tpu_torch.codec.bwt import bwt_encode
+    from starch3_tpu_torch.ops.bwt import bwt_encode_padded
+
+    datas = _exact_blocks()
+    blocks, lens = pipeline.raw_batch(datas, EXACT_N_MAX)
+    lens = torch.from_numpy(lens)
+    got_last, got_ptr = bwt_encode_padded(blocks.to(cuda), lens.to(cuda))
+    want_last, want_ptr = bwt_encode_padded(blocks, lens)
+    assert torch.equal(got_last.cpu(), want_last) and torch.equal(got_ptr.cpu(), want_ptr)
+    import numpy as np
+
+    for i, data in enumerate(datas):
+        h_last, h_ptr = bwt_encode(np.frombuffer(data, np.uint8))
+        assert got_last[i, : len(data)].cpu().numpy().tobytes() == h_last.tobytes()
+        assert int(got_ptr[i]) == h_ptr
+
+
+@pytest.mark.parametrize("step", ["step_exact", "step_exact_rle2"])
+def test_exact_steps_equal_cpu(cuda, step):
+    """The exact modes' steps: rows on the card equal the CPU's, and K3
+    launched once, at width 256."""
+    fn = getattr(pipeline, step)
+    blocks, lens = pipeline.raw_batch(_exact_blocks(), EXACT_N_MAX)
+    lens = torch.from_numpy(lens)
+    before = dict(mtf_wide.width_launches)
+    got = fn(blocks.to(cuda), lens.to(cuda))
+    torch.cuda.synchronize()
+    before[256] += 1
+    assert mtf_wide.width_launches == before
+    assert torch.equal(got.cpu(), fn(blocks, lens))
+
+
+@pytest.mark.parametrize("device_rle2", [False, True])
+def test_exact_mode_encode_equals_bz2(cuda, device_rle2):
+    """One device-only encode per exact mode, blocks of every class at
+    level 1 (multi-block): libbz2 -1's bytes, K3 at width 256 once per
+    batch, the narrow kernel never, no re-encode."""
+    import numpy as np
+
+    rng = np.random.default_rng(9)
+    texts = [
+        bytes(rng.integers(0, 16, 230_000, dtype=np.uint8)),
+        bytes(rng.integers(0, 40, 60_000, dtype=np.uint8)),
+        bytes(rng.integers(0, 200, 9_000, dtype=np.uint8)),
+    ]
+    for k in pipeline.device_stats:
+        pipeline.device_stats[k] = 0
+    narrow, by_width = mtf_narrow.launches, dict(mtf_wide.width_launches)
+    got = pipeline.encode_streams(texts, level=1, device=cuda, host_assist=False, fast_bwt=False,
+                                  device_rle2=device_rle2)
+    assert [g.data for g in got] == [bz2.compress(t, 1) for t in texts]
+    stats = pipeline.device_stats
+    assert stats["blocks"] == 5 and stats["tie_reencodes"] == 0
+    assert mtf_narrow.launches == narrow
+    assert mtf_wide.width_launches[256] - by_width[256] == stats["batches"]
+    assert mtf_wide.width_launches[128] == by_width[128]

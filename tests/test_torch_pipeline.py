@@ -151,16 +151,76 @@ def test_wide8_corpus_is_multi_block():
         assert _bucket_for(len(blocks[0].data)) == 901_120
 
 
+def _mode_texts(rng):
+    """Streams of every class for the mode tests: bits 4 (two of them),
+    class 5, bits 8, and an exactly periodic bits-4 text whose one-sort
+    prefix ties in fast mode."""
+    return [
+        bytes(rng.integers(0, 16, 7_000, dtype=np.uint8)),
+        bytes(rng.integers(0, 24, 6_000, dtype=np.uint8)),
+        bytes(rng.integers(0, 200, 9_000, dtype=np.uint8)),
+        bytes(rng.integers(0, 16, 2_000, dtype=np.uint8)),
+        b"1723\n481\np100\n" * 1000,
+    ]
+
+
 @pytest.mark.parametrize(
-    "kwargs,item",
+    "kwargs,mode",
     [
-        ({"fast_bwt": False}, "A13"),
-        ({"device_rle2": True}, "A13"),
+        ({"fast_bwt": False}, "ranks"),
+        ({"device_rle2": True}, "fast"),  # device_rle2 matters only without fast_bwt
     ],
 )
-def test_unported_modes_raise(kwargs, item):
-    with pytest.raises(NotImplementedError, match=item):
-        pipeline.encode_streams([b"12\n"], device="cpu", **kwargs)
+def test_mode_kwargs_match_bz2_and_jax(rng, kwargs, mode):
+    """The kwargs that raised before the exact modes were ported: each
+    encode runs the reference's mode for them and writes the JAX
+    package's bytes (the host encoder's; libbz2's but for the periodic
+    text, whose exact sort differs from libbz2 in origPtr only)."""
+    texts = _mode_texts(rng)
+    assert pipeline.encode_mode(**kwargs) == mode
+    _reset_stats()
+    got = pipeline.encode_streams(texts, device="cpu", host_assist=False, **kwargs)
+    want = jax_pipeline.encode_streams(texts, host_assist=False, **kwargs)
+    assert [g.data for g in got] == [w.data for w in want]
+    assert [g.data for g in got] == [bz2_compress(t, 9) for t in texts]
+    assert [g.data for g in got[:4]] == [bz2.compress(t, 9) for t in texts[:4]]
+    stats = pipeline.device_stats
+    assert stats["blocks"] == 5 and stats["batches"] == 3  # one batch per class
+    assert (stats["blocks_bits4"], stats["blocks_bits5"], stats["blocks_bits8"]) == (3, 1, 1)
+    # fast mode re-encodes the tied periodic block on the host; the exact
+    # sort never ties
+    assert stats["tie_reencodes"] == (1 if mode == "fast" else 0)
+
+
+@pytest.mark.parametrize("device_rle2", [False, True])
+def test_exact_modes_multi_block_level1(rng, device_rle2):
+    """Level-1 multi-block streams through the exact modes, on the device
+    only: libbz2 -1's bytes, every block on the device, no re-encode,
+    and each class's rows read back."""
+    texts = _texts(rng, [250_000, 40_000]) + [bytes(rng.integers(0, 100, 120_000, dtype=np.uint8))]
+    _reset_stats()
+    got = pipeline.encode_streams(texts, level=1, device="cpu", host_assist=False, fast_bwt=False,
+                                  device_rle2=device_rle2)
+    assert [g.data for g in got] == [bz2.compress(t, 1) for t in texts]
+    assert [len(g.block_bit_offsets) for g in got] == [3, 1, 2]
+    stats = pipeline.device_stats
+    assert stats["blocks"] == 6 and stats["tie_reencodes"] == 0
+    assert stats["blocks_bits4"] == 4 and stats["blocks_bits8"] == 2
+    # rows of 16,384 or 131,072 bytes' worth, 3 rows a batch
+    per_row = {False: lambda n: 4 * (257 + n // 4), True: lambda n: 4 * (518 + (n + 3) // 2)}[device_rle2]
+    assert stats["d2h_bytes"] == stats["d2h_bytes_bits4"] + stats["d2h_bytes_bits8"]
+    assert stats["d2h_bytes"] == 3 * per_row(131_072) * stats["batches"]
+
+
+@pytest.mark.parametrize("host_assist", [False, True])
+def test_exact_rle2_feed_matches_jax(rng, host_assist):
+    """``encode_streams_feed`` in ``rle2`` mode, with and without the
+    stealers: the JAX package's bytes."""
+    texts = _mode_texts(rng)[:3]
+    got = pipeline.encode_streams_feed(iter(texts), device="cpu", host_assist=host_assist,
+                                       fast_bwt=False, device_rle2=True)
+    want = jax_pipeline.encode_streams(texts, host_assist=False, fast_bwt=False, device_rle2=True)
+    assert [g.data for g in got] == [w.data for w in want] == [bz2.compress(t, 9) for t in texts]
 
 
 def _huff_texts(rng):
@@ -222,3 +282,55 @@ def test_cuda_without_a_card_raises():
 def test_torch_bz2_compress(rng):
     text = _texts(rng, [3_000])[0]
     assert pipeline.torch_bz2_compress(text, device="cpu") == bz2.compress(text, 9)
+
+
+def test_launched_batch_is_ready_after_its_launcher():
+    """An exact-mode batch on a card is ready only once the launcher
+    thread has enqueued it and its event has passed; a launch error
+    raises from ``_batch_ready`` and from the drain's wait."""
+    from concurrent.futures import Future
+
+    class Event:
+        def __init__(self):
+            self.done, self.waited = False, False
+
+        def query(self):
+            return self.done
+
+        def synchronize(self):
+            self.waited = True
+
+    fut, event = Future(), Event()
+    handle = (None, pipeline._Launched(fut))
+    assert not pipeline._batch_ready(handle)
+    fut.set_result(event)
+    assert not pipeline._batch_ready(handle)
+    event.done = True
+    assert pipeline._batch_ready(handle)
+    handle[1].synchronize()
+    assert event.waited
+    failed = Future()
+    failed.set_exception(RuntimeError("launch failed"))
+    with pytest.raises(RuntimeError, match="launch failed"):
+        pipeline._batch_ready((None, pipeline._Launched(failed)))
+    with pytest.raises(RuntimeError, match="launch failed"):
+        pipeline._Launched(failed).synchronize()
+
+
+def test_torch_bz2_compress_exact_mode(rng, monkeypatch):
+    """The config's ``fast_bwt=False`` and ``device_rle2`` reach the
+    driver as the ``rle2`` mode."""
+    from starch3_tpu_torch.config import EncodeConfig
+
+    modes = []
+    driver = pipeline._device_driver
+
+    def spy(*args):
+        modes.append(args[6])  # (q, results, errors, device, batch_size, reserve, mode, huff)
+        return driver(*args)
+
+    monkeypatch.setattr(pipeline, "_device_driver", spy)
+    text = _texts(rng, [3_000])[0]
+    cfg = EncodeConfig(use_jax=True, fast_bwt=False, device_rle2=True)
+    assert pipeline.torch_bz2_compress(text, cfg, device="cpu") == bz2.compress(text, 9)
+    assert modes == ["rle2"]

@@ -14,21 +14,35 @@ alphabet tier plus pad rows.  Tolerance: zero.
   rotations is unstable).
 - ``step_fast2`` vs ``_jitted_fused_step_fast2(n_max, bits, False)`` at
   bits 4 and 8: the small rows ``[ptr, m, ties, freq[260]]`` and the
-  symbol streams whole where ties == 0, columns 0 and 2 elsewhere."""
+  symbol streams whole where ties == 0, columns 0 and 2 elsewhere.
+- The exact modes at 16,384: ``bwt_remap`` vs ``_bwt_remap``;
+  ``step_exact`` vs ``_jitted_fused_step(n_max, False)``, rows
+  ``[orig_ptr, used[256], ranks]``, the ranks over each row's length only
+  (JAX on the CPU takes the XLA scan, which does not zero past it);
+  ``step_exact_rle2`` vs ``_jitted_fused_step_rle2(n_max, False)``, whole
+  rows; ``device_encode_blocks`` vs the JAX one."""
 
 import numpy as np
 import pytest
 import torch
 
+from starch3_tpu.parallel import pipeline as jax_pipeline
 from starch3_tpu.parallel.pipeline import (
+    _jitted_fused_step,
     _jitted_fused_step_fast,
     _jitted_fused_step_fast2,
     _jitted_fused_step_ranks4,
     _jitted_fused_step_ranks_mid,
+    _jitted_fused_step_rle2,
 )
 from starch3_tpu_torch import corpus
 from starch3_tpu_torch.parallel.pipeline import (
     _dense_pack4,
+    bwt_remap,
+    device_encode_blocks,
+    raw_batch,
+    step_exact,
+    step_exact_rle2,
     pack_batch,
     step_fast,
     step_fast2,
@@ -181,3 +195,78 @@ def test_fast2_rows_and_syms_match_jax_step(rng, bits):
 def test_mid_rejects_a_wrong_word_count():
     with pytest.raises(ValueError, match="words"):
         step_ranks_mid(torch.zeros((1, 100), dtype=torch.int32), torch.tensor([5]), 5, 4096)
+
+
+EXACT_N_MAX = 16_384
+
+
+def _exact_blocks(rng) -> list[bytes]:
+    """Raw blocks of every class at 16,384: a full-length random block of
+    200 byte values, real transformed BED (bits 4) and BED6 (class 5), an
+    exactly periodic block (no tie in the exact sort) and one byte."""
+    from starch3_tpu.api import _parse_transform
+
+    bed3 = _parse_transform(make_bed_text(rng, n=900))[0].text[:9_000]
+    bed6 = _tier_text(5, 4096)[:12_000]
+    return [
+        bytes(rng.integers(0, 200, EXACT_N_MAX, dtype=np.uint8)),
+        bed3,
+        bed6,
+        b"1723\n481\np100\n" * 700,
+        b"\x07",
+    ]
+
+
+@pytest.fixture(scope="module")
+def exact_batch():
+    blocks, lens = raw_batch(_exact_blocks(np.random.default_rng(77)), EXACT_N_MAX, b_pad=6)
+    return blocks.numpy(), lens
+
+
+def test_bwt_remap_matches_jax(exact_batch):
+    blocks, lens = exact_batch
+    ptrs, used, seqs = bwt_remap(torch.from_numpy(blocks), torch.from_numpy(lens))
+    for i in range(blocks.shape[0]):
+        j_ptr, j_used, j_seq = jax_pipeline._bwt_remap(blocks[i], np.int32(lens[i]), EXACT_N_MAX)
+        assert int(ptrs[i]) == int(j_ptr)
+        assert used[i].tolist() == np.asarray(j_used).tolist()
+        assert seqs[i].tolist() == np.asarray(j_seq).tolist()
+
+
+def test_exact_rows_match_jax_step(exact_batch):
+    blocks, lens = exact_batch
+    want = np.asarray(_jitted_fused_step(EXACT_N_MAX, False)(blocks, lens))
+    got = step_exact(torch.from_numpy(blocks), torch.from_numpy(lens)).numpy()
+    assert got.shape == want.shape == (6, 257 + EXACT_N_MAX // 4)
+    assert got[:, :257].tolist() == want[:, :257].tolist()
+    for i, n in enumerate(lens):
+        g, w = got[i, 257:].view(np.uint8), want[i, 257:].view(np.uint8)
+        assert g[:n].tolist() == w[:n].tolist()
+        assert not g[n:].any()  # the kernel branch zeroes past the length
+
+
+def test_exact_rle2_rows_match_jax_step(exact_batch):
+    blocks, lens = exact_batch
+    want = np.asarray(_jitted_fused_step_rle2(EXACT_N_MAX, False)(blocks, lens))
+    got = step_exact_rle2(torch.from_numpy(blocks), torch.from_numpy(lens)).numpy()
+    assert got.shape == want.shape == (6, 518 + (EXACT_N_MAX + 3) // 2)
+    assert got.tolist() == want.tolist()
+
+
+def test_device_encode_blocks_matches_jax(rng):
+    datas = _exact_blocks(rng)
+    got = device_encode_blocks(datas, EXACT_N_MAX, device="cpu")
+    want = jax_pipeline.device_encode_blocks(datas, EXACT_N_MAX)
+    assert len(got) == len(want) == len(datas)
+    for (g_used, g_ptr, g_ranks), (w_used, w_ptr, w_ranks), data in zip(got, want, datas):
+        assert g_used.dtype == bool and g_ranks.dtype == np.uint8
+        assert (g_used.tolist(), g_ptr) == (w_used.tolist(), w_ptr)
+        assert g_ranks.tolist() == w_ranks.tolist() and g_ranks.size == len(data)
+    assert device_encode_blocks([], device="cpu") == []
+
+
+def test_device_encode_blocks_rejects_a_mesh_and_a_long_block():
+    with pytest.raises(NotImplementedError, match="A9"):
+        device_encode_blocks([b"12"], mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="exceeds n_max"):
+        device_encode_blocks([bytes(5_000)], 4096, device="cpu")
