@@ -102,6 +102,19 @@ streams and archives.  It exits 0 only if every phase passes:
      ``device_rle2`` alone (fast mode) equals the host archive on config
      2; (e) a device-only ``ranks`` encode with its first batch stalled
      abandons, as phase 8 (b) does in fast mode.
+  11. block meshes and two processes on the one card: (a) device-only
+     fast-mode encodes of every phase-5 corpus in turns at mesh None, a
+     mesh of ``cuda:0`` alone and a mesh that names ``cuda:0`` twice (two
+     entries, two streams): every stream equals ``bz2.compress(text, 9)``
+     and each batch's MTF kernel launched once per entry; MB/s of text of
+     each; (b) ``device_huffman`` and ``rle2`` on config 2 under the
+     two-entry mesh, the same checks; (c) ``decode_streams`` of configs 2
+     and 3 and ``decompress_starch_bytes(use_jax=True)`` of their archives
+     under the two-entry mesh equal the texts and the host decode; (d) two
+     CLI processes, ``--jax --num-hosts=2``, on config 2, once over a gloo
+     process group (``--coordinator``) and once through a manifest
+     directory: host 0's archive equals the host path's and host 1 writes
+     nothing; the wall time of both.
 
 The port imports nothing of JAX and nothing of the JAX package
 ``starch3_tpu``; the run fails if either is loaded.  The line before the
@@ -310,13 +323,14 @@ def phase_step(device, texts, bits: int, n_max: int):
 
 
 def counted_encode(device, label: str, texts, want, device_huffman: bool = False, fast_bwt: bool = True,
-                   device_rle2: bool = False):
-    """One device-only encode of ``texts`` in the mode of the flags, with
-    every launch counter and ``device_stats`` set to 0 just before it and
-    read just after.  Every stream must equal ``want``, every block must
-    have run on the device, and no batch may have been abandoned or the
-    device benched.  Returns the run: seconds, launches (narrow and wide,
-    in all and by width), ``device_stats``, blocks."""
+                   device_rle2: bool = False, mesh=None):
+    """One device-only encode of ``texts`` in the mode of the flags (on
+    ``mesh`` when one is given), with every launch counter and
+    ``device_stats`` set to 0 just before it and read just after.  Every
+    stream must equal ``want``, every block must have run on the device,
+    and no batch may have been abandoned or the device benched.  Returns
+    the run: seconds, launches (narrow and wide, in all and by width),
+    ``device_stats``, blocks."""
     mtf_narrow.launches = mtf_wide.launches = 0
     for counts in (mtf_narrow.width_launches, mtf_wide.width_launches, pipeline.device_stats):
         for k in counts:
@@ -324,7 +338,7 @@ def counted_encode(device, label: str, texts, want, device_huffman: bool = False
     sched = dict(host.scheduler_stats)
     t0 = time.perf_counter()
     encs = pipeline.encode_streams(texts, device=device, host_assist=False, device_huffman=device_huffman,
-                                   fast_bwt=fast_bwt, device_rle2=device_rle2)
+                                   fast_bwt=fast_bwt, device_rle2=device_rle2, mesh=mesh)
     run = {
         "seconds": time.perf_counter() - t0,
         "narrow": mtf_narrow.launches, "narrow_by_width": dict(mtf_narrow.width_launches),
@@ -480,12 +494,12 @@ class StalledDispatch:
     that batch's kernels, and every later one, run late on a really
     stalled stream.  Keeps the longest host time of a dispatch, which must
     stay short: a dispatch that waited on the stream would hide the
-    stall."""
+    stall, and the sum of them (with ``cycles`` 0, a dispatch timer)."""
 
     def __init__(self, dispatch, cycles: int):
         self.dispatch, self.cycles = dispatch, cycles
         self.calls = 0
-        self.max_host_s = 0.0
+        self.max_host_s = self.host_s = 0.0
 
     def __call__(self, block_datas, nm, device, pad_to=None, mode="fast"):
         t0 = time.perf_counter()
@@ -493,7 +507,9 @@ class StalledDispatch:
             torch.cuda._sleep(self.cycles)
         self.calls += 1
         out = self.dispatch(block_datas, nm, device, pad_to=pad_to, mode=mode)
-        self.max_host_s = max(self.max_host_s, time.perf_counter() - t0)
+        dt = time.perf_counter() - t0
+        self.max_host_s = max(self.max_host_s, dt)
+        self.host_s += dt
         return out
 
 
@@ -879,6 +895,157 @@ def phase_exact_archives(device, bed: bytes, smi: str) -> None:
             f"the device in {dev_stats['batches']} batches, launches narrow {narrow}, K3 at 256 {wide256}; on {smi}")
 
 
+def mesh_launches_expected(stats: dict, n: int, mode: str) -> tuple[dict, dict]:
+    """The launches by width that a device-only encode on a mesh of ``n``
+    entries must count: each batch's kernel once per entry.  (narrow by
+    width, wide by width)."""
+    b = {c: stats[f"batches_bits{c}"] for c in pipeline.CLASSES}
+    if mode == "fast":
+        return {16: n * b[4], 32: n * b[5], 64: n * b[6]}, {128: 0, 256: n * b[8]}
+    if mode == "fast_huff":
+        return {16: 0, 32: 0, 64: 0}, {128: n * b[4], 256: n * (stats["batches"] - b[4])}
+    return {16: 0, 32: 0, 64: 0}, {128: 0, 256: n * stats["batches"]}
+
+
+def phase_mesh_encodes(device, runs, smi: str) -> dict:
+    """Phase 11 (a) and (b): device-only encodes on block meshes of one
+    card.  (a) Every corpus in fast mode, in turns at mesh None, a mesh of
+    ``cuda:0`` alone and a mesh that names ``cuda:0`` twice (its two
+    entries on two streams), then back (None, 1, 2, 2, 1, None); (b) on
+    config 2, ``device_huffman`` and the exact mode ``rle2`` under the
+    two-entry mesh.  Every stream equals ``bz2.compress(text, 9)``, every
+    block ran on the device, and each batch's kernel launched once per
+    entry.  Each run's host time per dispatch (pack, uploads, launches) is
+    printed beside its MB/s.  Returns the runs' launches, narrow and wide
+    by width."""
+    from starch3_tpu_torch.parallel.mesh import make_block_mesh
+
+    meshes = {0: None, 1: make_block_mesh(devices=[device]), 2: make_block_mesh(devices=[device, device])}
+    two = meshes[2]
+    if two.devices != (meshes[1].devices[0],) * 2 or (device.type == "cuda" and two.streams[0] == two.streams[1]):
+        raise AssertionError(f"two-entry mesh: devices {two.devices}, streams {two.streams}")
+    narrow_total = dict.fromkeys((16, 32, 64), 0)
+    wide_total = dict.fromkeys(mtf_wide.WIDTHS, 0)
+
+    def run(label, texts, want, n, mode, flags) -> dict:
+        timed = StalledDispatch(pipeline._dispatch_chunk, 0)
+        pipeline._dispatch_chunk = timed
+        try:
+            r = counted_encode(device, f"{label} mesh {n}", texts, want, mesh=meshes[n], **flags)
+        finally:
+            pipeline._dispatch_chunk = timed.dispatch
+        r["dispatch_ms"] = timed.host_s / timed.calls * 1e3
+        want_narrow, want_wide = mesh_launches_expected(r["stats"], max(n, 1), mode)
+        if r["narrow_by_width"] != want_narrow or r["wide_by_width"] != want_wide:
+            raise AssertionError(
+                f"{label} {mode} mesh {n}: launches narrow {r['narrow_by_width']}, wide {r['wide_by_width']} != "
+                f"once per entry per batch {want_narrow}, {want_wide} (batches {r['stats']})")
+        for w, k in r["narrow_by_width"].items():
+            narrow_total[w] += k
+        for w, k in r["wide_by_width"].items():
+            wide_total[w] += k
+        return r
+
+    for label, texts, _classes in runs:
+        want = [bz2.compress(t, 9) for t in texts]
+        total = sum(map(len, texts))
+        by_n = {0: [], 1: [], 2: []}
+        for n in (0, 1, 2, 2, 1, 0):
+            by_n[n].append(run(label, texts, want, n, "fast", {}))
+        for n, rs in by_n.items():
+            log(f"{label} mesh {['None', 'cuda:0', 'cuda:0 twice'][n]} (fast, device only): "
+                f"{total / rs[0]['seconds'] / 1e6:.3f} and {total / rs[1]['seconds'] / 1e6:.3f} MB/s of text "
+                f"({rs[0]['seconds']:.3f}, {rs[1]['seconds']:.3f} s); host time per dispatch "
+                f"{rs[0]['dispatch_ms']:.3f} and {rs[1]['dispatch_ms']:.3f} ms; {rs[0]['blocks']} blocks in "
+                f"{rs[0]['stats']['batches']} batches; launches narrow {rs[0]['narrow_by_width']} wide "
+                f"{rs[0]['wide_by_width']}; all streams == bz2.compress(text, 9); on {smi}")
+    label, texts, _classes = runs[0]
+    want = [bz2.compress(t, 9) for t in texts]
+    total = sum(map(len, texts))
+    for mode, flags in (("fast_huff", {"device_huffman": True}), ("rle2", {"fast_bwt": False, "device_rle2": True})):
+        r = run(label, texts, want, 2, mode, flags)
+        log(f"{label} mesh cuda:0 twice ({mode}, device only): {total / r['seconds'] / 1e6:.3f} MB/s of text "
+            f"({r['seconds']:.3f} s); host time per dispatch {r['dispatch_ms']:.3f} ms; {r['blocks']} blocks in "
+            f"{r['stats']['batches']} batches; launches wide "
+            f"{r['wide_by_width']}; read back {r['stats']['d2h_bytes']} bytes; all streams == "
+            f"bz2.compress(text, 9); on {smi}")
+    return {"narrow": narrow_total, "wide": wide_total, "mesh": meshes[2]}
+
+
+def phase_mesh_decode(mesh, by_label, beds, smi: str) -> None:
+    """Phase 11 (c): decode under the two-entry mesh.  ``decode_streams``
+    gives back the texts of configs 2 and 3, with one decode batch counted
+    per batch of 8 whatever the mesh; ``decompress_starch_bytes(archive,
+    use_jax=True, mesh=...)`` equals the host decode and the BED."""
+    for label in ("config2", "config3"):
+        texts = by_label[label]
+        streams = [bz2.compress(t, 9) for t in texts]
+        walked = [pipeline.read_stream_blocks(s)[0] for s in streams]
+        buckets = collections.Counter(host._bucket_for(blk[4]) for blocks in walked for blk in blocks)
+        n_batches = sum(-(-c // 8) for c in buckets.values())
+        pipeline.device_stats["decode_batches"] = pipeline.device_stats["decode_blocks"] = 0
+        t0 = time.perf_counter()
+        got = pipeline.decode_streams(streams, mesh=mesh)
+        dt = time.perf_counter() - t0
+        if got != texts:
+            raise AssertionError(f"{label} decode_streams(mesh=cuda:0 twice): a stream != its text")
+        stats = {k: pipeline.device_stats[k] for k in ("decode_batches", "decode_blocks")}
+        if stats != {"decode_batches": n_batches, "decode_blocks": sum(buckets.values())}:
+            raise AssertionError(f"{label} mesh decode: counters {stats} != {n_batches} batches, {buckets}")
+        archive = api.compress_bed_bytes(beds[label], api.EncodeConfig())
+        t1 = time.perf_counter()
+        arc = api.decompress_starch_bytes(archive, use_jax=True, mesh=mesh)
+        dt_arc = time.perf_counter() - t1
+        if not arc == api.decompress_starch_bytes(archive) == beds[label]:
+            raise AssertionError(f"{label} decompress_starch_bytes(use_jax=True, mesh=...) != host decode or BED")
+        log(f"{label} decode under mesh cuda:0 twice: decode_streams == texts, {stats}, "
+            f"{sum(map(len, texts)) / dt / 1e6:.3f} MB/s of text ({dt:.3f} s); decompress_starch_bytes == host "
+            f"decode == BED, {len(beds[label]) / dt_arc / 1e6:.3f} MB/s of BED ({dt_arc:.3f} s); on {smi}")
+
+
+def phase_two_processes(device, bed: bytes, smi: str, timeout_s: float = 300.0) -> None:
+    """Phase 11 (d): two processes on the one card, ``python -m
+    starch3_tpu_torch.cli --jax --num-hosts=2 --host-id=i``, once over a
+    gloo process group (``--coordinator``) and once through a manifest
+    directory.  Host 0's archive equals the single-process host archive
+    and host 1 writes nothing.  Both children are killed if either is
+    still running when the case ends."""
+    import socket
+
+    want = api.compress_bed_bytes(bed, api.EncodeConfig())
+    with tempfile.TemporaryDirectory() as d:
+        src = os.path.join(d, "in.bed")
+        with open(src, "wb") as f:
+            f.write(bed)
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        for transport, how in (("gloo", f"--coordinator=127.0.0.1:{port}"),
+                               ("manifest", f"--manifest-dir={os.path.join(d, 'manifest')}")):
+            cmds = [[sys.executable, "-m", "starch3_tpu_torch.cli", "--jax", f"--platform={device.type}",
+                     "--num-hosts=2", f"--host-id={h}", how, src] for h in range(2)]
+            t0 = time.perf_counter()
+            procs = [subprocess.Popen(c, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE) for c in cmds]
+            try:
+                outs = [p.communicate(timeout=timeout_s) for p in procs]
+            finally:
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+            dt = time.perf_counter() - t0
+            for h, (p, (_out, err)) in enumerate(zip(procs, outs)):
+                if p.returncode != 0:
+                    raise AssertionError(f"two processes ({transport}) host {h} exit {p.returncode}: "
+                                         f"{err.decode()[-2000:]}")
+            if outs[0][0] != want or outs[1][0] != b"":
+                raise AssertionError(f"two processes ({transport}): host 0 archive == host archive "
+                                     f"{outs[0][0] == want}, host 1 wrote {len(outs[1][0])} bytes")
+            log(f"config2 two processes on one card ({transport}, --jax --num-hosts=2): host 0 archive == "
+                f"single-process host archive, host 1 wrote nothing; {dt:.3f} s wall for both, process "
+                f"starts included ({len(bed) / dt / 1e6:.3f} MB/s of BED); on {smi}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=5)
@@ -964,6 +1131,14 @@ def main() -> int:
     launches["mtf_wide"] += exact
     phase_exact_archives(device, bed2, smi)
     phase_exact_fault(device, texts_of(bed2), smi)
+    mesh_run = phase_mesh_encodes(device, runs, smi)
+    launches["mtf_narrow"] += mesh_run["narrow"][16]
+    launches["mtf_narrow_windowed"] += mesh_run["narrow"][32] + mesh_run["narrow"][64]
+    for w, n in mesh_run["wide"].items():
+        wide_by_width[w] += n
+        launches["mtf_wide"] += n
+    phase_mesh_decode(mesh_run["mesh"], by_label, {"config2": bed2, "config3": bed3}, smi)
+    phase_two_processes(device, bed2, smi)
 
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")

@@ -6,8 +6,8 @@ alone.  Its host tier is a copy of the JAX package's, with the package
 prefix of the imports rewritten and nothing else changed, so the two
 write the same bytes (``tests/test_torch_isolation.py`` holds the copies
 to their originals): ``codec/``, ``bed/``, ``format/``, ``transform/``,
-``config``, ``errors``, ``_version`` and ``runtime/`` (the same
-``runtime.cpp``, built into ``build/``).  Module names mirror the JAX
+``config``, ``errors``, ``_version``, ``parallel/assemble.py`` and
+``runtime/`` (the same ``runtime.cpp``, built into ``build/``).  Module names mirror the JAX
 package:
 
   - ``ops.bwt_fast``:   one-sort BWTs of every alphabet tier, batched, in
@@ -27,6 +27,13 @@ package:
                         driver; the decode step and ``decode_streams``
   - ``parallel.host``:  the host scheduler, tail and stream assembly,
                         copied from ``starch3_tpu/parallel/pipeline.py``
+  - ``parallel.mesh``:  block meshes over torch devices (data parallelism
+                        over blocks: each entry runs the step on its slice
+                        of every batch, on its own CUDA stream)
+  - ``parallel.distributed``: multi-host encode over a gloo process group
+                        (``torch.distributed``) or a manifest directory
+  - ``parallel.assemble``: the manifest and ordered archive assembly,
+                        copied from the JAX package
   - ``api``, ``cli``:   entry points with an explicit torch ``device``;
                         their host parts are copies of the JAX package's
 

@@ -823,11 +823,10 @@ def decompress_starch_bytes(
     ``use_jax`` routes the vectorizable decode stages of a bzip2 archive
     (inverse RLE2 -> MTF -> BWT) through the device path on ``device``
     (``"cuda"`` needs a card; ``"cpu"`` runs the same torch ops there),
-    batched over all streams' blocks (parallel/pipeline.decode_streams).
-    A gzip archive decodes on the host either way.  ``mesh`` must be
-    None: the multi-GPU layer is ROADMAP A9.
+    batched over all streams' blocks (parallel/pipeline.decode_streams),
+    or over the entries of ``mesh`` (parallel/mesh.py), which then
+    replaces ``device``.  A gzip archive decodes on the host either way.
     """
-    _pipe.check_mesh(mesh)
     reader = StarchReader.from_bytes(data)
     fmt = reader.metadata.compression_format
 
@@ -837,7 +836,7 @@ def decompress_starch_bytes(
 
         workers = os.cpu_count() or 1
     if use_jax and fmt == "bzip2" and items:
-        texts = _pipe.decode_streams([stream for _meta, stream in items], device=device)
+        texts = _pipe.decode_streams([stream for _meta, stream in items], device=device, mesh=mesh)
         parts = [
             _decode_stream_to_bed(meta, stream, fmt, text)
             for (meta, stream), text in zip(items, texts)

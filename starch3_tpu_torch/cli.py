@@ -10,6 +10,14 @@ without a card and without ``--platform=cpu`` exits non-zero; it never
 falls back to the CPU.  Decode, ``--list`` and ``--chrom`` run on the
 host.  The option parser and the host paths are the port's own copies of
 ``starch3_tpu/cli.py``'s.
+
+Multi-host encode (``--num-hosts=N --host-id=I``): every process runs the
+same command with its own ``--host-id`` and encodes its round-robin share
+of the chromosomes; the streams meet over a gloo process group at
+``--coordinator=HOST:PORT``, or through ``--manifest-dir=DIR``, a shared
+directory; host 0 writes the archive and the others write nothing.  On a
+host with several cards, give each process its card with
+``CUDA_VISIBLE_DEVICES``.
 """
 
 from __future__ import annotations
@@ -50,10 +58,13 @@ USAGE = f"""\
   --gzip-level=N          gzip compression level 1..9 (default 6)
   --gzip-segment=BYTES    bytes of transformed text per gzip member
   --output=FILE | -o      Write to FILE instead of stdout
+  --num-hosts=N           Multi-host encode over N processes (one per host)
+  --host-id=I             This process's host index, 0..N-1 (host 0 writes)
+  --coordinator=HOST:PORT gloo rendezvous of the processes (host 0 listens)
+  --manifest-dir=DIR      Shared directory as the transport instead (and
+                          resume after a crash)
   --help | -h             Show this usage message
   --version | -v          Show binary version
-
-  Not ported yet: --num-hosts > 1 (ROADMAP A9).
 """
 
 
@@ -202,6 +213,65 @@ def _stream_to_sink(output: str | None, produce) -> None:
             pass
         raise
 
+def _encode_config(opts: dict) -> EncodeConfig:
+    return EncodeConfig(
+        note=opts["note"],
+        method=opts["method"] or CompressionMethod.default(),
+        use_jax=opts["jax"],
+        device_huffman=opts["device_huffman"],
+        gzip_level=opts["gzip_level"] or 6,
+        **(
+            {"gzip_segment_bytes": opts["gzip_segment"]}
+            if opts["gzip_segment"] is not None
+            else {}
+        ),
+    )
+
+
+def _check_device(opts: dict) -> None:
+    """A ``--jax`` encode needs its ``--platform``'s device."""
+    if opts["jax"]:
+        from starch3_tpu_torch.parallel.pipeline import resolve_device
+
+        try:
+            resolve_device(opts["platform"])
+        except RuntimeError as e:
+            raise OptionError(str(e)) from None
+
+
+def _encode_multihost(opts: dict) -> int:
+    """The multi-host branch of the reference's CLI: every process runs
+    this same command with its own ``--host-id``; host 0 writes the
+    archive.  The process group, if any, is left before returning."""
+    from starch3_tpu_torch.parallel.distributed import (
+        compress_bed_bytes_multihost,
+        initialize_distributed,
+        shutdown_distributed,
+    )
+
+    _check_device(opts)
+    initialize_distributed(opts["coordinator"], opts["num_hosts"], opts["host_id"])
+    try:
+        data = _read_input(opts["input"])
+        archive = compress_bed_bytes_multihost(
+            data,
+            _encode_config(opts),
+            num_hosts=opts["num_hosts"],
+            host_id=opts["host_id"] or 0,
+            manifest_dir=opts["manifest_dir"],
+            device=opts["platform"],
+        )
+    finally:
+        shutdown_distributed()
+    if (opts["host_id"] or 0) == 0:
+        if opts["output"]:
+            with open(opts["output"], "wb") as f:
+                f.write(archive)
+        else:
+            sys.stdout.buffer.write(archive)
+    return 0
+
+
 def main(argv: list[str] | None = None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     try:
@@ -210,28 +280,11 @@ def main(argv: list[str] | None = None) -> int:
             raise OptionError("--chrom requires --decode")
         encode = not (opts["decode"] or opts["list"])
         if encode and (opts["num_hosts"] or 0) > 1:
-            raise OptionError("--num-hosts > 1: multi-host encode is not yet ported (ROADMAP A9)")
+            return _encode_multihost(opts)
         if encode:
             platform = opts["platform"]
-            config = EncodeConfig(
-                note=opts["note"],
-                method=opts["method"] or CompressionMethod.default(),
-                use_jax=opts["jax"],
-                device_huffman=opts["device_huffman"],
-                gzip_level=opts["gzip_level"] or 6,
-                **(
-                    {"gzip_segment_bytes": opts["gzip_segment"]}
-                    if opts["gzip_segment"] is not None
-                    else {}
-                ),
-            )
-            if opts["jax"]:
-                from starch3_tpu_torch.parallel.pipeline import resolve_device
-
-                try:
-                    resolve_device(platform)
-                except RuntimeError as e:
-                    raise OptionError(str(e)) from None
+            config = _encode_config(opts)
+            _check_device(opts)
             from starch3_tpu_torch.api import compress_bed_file, compress_bed_stream
 
             if opts["input"] in (None, "-"):

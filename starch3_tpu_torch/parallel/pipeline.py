@@ -60,6 +60,14 @@ True)``) is the reference's mirror path: the host walks each block to its
 RLE2 symbols, ``step_decode`` runs inverse RLE2 (ops/irle2.py), inverse
 MTF (ops/imtf.py) and inverse BWT (ops/ibwt.py) on batches of 8 blocks of
 one bucket, and the host inverts RLE1 and checks the CRCs.
+
+Every entry takes a ``mesh`` (``parallel/mesh.py``) beside ``device``, as
+the reference takes a ``jax.sharding.Mesh``: a batch is padded to a
+multiple of the mesh's size and split into equal row ranges, each entry
+runs the same step on its slice on its own stream (``_dispatch_meshed``),
+and the drain takes the entries' rows in mesh order (``_per_entry``).
+Blocks never exchange state, so nothing crosses entries.  The driver
+treats a meshed batch as one unit.
 """
 
 from __future__ import annotations
@@ -82,6 +90,7 @@ from starch3_tpu_torch.errors import FormatError
 from starch3_tpu_torch.ops.bitpack import emit_coded_padded
 from starch3_tpu_torch.ops.huff import ALPHA_MAX, GROUP_SIZE, N_TABLES, cost_and_select, group_hist_padded
 from starch3_tpu_torch.parallel import host
+from starch3_tpu_torch.parallel.mesh import BlockMesh, block_sharding, on_entry, pad_batch
 from starch3_tpu_torch.parallel.host import (
     _PIPELINE_DEPTH,
     _TAIL_RESERVE_PER_STEALER,
@@ -392,18 +401,28 @@ def raw_batch(block_datas, n_max: int, b_pad: int | None = None, pin: bool = Fal
 def device_encode_blocks(block_datas: list[bytes], n_max: int = host.N_MAX_BLOCK, mesh=None,
                          device="cuda") -> list:
     """Run the ``ranks`` mode's device step on a batch of post-RLE1 blocks
-    and wait for it; the counterpart of the JAX ``device_encode_blocks``,
-    with ``device`` beside ``mesh`` (which must be None: ROADMAP A9).
+    and wait for it; the counterpart of the JAX ``device_encode_blocks``.
+    The step runs on ``device``, or, given a ``mesh`` (``parallel/mesh.py``),
+    on each of its entries for its slice of the batch, padded to a multiple
+    of the mesh's size; ``device`` is then ignored.
 
     Returns per block: (in_use bool[256], orig_ptr, mtf ranks uint8[n])."""
-    check_mesh(mesh)
-    dev = resolve_device(device)
     b = len(block_datas)
     if b == 0:
         return []
-    batch, lens = raw_batch(block_datas, n_max)
-    out = step_exact(batch.to(dev), torch.from_numpy(lens).to(dev)).cpu().numpy()
-    return _unpack_results(out, lens, b, n_max)
+    if mesh is None:
+        dev = resolve_device(device)
+        batch, lens = raw_batch(block_datas, n_max)
+        out = step_exact(batch.to(dev), torch.from_numpy(lens).to(dev)).cpu().numpy()
+        return _unpack_results(out, lens, b, n_max)
+    batch, lens = raw_batch(block_datas, n_max, pad_batch(b, mesh.size))
+    lens_t = torch.from_numpy(lens)
+    meshed = _dispatch_meshed(mesh, b, lambda rows, dev: step_exact(batch[rows].to(dev), lens_t[rows].to(dev)))
+    rows = []
+    for dev, stream, part in zip(mesh.devices, mesh.streams, meshed.parts):
+        with on_entry(dev, stream):  # the download waits for the entry's stream
+            rows.append(part.cpu())
+    return _unpack_results(torch.cat(rows).numpy(), lens, b, n_max)
 
 
 def _emit_w_cap(n_max: int) -> int:
@@ -508,19 +527,77 @@ def step_for_class(seqs, lens, nsyms, bits: int, n_max: int) -> torch.Tensor:
     return step_fast(seqs, lens, nsyms, 8)
 
 
-def _dispatch_chunk(block_datas, nm, device: torch.device, pad_to=None, mode: str = "fast"):
+class _Meshed:
+    """A batch split over a mesh: each entry's part (what the one-device
+    dispatch returns for its slice) in mesh order, each of ``per`` rows of
+    the padded batch."""
+
+    def __init__(self, parts: tuple, per: int):
+        self.parts, self.per = parts, per
+
+
+def _dispatch_meshed(mesh: BlockMesh, n_rows: int, dispatch) -> _Meshed:
+    """Pad a batch of ``n_rows`` to a multiple of the mesh's size, split it
+    into the entries' row ranges (``block_sharding``) and call
+    ``dispatch(rows, device)`` for each entry in mesh order, with its
+    device and stream current: every upload, kernel, copy and event of the
+    part enqueues on the entry's own stream."""
+    b_pad = pad_batch(n_rows, mesh.size)
+    parts = []
+    for dev, stream, rows in zip(mesh.devices, mesh.streams, block_sharding(mesh, b_pad)):
+        with on_entry(dev, stream):
+            parts.append(dispatch(rows, dev))
+    return _Meshed(tuple(parts), b_pad // mesh.size)
+
+
+def _per_entry(chunk, handle, single) -> list:
+    """What to drain of a dispatched batch of ``chunk``: ``[(chunk,
+    single)]``, or, when ``handle`` is ``_Meshed``, each entry's slice of
+    ``chunk`` with its part, in mesh order.  An entry that holds only
+    padding has nothing to drain; its part stays referenced by the batch."""
+    if not isinstance(handle, _Meshed):
+        return [(chunk, single)]
+    per = handle.per
+    return [(chunk[i * per : (i + 1) * per], part) for i, part in enumerate(handle.parts) if i * per < len(chunk)]
+
+
+def _dispatch_chunk(block_datas, nm, device, pad_to=None, mode: str = "fast"):
     """Pack, upload and launch one batch without waiting for it.
 
     ``nm`` is the queue's ``(n_max, bits class)`` bucket key; the batch is
-    padded to ``pad_to`` rows.  Returns ``(handle, aux)``.  The handle
-    starts ``(rows, event)``: on a CUDA device ``rows`` is a pinned host
-    tensor that a non-blocking copy is filling and ``event`` marks the
-    end of the batch's work; on the CPU ``rows`` is ready and ``event`` is
-    None.  In ``fast_huff`` the rows are ``step_fast2``'s small rows and
-    the handle goes on with the device tensors the finisher reads,
-    ``(syms, m, hist)``.  The exact modes go to ``_dispatch_exact``.
+    padded to ``pad_to`` rows.  ``device`` is the encode's torch device or
+    its ``BlockMesh``.  Returns ``(handle, aux)``; under a mesh the handle
+    is ``_Meshed``, whose parts are each entry's ``(handle, aux)``, padded
+    together to a multiple of the mesh's size, and aux is None.  The
+    one-device forms are ``_dispatch_one``'s and ``_dispatch_exact``'s.
+    Counts one batch in ``device_stats``."""
+    if isinstance(device, BlockMesh):
+        handle = _dispatch_meshed(
+            device, max(len(block_datas), pad_to or 0),
+            lambda rows, dev: _dispatch_one(block_datas[rows], nm, dev, rows.stop - rows.start, mode),
+        )
+        out = (handle, None)
+        d2h = sum(aux["d2h"] for _h, aux in handle.parts)
+    else:
+        out = _dispatch_one(block_datas, nm, device, pad_to, mode)
+        d2h = out[1]["d2h"]
+    _count_batch(len(block_datas), nm[1], d2h)
+    return out
+
+
+def _dispatch_one(block_datas, nm, device: torch.device, pad_to, mode: str):
+    """``_dispatch_chunk`` on one device, on its current stream.
+
+    The handle starts ``(rows, event)``: on a CUDA device ``rows`` is a
+    pinned host tensor that a non-blocking copy is filling and ``event``
+    marks the end of the batch's work; on the CPU ``rows`` is ready and
+    ``event`` is None.  In ``fast_huff`` the rows are ``step_fast2``'s
+    small rows and the handle goes on with the device tensors the finisher
+    reads, ``(syms, m, hist)``.  The exact modes go to ``_dispatch_exact``.
     Each batch gets its own pinned buffer: the drain hands row views to
-    the tail pool or the assembler, which read them later."""
+    the tail pool or the assembler, which read them later.  ``aux["d2h"]``
+    is the bytes its rows bring back (0 in ``fast_huff``, whose finisher
+    counts its own)."""
     if mode in ("ranks", "rle2"):
         return _dispatch_exact(block_datas, nm, device, pad_to, mode)
     n_max, bits = nm
@@ -545,8 +622,8 @@ def _dispatch_chunk(block_datas, nm, device: torch.device, pad_to=None, mode: st
     else:
         rows = step_for_class(*args, bits, n_max)
         on_device = ()
-    _count_batch(len(block_datas), bits, 0 if mode == "fast_huff" else rows.nbytes)
-    aux = {"useds": useds, "lens": lens, "bits": bits, "mode": mode, "n_max": n_max}
+    aux = {"useds": useds, "lens": lens, "bits": bits, "mode": mode, "n_max": n_max,
+           "d2h": 0 if mode == "fast_huff" else rows.nbytes}
     if not cuda:
         return (rows, None) + on_device, aux
     out = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=True)
@@ -605,11 +682,12 @@ def _launcher():
 
 
 def _dispatch_exact(block_datas, nm, device: torch.device, pad_to, mode: str):
-    """``_dispatch_chunk`` of the exact modes: raw bytes, whatever the
+    """``_dispatch_one`` of the exact modes: raw bytes, whatever the
     class, through ``step_exact`` (``ranks``) or ``step_exact_rle2``
     (``rle2``).  On the CPU the rows are ready; on a CUDA device the handle
     is ``(rows, _Launched)``: the pinned rows, which the launcher's
-    non-blocking copy fills."""
+    non-blocking copy fills.  The launcher enqueues on the stream that is
+    current here, the device's or a mesh entry's."""
     n_max, bits = nm
     cuda = device.type == "cuda"
     raw, lens = raw_batch(block_datas, n_max, pad_to, pin=cuda)
@@ -618,19 +696,20 @@ def _dispatch_exact(block_datas, nm, device: torch.device, pad_to, mode: str):
     aux = {"lens": lens, "bits": bits, "mode": mode, "n_max": n_max}
     if not cuda:
         rows = step(raw, lens_t)
-        _count_batch(len(block_datas), bits, rows.nbytes)
+        aux["d2h"] = rows.nbytes
         return (rows, None), aux
     width = 257 + n_max // 4 if mode == "ranks" else 518 + (n_max + 3) // 2
     out = torch.empty((raw.shape[0], width), dtype=torch.int32, pin_memory=True)
     lens_t = lens_t.pin_memory()
-    _count_batch(len(block_datas), bits, out.nbytes)
+    aux["d2h"] = out.nbytes
+    stream = torch.cuda.current_stream(device)
 
     def launch() -> torch.cuda.Event:
-        with torch.cuda.device(device):
+        with torch.cuda.device(device), torch.cuda.stream(stream):
             rows = step(raw.to(device, non_blocking=True), lens_t.to(device, non_blocking=True))
             out.copy_(rows, non_blocking=True)
             event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(device))
+            event.record(stream)
         return event
 
     return (out, _Launched(_launcher().submit(launch))), aux
@@ -638,7 +717,9 @@ def _dispatch_exact(block_datas, nm, device: torch.device, pad_to, mode: str):
 
 def _batch_ready(handle) -> bool:
     """True when a dispatched batch's work is done and its rows are on
-    the host."""
+    the host (under a mesh, every entry's)."""
+    if isinstance(handle, _Meshed):
+        return all(_batch_ready(h) for h, _aux in handle.parts)
     event = handle[1]
     return event is None or event.query()
 
@@ -721,6 +802,26 @@ def _drain_into(results, per_stream_blocks, item, on_done=None, huff=None):
     _count(**{"tie_reencodes": ties, f"tie_reencodes_bits{bits}": ties})
     if on_done is not None:
         on_done()
+
+
+def _after_all(n: int, fn):
+    """A callable that calls ``fn`` on its ``n``-th call, from whichever
+    thread makes it: the drain-rate hook of a batch whose mesh entries
+    drain separately (a ``fast_huff`` entry's finisher calls it when its
+    blocks exist)."""
+    if n == 1:
+        return fn
+    left = [n]
+    lock = threading.Lock()
+
+    def call() -> None:
+        with lock:
+            left[0] -= 1
+            last = left[0] == 0
+        if last:
+            fn()
+
+    return call
 
 
 def _download(t: torch.Tensor) -> np.ndarray:
@@ -942,6 +1043,10 @@ def _device_driver(q: _BlockQueue, results, errors, device, batch_size, reserve,
     on ``huff`` (``_drain_into``), and a finisher once started is not
     abandoned, as in the reference.
 
+    ``device`` is a torch device or a ``BlockMesh``: a meshed batch is one
+    unit for the claim loop, the rates, the probes and abandonment, and
+    drains entry by entry in mesh order.
+
     The claim loop and its fault handling are those of the JAX
     ``_device_driver``.  ``claim_priority`` orders the buckets and
     ``class_gated`` routes a class to the stealers when its measured
@@ -1002,11 +1107,11 @@ def _device_driver(q: _BlockQueue, results, errors, device, batch_size, reserve,
         return _batch_ready(pending[0][1][1][0])
 
     def drain_oldest() -> None:
-        nm0, item, nbytes, _t0 = pending.popleft()
-        _drain_into(
-            results, q.per_stream_blocks, item,
-            on_done=functools.partial(note_drain, nbytes, nm0[1]), huff=huff,
-        )
+        nm0, (chunk, (handle, aux)), nbytes, _t0 = pending.popleft()
+        items = _per_entry(chunk, handle, (handle, aux))
+        on_done = _after_all(len(items), functools.partial(note_drain, nbytes, nm0[1]))
+        for item in items:  # a mesh's entries in order, each as one batch
+            _drain_into(results, q.per_stream_blocks, item, on_done=on_done, huff=huff)
         with q.cond:  # wake the incremental assembler
             q.cond.notify_all()
 
@@ -1180,14 +1285,18 @@ def encode_streams(
     fast_bwt: bool = True,
     host_assist: bool | None = None,
     device_huffman: bool = False,
+    mesh=None,
 ) -> list:  # list[codec.encoder.EncodedStream]
     """Compress many independent streams through one device queue; the
-    counterpart of the JAX ``encode_streams`` with ``device`` in place of
-    ``mesh``.  Output bytes equal the host encoder's."""
+    counterpart of the JAX ``encode_streams``.  The device steps run on
+    ``device``, or, given a ``mesh`` (``parallel/mesh.py``), on its entries,
+    each on its slice of every batch; ``device`` is then ignored.  Output
+    bytes equal the host encoder's."""
     return encode_streams_feed(
         iter(texts),
         level=level,
         device=device,
+        mesh=mesh,
         batch_size=batch_size,
         device_rle2=device_rle2,
         fast_bwt=fast_bwt,
@@ -1205,6 +1314,7 @@ def encode_streams_feed(
     fast_bwt: bool = True,
     host_assist: bool | None = None,
     device_huffman: bool = False,
+    mesh=None,
 ) -> list:  # list[codec.encoder.EncodedStream]
     """``encode_streams`` over a stream of texts: encoding begins while
     later texts are still being produced."""
@@ -1213,6 +1323,7 @@ def encode_streams_feed(
             text_iter,
             level=level,
             device=device,
+            mesh=mesh,
             batch_size=batch_size,
             device_rle2=device_rle2,
             fast_bwt=fast_bwt,
@@ -1232,23 +1343,25 @@ def encode_streams_iter(
     host_assist: bool | None = None,
     device_huffman: bool = False,
     window_bytes: int = 256 << 20,
+    mesh=None,
 ):
     """Generator yielding each stream's EncodedStream in feed order as
     soon as all its blocks are done, while later texts are still being
     fed (at most ``window_bytes`` of block data in flight).
 
-    ``host_assist`` (default: on when the native runtime is built) runs
-    every CPU core as a work stealer beside the device; off, every block
-    goes through the device.  ``device_huffman`` runs ``mode="fast_huff"``,
-    the Huffman stage on the device too; ``fast_bwt=False`` the exact
-    modes, ``"ranks"``, or ``"rle2"`` with ``device_rle2``
-    (``encode_mode``).  Bytes are the same either way."""
+    ``host_assist`` (default: on when the native runtime is built and no
+    ``mesh`` is given, as in the reference) runs every CPU core as a work
+    stealer beside the device; off, every block goes through the device
+    (or the mesh, which then replaces ``device``).  ``device_huffman`` runs
+    ``mode="fast_huff"``, the Huffman stage on the device too;
+    ``fast_bwt=False`` the exact modes, ``"ranks"``, or ``"rle2"`` with
+    ``device_rle2`` (``encode_mode``).  Bytes are the same either way."""
     mode = encode_mode(fast_bwt, device_rle2, device_huffman)
-    dev = resolve_device(device)
+    dev = mesh if mesh is not None else resolve_device(device)
     if host_assist is None:
         from starch3_tpu_torch.runtime import get_lib
 
-        host_assist = get_lib() is not None
+        host_assist = mesh is None and get_lib() is not None
 
     q = _BlockQueue()
     q.steal_holdback = batch_size
@@ -1354,15 +1467,17 @@ def encode_streams_iter(
             huff[0].shutdown(wait=True)
 
 
-def torch_bz2_compress(data: bytes, config=None, device="cuda") -> bytes:
+def torch_bz2_compress(data: bytes, config=None, device="cuda", mesh=None) -> bytes:
     """bzip2-compatible compression of one stream with the heavy stages
-    on ``device``; the counterpart of ``jax_bz2_compress``."""
+    on ``device``, or on the entries of ``mesh``; the counterpart of
+    ``jax_bz2_compress``."""
     level = config.block_size_100k if config is not None else 9
     batch_size = config.blocks_per_batch if config is not None else 3
     return encode_streams(
         [data],
         level=level,
         device=device,
+        mesh=mesh,
         batch_size=batch_size,
         device_rle2=getattr(config, "device_rle2", False),
         fast_bwt=getattr(config, "fast_bwt", True),
@@ -1377,12 +1492,6 @@ def torch_bz2_compress(data: bytes, config=None, device="cuda") -> bytes:
 # MTF -> BWT batched over every stream's blocks, and the host finishes with
 # the RLE1 inversion and the CRCs.
 # ---------------------------------------------------------------------------
-
-
-def check_mesh(mesh) -> None:
-    """Raise for a device mesh: the port's multi-GPU layer is not ported."""
-    if mesh is not None:
-        raise NotImplementedError("a device mesh (multi-GPU) is not ported yet: ROADMAP A9")
 
 
 def step_decode(syms: torch.Tensor, m: torch.Tensor, alphabet: torch.Tensor, ptr: torch.Tensor, n_max: int):
@@ -1457,11 +1566,12 @@ def read_stream_blocks(stream: bytes):
         blocks.append((crc, ptr, in_use, np.asarray(symbols), n_exp, randomised))
 
 
-def pack_decode_batch(block_metas, n_max: int, pin: bool = False):
+def pack_decode_batch(block_metas, n_max: int, pin: bool = False, b_pad: int | None = None):
     """The step's inputs for ``read_stream_blocks`` blocks: (syms int32[B,
     n_max], m int32[B], alphabet int32[B, 256], ptr int32[B]) on the CPU,
-    pinned with ``pin``."""
-    b = len(block_metas)
+    pinned with ``pin``, padded to ``b_pad`` rows of no symbols (which
+    decode to nothing)."""
+    b = max(len(block_metas), b_pad or 0)
     syms = torch.zeros((b, n_max), dtype=torch.int32, pin_memory=pin)
     ms = torch.zeros(b, dtype=torch.int32, pin_memory=pin)
     alphas = torch.zeros((b, 256), dtype=torch.int32, pin_memory=pin)
@@ -1478,16 +1588,17 @@ def pack_decode_batch(block_metas, n_max: int, pin: bool = False):
 
 def decode_streams(stream_datas: list[bytes], device="cuda", batch_size: int = 8, mesh=None) -> list[bytes]:
     """Decompress many bzip2 streams through one device queue; the
-    counterpart of the JAX ``decode_streams`` with ``device`` beside
-    ``mesh`` (which must be None: ROADMAP A9).
+    counterpart of the JAX ``decode_streams``.  The step runs on
+    ``device``, or, given a ``mesh``, on each entry for its slice of every
+    batch, padded to a multiple of the mesh's size; ``device`` is then
+    ignored.
 
     Every stream's blocks share geometry-bucketed batches of
     ``batch_size``, pipelined two deep: batch k+1 is dispatched before
     batch k is drained.  The bytes equal the host decoder's, and any
     corruption, a CRC mismatch included, is a ``FormatError``.
     ``device_stats`` counts ``decode_batches`` and ``decode_blocks``."""
-    check_mesh(mesh)
-    device = resolve_device(device)
+    device = mesh if mesh is not None else resolve_device(device)
     per_stream = [read_stream_blocks(stream) for stream in stream_datas]
 
     by_bucket: dict[int, list[tuple[int, int]]] = {}
@@ -1523,15 +1634,30 @@ def decode_streams(stream_datas: list[bytes], device="cuda", batch_size: int = 8
     return out
 
 
-def _dispatch_decode_chunk(block_metas, n_max: int, device: torch.device):
-    """Upload and launch one decode batch without waiting for it.  Returns
-    (blocks, n, event): on a CUDA device pinned host tensors that
-    non-blocking copies are filling and the event that marks the end of
-    the batch's work; on the CPU the results and None."""
-    cuda = device.type == "cuda"
-    args = tuple(t.to(device, non_blocking=True) for t in pack_decode_batch(block_metas, n_max, pin=cuda))
-    blocks, n = step_decode(*args, n_max)
+def _dispatch_decode_chunk(block_metas, n_max: int, device):
+    """Upload and launch one decode batch without waiting for it, on
+    ``device`` or, when it is a ``BlockMesh``, split over its entries
+    (``_Meshed`` parts).  Counts one batch in ``device_stats``."""
     _count(decode_batches=1, decode_blocks=len(block_metas))
+    if isinstance(device, BlockMesh):
+        return _dispatch_meshed(
+            device, len(block_metas),
+            lambda rows, dev: _dispatch_decode_one(block_metas[rows], n_max, dev, rows.stop - rows.start),
+        )
+    return _dispatch_decode_one(block_metas, n_max, device)
+
+
+def _dispatch_decode_one(block_metas, n_max: int, device: torch.device, b_pad: int | None = None):
+    """``_dispatch_decode_chunk`` on one device, on its current stream,
+    padded to ``b_pad`` rows.  Returns (blocks, n, event): on a CUDA device
+    pinned host tensors that non-blocking copies are filling and the event
+    that marks the end of the batch's work; on the CPU the results and
+    None."""
+    cuda = device.type == "cuda"
+    args = tuple(
+        t.to(device, non_blocking=True) for t in pack_decode_batch(block_metas, n_max, pin=cuda, b_pad=b_pad)
+    )
+    blocks, n = step_decode(*args, n_max)
     if not cuda:
         return blocks, n, None
     out = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in (blocks, n))
@@ -1543,9 +1669,17 @@ def _dispatch_decode_chunk(block_metas, n_max: int, device: torch.device):
 
 
 def _drain_decode(decoded, per_stream, item) -> None:
-    """Wait for one dispatched decode batch and keep each block's bytes,
-    de-randomising legacy randomised blocks.  A block that did not expand
-    to the host's count is a ``FormatError``."""
+    """Wait for one dispatched decode batch (under a mesh, each entry's
+    part in order) and keep each block's bytes, de-randomising legacy
+    randomised blocks.  A block that did not expand to the host's count is
+    a ``FormatError``."""
+    chunk, handle = item
+    for part in _per_entry(chunk, handle, handle):
+        _drain_decode_one(decoded, per_stream, part)
+
+
+def _drain_decode_one(decoded, per_stream, item) -> None:
+    """``_drain_decode`` of one device's part."""
     chunk, (blocks_t, n_t, event) = item
     if event is not None:
         event.synchronize()

@@ -190,7 +190,9 @@ def test_cli_without_card_exits_nonzero(bed, tmp_path):
 @pytest.mark.parametrize(
     "args,msg",
     [
-        (["--num-hosts=2", "--host-id=0"], b"not yet ported"),
+        # multi-host with neither a coordinator nor a manifest directory:
+        # the reference's own refusal
+        (["--num-hosts=2", "--host-id=0"], b"needs manifest_dir"),
         (["--platform=tpu", "--jax"], b"--platform"),
         (["--chrom=chr1"], b"--chrom requires --decode"),
     ],

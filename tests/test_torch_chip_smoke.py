@@ -52,3 +52,16 @@ def test_mismatch_saves_the_case_and_reruns_both_sides(tmp_path, monkeypatch, tr
     saved = torch.load(tmp_path / "mismatch-mtf_narrow_w16__2__4096_.pt")
     assert torch.equal(saved["seqs"], seqs) and torch.equal(saved["got"], got)
     assert torch.equal(saved["want"], want)
+
+
+@pytest.mark.parametrize("n", [1, 2])
+def test_mesh_launches_expected(n):
+    """Phase 11's launch check: each batch's kernel once per mesh entry, at
+    the width of its class and mode."""
+    stats = {"batches": 7, "batches_bits4": 3, "batches_bits5": 2, "batches_bits6": 1, "batches_bits8": 1}
+    assert chip_smoke.mesh_launches_expected(stats, n, "fast") == (
+        {16: 3 * n, 32: 2 * n, 64: n}, {128: 0, 256: n})
+    assert chip_smoke.mesh_launches_expected(stats, n, "fast_huff") == (
+        {16: 0, 32: 0, 64: 0}, {128: 3 * n, 256: 4 * n})
+    for mode in ("ranks", "rle2"):
+        assert chip_smoke.mesh_launches_expected(stats, n, mode) == ({16: 0, 32: 0, 64: 0}, {128: 0, 256: 7 * n})

@@ -460,3 +460,31 @@ def test_exact_mode_encode_equals_bz2(cuda, device_rle2):
     assert mtf_narrow.launches == narrow
     assert mtf_wide.width_launches[256] - by_width[256] == stats["batches"]
     assert mtf_wide.width_launches[128] == by_width[128]
+
+
+def test_two_entry_mesh_on_one_card_equals_bz2(cuda):
+    """A mesh that names ``cuda:0`` twice (two entries on two streams of
+    one card): a device-only encode with blocks of every class equals
+    libbz2 -9, each batch's MTF kernel launched once per entry, and the
+    streams decode back under the same mesh."""
+    import numpy as np
+
+    from starch3_tpu_torch.parallel.mesh import make_block_mesh
+
+    rng = np.random.default_rng(11)
+    texts = [bytes(rng.integers(0, 16, 12_000, dtype=np.uint8)) for _ in range(4)] + [
+        bytes(rng.integers(0, hi, 7_000, dtype=np.uint8)) for hi in (24, 50, 200)
+    ]
+    mesh = make_block_mesh(devices=["cuda:0", "cuda:0"])
+    assert mesh.size == 2 and mesh.streams[0] != mesh.streams[1]
+    for k in pipeline.device_stats:
+        pipeline.device_stats[k] = 0
+    narrow, by_width = dict(mtf_narrow.width_launches), dict(mtf_wide.width_launches)
+    got = pipeline.encode_streams(texts, mesh=mesh, host_assist=False)
+    assert [g.data for g in got] == [bz2.compress(t, 9) for t in texts]
+    stats = pipeline.device_stats
+    assert stats["blocks"] == len(texts)
+    for width, bits in ((16, 4), (32, 5), (64, 6)):
+        assert mtf_narrow.width_launches[width] - narrow[width] == 2 * stats[f"batches_bits{bits}"]
+    assert mtf_wide.width_launches[256] - by_width[256] == 2 * stats["batches_bits8"]
+    assert pipeline.decode_streams([g.data for g in got], mesh=mesh) == texts

@@ -270,9 +270,19 @@ def test_corrupt_stream_raises_like_jax(rng, corruption):
         jax_pipe.decode_streams([bad])
 
 
-def test_decode_streams_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="A9"):
-        pipeline.decode_streams([], device="cpu", mesh=object())
+def test_decode_streams_refuses_a_mesh(rng):
+    """Under a mesh of 2 ``cpu`` entries the level-9 and level-1 streams
+    decode to their texts, as the JAX package's decode does, and a corrupt
+    stream raises; an empty list decodes to an empty list.  The name dates
+    from when the port refused a mesh."""
+    from starch3_tpu_torch.parallel.mesh import make_block_mesh
+
+    mesh = make_block_mesh(devices=["cpu", "cpu"])
+    texts, streams = _streams(rng)
+    assert pipeline.decode_streams(streams, mesh=mesh) == jax_pipe.decode_streams(streams) == texts
+    assert pipeline.decode_streams([], mesh=mesh) == []
+    with pytest.raises(FormatError):
+        pipeline.decode_streams([_flip(streams[0], 85)], mesh=mesh)
 
 
 # -------------------------------------------------------------- the entry
@@ -289,9 +299,16 @@ def test_archive_device_decode_equals_host_and_jax(path):
 
 
 def test_archive_decode_refuses_a_mesh():
+    """``decompress_starch_bytes(use_jax=True, mesh=...)`` of the golden
+    archive over 3 ``cpu`` entries equals the host decode and the JAX
+    package's device decode.  The name dates from when the port refused
+    a mesh."""
+    from starch3_tpu_torch.parallel.mesh import make_block_mesh
+
     data = (ROOT / "tests" / "golden.starch").read_bytes()
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        api.decompress_starch_bytes(data, use_jax=True, mesh=object(), device="cpu")
+    mesh = make_block_mesh(devices=["cpu"] * 3)
+    got = api.decompress_starch_bytes(data, use_jax=True, mesh=mesh)
+    assert got == api.decompress_starch_bytes(data) == jax_api.decompress_starch_bytes(data, use_jax=True)
 
 
 def test_archive_device_decode_needs_a_card(monkeypatch):

@@ -7,9 +7,11 @@ other on seeded BED of each alphabet tier and on the golden archives,
 with zero tolerance."""
 
 import ast
+import fcntl
 import io
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -31,7 +33,7 @@ COPIED = sorted(
     for d in ("codec", "bed", "format", "transform")
     for p in (JAX_PKG / d).iterdir()
     if p.suffix in (".py", ".md")
-) + ["config.py", "errors.py", "_version.py", "runtime/runtime.cpp"]
+) + ["config.py", "errors.py", "_version.py", "runtime/runtime.cpp", "parallel/assemble.py"]
 
 
 def _is_jax_package(name: str) -> bool:
@@ -138,9 +140,46 @@ def test_golden_archives_decode_alike(path):
         assert api.extract_chromosome(data, chrom) == jax_api.extract_chromosome(data, chrom)
 
 
+def _jax_runtime_lib(deadline_s: float = 60.0):
+    """The JAX package's native library, once it is whole.
+
+    Its loader builds ``_runtime.so`` in place with no lock and caches a
+    failed load for good, so a test worker that loads while another
+    process rebuilds the library gets None (the reference's build race,
+    ROADMAP C).  Here one waiter at a time, under a lock in ``build/``,
+    polls until the stamp is current and the library loads, then asks the
+    loader again; past the deadline the test fails with that message and
+    never compares against None."""
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    end = time.monotonic() + deadline_s
+    with open(_build.BUILD_DIR / "jax-runtime-wait.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+        while jax_runtime._lib is None:
+            if jax_runtime._is_stale() or _loads(jax_runtime._SO):
+                jax_runtime._tried = False  # ask again: it loads the whole file, or builds a stale one
+                if jax_runtime.get_lib() is not None:
+                    break
+            if time.monotonic() > end:
+                pytest.fail(
+                    f"the JAX package's native runtime ({jax_runtime._SO}) did not build and load "
+                    f"within {deadline_s:.0f} s; its loader returned None"
+                )
+            time.sleep(0.2)
+    return jax_runtime._lib
+
+
+def _loads(path: str) -> bool:
+    """True when the library at ``path`` loads (it is whole), tried in a
+    child process: a half-written library can crash the process that maps
+    it rather than raise."""
+    probe = "import ctypes, sys; ctypes.CDLL(sys.argv[1])"
+    return subprocess.run([sys.executable, "-c", probe, path], capture_output=True, timeout=60).returncode == 0
+
+
 def test_native_entry_points_equal_jax_package():
     """The two runtimes from one source: the dense pack of the bits-4 tier
     and the BED transform give equal outputs."""
+    _jax_runtime_lib()
     bed = _beds()["config3"]
     assert runtime.bed_transform_native(bed) == jax_runtime.bed_transform_native(bed)
     text = api._parse_transform(_beds()["config2"])[0].text

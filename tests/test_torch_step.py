@@ -265,8 +265,24 @@ def test_device_encode_blocks_matches_jax(rng):
     assert device_encode_blocks([], device="cpu") == []
 
 
-def test_device_encode_blocks_rejects_a_mesh_and_a_long_block():
-    with pytest.raises(NotImplementedError, match="A9"):
-        device_encode_blocks([b"12"], mesh=object(), device="cpu")
+def test_device_encode_blocks_rejects_a_mesh_and_a_long_block(rng):
+    """Under a mesh of 3 ``cpu`` entries (5 blocks pad to 6 rows) the
+    results equal the one-device run's and the JAX package's; a block past
+    ``n_max`` is refused with a mesh and without one.  The name dates from
+    when the port refused a mesh."""
+    from starch3_tpu_torch.parallel.mesh import make_block_mesh
+
+    datas = _exact_blocks(rng)
+    mesh = make_block_mesh(devices=["cpu"] * 3)
+    got = device_encode_blocks(datas, EXACT_N_MAX, mesh=mesh)
+    want = jax_pipeline.device_encode_blocks(datas, EXACT_N_MAX)
+    one = device_encode_blocks(datas, EXACT_N_MAX, device="cpu")
+    def as_lists(res):
+        return [(used.tolist(), ptr, ranks.tolist()) for used, ptr, ranks in res]
+
+    assert len(got) == len(datas)
+    assert as_lists(got) == as_lists(want) == as_lists(one)
+    with pytest.raises(ValueError, match="exceeds n_max"):
+        device_encode_blocks([bytes(5_000)], 4096, mesh=mesh)
     with pytest.raises(ValueError, match="exceeds n_max"):
         device_encode_blocks([bytes(5_000)], 4096, device="cpu")
