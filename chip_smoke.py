@@ -67,7 +67,8 @@ streams and archives.  It exits 0 only if every phase passes:
      (calibrated with CUDA events), with ``_ABANDON_S`` at 0.5 s.  (a) The
      hybrid abandons the batch and benches the device, and a clean
      encode after the stall puts blocks on the device again; (b) a
-     device-only encode abandons to the driver and ends; (c) with
+     device-only encode abandons to the driver and ends, and no dispatch
+     waits on the stalled stream (the longest stays below 0.5 s); (c) with
      ``STARCH3_TPU_NO_HOST_FALLBACK=1`` a device-only encode waits out a
      1.5 s stall, abandons nothing and takes every block from the device.
      Every stream equals ``bz2.compress(text, 9)``; each case's wall time
@@ -101,7 +102,9 @@ streams and archives.  It exits 0 only if every phase passes:
      ``fast_bwt=False``, with and without ``device_rle2``, and with
      ``device_rle2`` alone (fast mode) equals the host archive on config
      2; (e) a device-only ``ranks`` encode with its first batch stalled
-     abandons, as phase 8 (b) does in fast mode.
+     abandons, as phase 8 (b) does in fast mode, with no dispatch longer
+     than 0.5 s, here and again in a fresh child process (a cold CUDA
+     context and host allocator, killed if it outlives its timeout).
   11. block meshes and two processes on the one card: (a) device-only
      fast-mode encodes of every phase-5 corpus in turns at mesh None, a
      mesh of ``cuda:0`` alone and a mesh that names ``cuda:0`` twice (two
@@ -115,13 +118,26 @@ streams and archives.  It exits 0 only if every phase passes:
      process group (``--coordinator``) and once through a manifest
      directory: host 0's archive equals the host path's and host 1 writes
      nothing; the wall time of both.
+  12. the rest of the JAX package's counterparts: (a) the delta
+     transform's device ops (``ops/transform.py``) on every chromosome of
+     config 2 plus the 400,000-interval chromosome, starts and stops from
+     the port's BED parser as ``int32`` and as ``int64``: the card equals
+     the CPU value for value and dtype for dtype, and ``untransform_core``
+     gives back the starts and stops; CUDA-event ms of each op over the
+     corpus beside the CPU's; (b) ``device_trace`` around a device-only
+     config-2 encode in a ``StageTimer`` stage: the one trace file under
+     ``build/trace-<pid>/`` names the stage and ``mtf16_kernel``, whose
+     launches equal the bits-4 batches; its size and GPU kernel events;
+     (c) the host helpers ``bwt_fast_host``, ``mtf_ranks_narrow_host`` and
+     ``mtf_ranks_wide_host`` on one real block each, card equal to CPU,
+     each helper's kernel launched once.
 
 The port imports nothing of JAX and nothing of the JAX package
 ``starch3_tpu``; the run fails if either is loaded.  The line before the
 card's name is one JSON object describing each kernel of the path (the
 narrow wrapper's two kernels apart, each with the launches it counted);
-the wide kernel's entry counts its launches by width too, phase 10's
-included; the last line
+the wide kernel's entry counts its launches by width too, phases 10 and
+12 included; the last line
 is ``{"ok": true, "device": {...}}``.  Without
 a card, or without the rest of the repository, it fails before printing
 any result.
@@ -135,6 +151,7 @@ import collections
 import concurrent.futures
 import json
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -145,9 +162,12 @@ import torch
 
 from starch3_tpu_torch import api, corpus, runtime
 from starch3_tpu_torch._build import BUILD_DIR, build
+from starch3_tpu_torch.bed.parser import parse_bed
 from starch3_tpu_torch.codec.crc32 import crc32_bytes
 from starch3_tpu_torch.codec.rle1 import rle1_decode
-from starch3_tpu_torch.ops import mtf_narrow, mtf_wide
+from starch3_tpu_torch.observability import StageTimer, device_trace
+from starch3_tpu_torch.ops import mtf_narrow, mtf_wide, transform
+from starch3_tpu_torch.ops.bwt_fast import bwt_fast_host
 from starch3_tpu_torch.parallel import host, pipeline
 from starch3_tpu_torch.profile_kernels import (
     bound_ms,
@@ -322,6 +342,14 @@ def phase_step(device, texts, bits: int, n_max: int):
         f"ptrs {got[:, 0].tolist()}, ties {got[:, tie_col].tolist()}")
 
 
+def zero_counts() -> None:
+    """Set every kernel's launch counts and ``device_stats`` to 0."""
+    mtf_narrow.launches = mtf_wide.launches = 0
+    for counts in (mtf_narrow.width_launches, mtf_wide.width_launches, pipeline.device_stats):
+        for k in counts:
+            counts[k] = 0
+
+
 def counted_encode(device, label: str, texts, want, device_huffman: bool = False, fast_bwt: bool = True,
                    device_rle2: bool = False, mesh=None):
     """One device-only encode of ``texts`` in the mode of the flags (on
@@ -331,10 +359,7 @@ def counted_encode(device, label: str, texts, want, device_huffman: bool = False
     and no batch may have been abandoned or the device benched.  Returns
     the run: seconds, launches (narrow and wide, in all and by width),
     ``device_stats``, blocks."""
-    mtf_narrow.launches = mtf_wide.launches = 0
-    for counts in (mtf_narrow.width_launches, mtf_wide.width_launches, pipeline.device_stats):
-        for k in counts:
-            counts[k] = 0
+    zero_counts()
     sched = dict(host.scheduler_stats)
     t0 = time.perf_counter()
     encs = pipeline.encode_streams(texts, device=device, host_assist=False, device_huffman=device_huffman,
@@ -529,7 +554,10 @@ def fault_case(device, label: str, texts, want, stall_s: float, host_assist: boo
         dt = time.perf_counter() - t0
     finally:
         pipeline._dispatch_chunk = real
-    torch.cuda.synchronize()  # the stall is over
+    # the stall is over once the launcher has enqueued the batches it held
+    # up (in a fresh process each first launch loads its kernel's module,
+    # which waits for the card) and the card has run them
+    pipeline._launcher().submit(torch.cuda.synchronize).result()
     sched = stats_since(host.scheduler_stats, sched)
     dev_stats = stats_since(pipeline.device_stats, dev_stats)
     for i, (e, w) in enumerate(zip(encs, want)):
@@ -547,7 +575,8 @@ def phase_faults(device, texts, smi: str, abandon_s: float = 0.5, stall_s: float
     late on a stalled stream, with ``host._ABANDON_S`` at ``abandon_s``.
     (a) the hybrid abandons and benches the device, and a clean encode
     after the stall puts blocks on the device again; (b) a device-only
-    encode abandons to the driver and ends; (c) with
+    encode abandons to the driver and ends, and no dispatch of it waits
+    on the stream (the longest stays below ``abandon_s``); (c) with
     ``STARCH3_TPU_NO_HOST_FALLBACK=1`` a device-only encode waits out a
     stall longer than ``_ABANDON_S`` and takes every block from the rows.
     The patched names are restored whatever happens."""
@@ -566,8 +595,8 @@ def phase_faults(device, texts, smi: str, abandon_s: float = 0.5, stall_s: float
         expect("(a)", sched["abandoned_batches"] >= 1 and sched["demotions"] >= 1, sched, dev)
         sched, dev, _ = fault_case(device, "(a) clean hybrid after the stall", texts, want, 0, True, smi)
         expect("(a) clean", sched["abandoned_batches"] == 0 and dev["blocks"] >= 1, sched, dev)
-        sched, dev, _ = fault_case(device, "(b) device only", texts, want, stall_s, False, smi)
-        expect("(b)", sched["abandoned_batches"] >= 1, sched, dev)
+        sched, dev, host_s = fault_case(device, "(b) device only", texts, want, stall_s, False, smi)
+        expect(f"(b) longest dispatch {host_s} s", sched["abandoned_batches"] >= 1 and host_s < abandon_s, sched, dev)
         os.environ["STARCH3_TPU_NO_HOST_FALLBACK"] = "1"
         sched, dev, _ = fault_case(device, "(c) device only, no fallback", texts, want, stall_s / 2, False, smi)
         expect("(c)", sched["abandoned_batches"] == 0 and sched["demotions"] == 0
@@ -599,6 +628,29 @@ def phase_exact_fault(device, texts, smi: str, abandon_s: float = 0.5, stall_s: 
             os.environ["STARCH3_TPU_NO_HOST_FALLBACK"] = saved_env
     if not (sched["abandoned_batches"] >= 1 and host_s < abandon_s):
         raise AssertionError(f"faults (e) ranks mode: scheduler {sched}, device {dev}, longest dispatch {host_s} s")
+
+
+def phase_exact_fault_cold(seed: int, timeout_s: float = 300.0) -> None:
+    """Phase 10 (e) again in a fresh child process: a cold CUDA context
+    and a cold caching host allocator, the case that once made an
+    exact-mode dispatch wait out the whole stall (ROADMAP C2).  The child
+    runs ``phase_exact_fault`` on config 2's texts and is killed if it is
+    still running when the phase ends."""
+    code = ("import torch, chip_smoke\n"
+            "from starch3_tpu_torch import corpus\n"
+            f"texts = chip_smoke.texts_of(corpus.config2_bed({seed}))\n"
+            "chip_smoke.phase_exact_fault(torch.device('cuda'), texts, chip_smoke.card_name())\n")
+    proc = subprocess.Popen([sys.executable, "-c", code], cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    try:
+        out, err = proc.communicate(timeout=timeout_s)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode != 0:
+        raise AssertionError(f"faults (e) in a fresh process: exit {proc.returncode}: {err.decode()[-3000:]}")
+    for line in out.decode().splitlines():
+        log(f"fresh process: {line}")
 
 
 DECODE_N_MAX = 901_120
@@ -1046,6 +1098,129 @@ def phase_two_processes(device, bed: bytes, smi: str, timeout_s: float = 300.0) 
                 f"starts included ({len(bed) / dt / 1e6:.3f} MB/s of BED); on {smi}")
 
 
+def host_median_ms(fn, reps: int) -> float:
+    """Median host-clock time of ``fn`` on the CPU, after one warm-up."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def phase_transform_ops(device, bed: bytes, smi: str, reps: int = 10) -> None:
+    """Phase 12 (a): the delta transform's device ops (``ops/transform.py``)
+    on every chromosome of ``bed``, whose starts and stops come from the
+    port's BED parser, as ``int32`` and as ``int64``: each op's result on
+    the card equals its result on the CPU, value for value and dtype for
+    dtype, and ``untransform_core`` of the deltas and differences gives
+    back the starts and stops.  Prints each op's CUDA-event median over the
+    whole corpus beside its CPU time."""
+    chroms = parse_bed(bed)
+    n = sum(c.n_records for c in chroms)
+    for dtype in (torch.int32, torch.int64):
+        cols = [(torch.from_numpy(c.starts).to(dtype), torch.from_numpy(c.stops).to(dtype)) for c in chroms]
+        cores = [transform.transform_core(st, sp) for st, sp in cols]
+        args = {  # op -> its arguments on each chromosome
+            "transform_core": cols,
+            "untransform_core": [(core[2], core[1]) for core in cores],
+            "union_length_device": cols,
+            "dec_len_device": [(core[2],) for core in cores],
+        }
+        times = []
+        for name, cpu_args in args.items():
+            op = getattr(transform, name)
+            dev_args = [tuple(x.to(device) for x in a) for a in cpu_args]
+            for (st, sp), a, a_d in zip(cols, cpu_args, dev_args):
+                got, want = op(*a_d), op(*a)
+                for g, w in zip(got if isinstance(got, tuple) else (got,), want if isinstance(want, tuple) else (want,)):
+                    if g.dtype != w.dtype or g.shape != w.shape or not torch.equal(g.cpu(), w):
+                        raise AssertionError(f"transform {name} {dtype}: card != CPU ({g.dtype}, {w.dtype})")
+                if name == "untransform_core":
+                    if not (torch.equal(got[0].cpu(), st) and torch.equal(got[1].cpu(), sp)):
+                        raise AssertionError(f"transform {dtype}: untransform_core(transform_core) != starts, stops")
+            ms = cuda_median_ms(lambda: [op(*a) for a in dev_args], reps)
+            cpu_ms = host_median_ms(lambda: [op(*a) for a in cpu_args], 3)
+            times.append(f"{name} {ms:.4f} ms (CPU {cpu_ms:.3f} ms)")
+        log(f"transform ops {str(dtype).split('.')[1]}, {len(chroms)} chromosomes, {n} intervals: card == CPU, "
+            f"dtypes equal, round trip exact; CUDA-event median over the corpus: {'; '.join(times)}; on {smi}")
+
+
+def phase_device_trace(device, texts, smi: str) -> int:
+    """Phase 12 (b): ``device_trace`` around one device-only fast-mode
+    encode of ``texts`` in a ``StageTimer`` stage, its trace in
+    ``build/trace-<pid>/``.  The one trace file must name the stage and
+    ``mtf16_kernel``.  Returns the width-16 launches of the encode."""
+    want = [bz2.compress(t, 9) for t in texts]
+    log_dir = os.path.join(BUILD_DIR, f"trace-{os.getpid()}")
+    timer = StageTimer()
+    stage = "encode_streams (device only)"
+    with device_trace(log_dir, device), timer.stage(stage, sum(map(len, texts))):
+        run = counted_encode(device, "config2 traced", texts, want)
+    files = [os.path.join(log_dir, f) for f in os.listdir(log_dir)]
+    if len(files) != 1:
+        raise AssertionError(f"device_trace wrote {len(files)} files in {log_dir}")
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name", "") for e in events}
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    if stage not in names or not any("mtf16_kernel" in e["name"] for e in kernels):
+        raise AssertionError(f"the trace names the stage {stage in names}, mtf16_kernel "
+                             f"{any('mtf16_kernel' in e['name'] for e in kernels)}")
+    if run["narrow_by_width"][16] != run["stats"]["batches_bits4"] or run["narrow_by_width"][16] == 0:
+        raise AssertionError(f"traced encode: width-16 launches {run['narrow_by_width']}, stats {run['stats']}")
+    log(f"device_trace of config 2 device only ({run['seconds']:.3f} s, {run['stats']['batches']} batches): "
+        f"{files[0]} {os.path.getsize(files[0])} bytes, {len(events)} events, {len(kernels)} GPU kernel events, "
+        f"{sum('mtf16_kernel' in e['name'] for e in kernels)} of mtf16_kernel; names the stage; "
+        f"stage report {timer.report()}; on {smi}")
+    return run["narrow_by_width"][16]
+
+
+def phase_host_helpers(device, texts2, texts8, smi: str) -> dict:
+    """Phase 12 (c): the ops' host helpers on one real block each, on the
+    card, equal to the CPU: ``bwt_fast_host`` on a config-2 block and a
+    wide8 block, ``mtf_ranks_narrow_host`` on the config-2 block's BWT
+    (dense symbols below 16), ``mtf_ranks_wide_host`` on the wide8 block's
+    BWT bytes.  Each helper's kernel launches once on the card, counted
+    from 0.  Returns the launches, narrow and wide."""
+    zero_counts()
+    out = {}
+    for label, texts in (("config2", texts2), ("wide8", texts8)):
+        block = np.frombuffer(host._split_classify(texts[0], 9)[0][0].data, dtype=np.uint8)
+        got, want = bwt_fast_host(block, device), bwt_fast_host(block, "cpu")
+        if got[1:] != want[1:] or not np.array_equal(got[0], want[0]):
+            raise AssertionError(f"bwt_fast_host {label}: card != CPU")
+        out[label] = (block, got[0])
+    block2, last2 = out["config2"]
+    seq = (np.cumsum(np.bincount(last2, minlength=256) > 0) - 1)[last2].astype(np.int32)
+    if seq.max() >= 16:
+        raise AssertionError("the config-2 block has more than 16 symbols")
+    _, last8 = out["wide8"]
+    cases = (("mtf_ranks_narrow_host", mtf_narrow.mtf_ranks_narrow_host, seq),
+             ("mtf_ranks_wide_host", mtf_wide.mtf_ranks_wide_host, last8.astype(np.int32)))
+    for name, fn, x in cases:
+        got, want = fn(x, device), fn(x, "cpu")
+        if got.dtype != want.dtype or not np.array_equal(got, want):
+            raise AssertionError(f"{name}: card != CPU")
+    launches = {"narrow": mtf_narrow.width_launches[16], "wide": mtf_wide.width_launches[256]}
+    if launches != {"narrow": 1, "wide": 1} or mtf_narrow.launches != 1 or mtf_wide.launches != 1:
+        raise AssertionError(f"host helpers: launches {launches}, narrow {mtf_narrow.launches}, "
+                             f"wide {mtf_wide.launches}")
+    log(f"host helpers on one real block each (config2 {block2.size} bytes, wide8 {out['wide8'][0].size} "
+        f"bytes): bwt_fast_host, mtf_ranks_narrow_host, mtf_ranks_wide_host card == CPU; launches {launches}; "
+        f"on {smi}")
+    return launches
+
+
+def card_name() -> str:
+    """The card's name and power limit as nvidia-smi prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=5)
@@ -1054,10 +1229,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("torch.cuda.is_available() is false: chip_smoke needs a CUDA card")
     device = torch.device("cuda")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    smi = card_name()
     kind = torch.cuda.get_device_name(0)
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; device {kind}")
 
@@ -1131,6 +1303,7 @@ def main() -> int:
     launches["mtf_wide"] += exact
     phase_exact_archives(device, bed2, smi)
     phase_exact_fault(device, texts_of(bed2), smi)
+    phase_exact_fault_cold(args.seed)
     mesh_run = phase_mesh_encodes(device, runs, smi)
     launches["mtf_narrow"] += mesh_run["narrow"][16]
     launches["mtf_narrow_windowed"] += mesh_run["narrow"][32] + mesh_run["narrow"][64]
@@ -1139,6 +1312,12 @@ def main() -> int:
         launches["mtf_wide"] += n
     phase_mesh_decode(mesh_run["mesh"], by_label, {"config2": bed2, "config3": bed3}, smi)
     phase_two_processes(device, bed2, smi)
+    phase_transform_ops(device, bed2 + corpus.big_chrom_bed(args.seed + 1), smi)
+    launches["mtf_narrow"] += phase_device_trace(device, texts_of(bed2), smi)
+    helpers = phase_host_helpers(device, texts_of(bed2), by_label["wide8"], smi)
+    launches["mtf_narrow"] += helpers["narrow"]
+    launches["mtf_wide"] += helpers["wide"]
+    wide_by_width[256] += helpers["wide"]
 
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")

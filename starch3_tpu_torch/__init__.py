@@ -20,6 +20,9 @@ package:
   - ``ops.mtf_wide``:   wide-alphabet MTF (widths 128/256); a hand-written
                         CUDA kernel (``csrc/mtf_wide.cu``) on a CUDA device
   - ``ops.rle2``:       zero-run coding of MTF ranks, batched, in torch ops
+  - ``ops.transform``:  the delta transform's scan formulation (encode
+                        core, decode prefix sum, decimal lengths, union
+                        length), in torch ops
   - ``ops.irle2``, ``ops.imtf``, ``ops.ibwt``: the decode side's inverse
                         RLE2, MTF and BWT, batched, in torch ops
   - ``parallel.pipeline``: the device steps of the bits 4, 5/6 and 8
@@ -36,11 +39,14 @@ package:
                         copied from the JAX package
   - ``api``, ``cli``:   entry points with an explicit torch ``device``;
                         their host parts are copies of the JAX package's
+  - ``observability``:  ``StageTimer`` (each stage a ``torch.profiler``
+                        range) and ``device_trace``, a ``torch.profiler``
+                        trace of the host and the card
 
 The device is always explicit (``"cuda"`` by default, ``"cpu"`` for the
 plain PyTorch versions); nothing falls back from the card to the CPU.
-``ops/transform_jax.py`` has no counterpart: no production path reaches
-it (the transform is the native ``s3_bed_transform``).
+Every public name of the JAX package has its counterpart here
+(``tests/test_torch_parity.py`` holds the table).
 """
 
 from starch3_tpu_torch._version import __version__

@@ -29,10 +29,14 @@ the JAX output on every row.  ``bwt_sort_fast`` carries the payload
 beside the keys, and the JAX sort there is unstable: on a row with
 ``ties > 0`` the order of tied rotations, so ``last``, may differ;
 ``orig_ptr`` and ``ties`` equal on every row.
+
+``bwt_fast_host`` is the JAX module's host wrapper (numpy in, numpy out)
+over ``bwt_sort_fast``, on an explicit device.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 _BIGU = 0xFFFFFFFF
@@ -217,3 +221,22 @@ def bwt_sort_fast_mid(seqs: torch.Tensor, lens: torch.Tensor, bits: int):
     keys = [rows.key(word(j * spk, spk)) for j in range(n_ctx_keys)]
     keys.append(rows.key((word(n_ctx_keys * spk, spk - 1) << bits) | rows.prev))
     return _sort_rotations(rows, keys, payload_bits=bits)
+
+
+def bwt_fast_host(block_np: np.ndarray, device="cuda"):
+    """Host wrapper over raw bytes, as the JAX package's: dense-remaps
+    the bytes, sorts at bits 4 (at most 16 symbols) or 8 with
+    ``bwt_sort_fast`` on ``device`` (one row padded to a power of two, at
+    least 128), and returns (last bytes uint8[n], orig_ptr, ties)."""
+    n = int(block_np.size)
+    used = np.zeros(256, dtype=bool)
+    used[np.unique(block_np)] = True
+    seq = (np.cumsum(used) - 1)[block_np].astype(np.int32)
+    bits = 4 if int(used.sum()) <= 16 else 8
+    n_max = max(128, 1 << (n - 1).bit_length())
+    padded = np.zeros((1, n_max), dtype=np.int32)
+    padded[0, :n] = seq
+    dev = torch.device(device)
+    last, ptr, ties = bwt_sort_fast(torch.from_numpy(padded).to(dev), torch.tensor([n], device=dev), bits)
+    s2u = np.flatnonzero(used).astype(np.uint8)
+    return s2u[last[0, :n].cpu().numpy()], int(ptr[0]), int(ties[0])

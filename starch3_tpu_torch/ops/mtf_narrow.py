@@ -18,12 +18,15 @@ falls back from one to the other.
 A symbol ``>= width`` (or negative) matches no symbol plane, as in the
 Pallas kernel: its rank is ``width`` and it leaves the recency order
 unchanged.  Ranks past a row's true length are garbage the caller masks.
+``mtf_ranks_narrow_host`` is the JAX module's host wrapper (numpy in,
+numpy out) on an explicit device.
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from starch3_tpu_torch.ops import mtf_wide
@@ -107,6 +110,18 @@ def mtf_ranks_narrow_batch(seqs: torch.Tensor, width: int = 16) -> torch.Tensor:
     global launches
     launches += 1
     return out
+
+
+def mtf_ranks_narrow_host(seq_np: np.ndarray, device="cuda") -> np.ndarray:
+    """Host wrapper, as the JAX package's: one row of symbols below 16,
+    padded to a multiple of ``CHUNK`` (4096, the Pallas kernel's tile
+    too), through ``mtf_ranks_narrow_batch`` at width 16 on ``device``;
+    returns its ``n`` ranks."""
+    n = seq_np.size
+    padded = np.zeros((1, -(-n // CHUNK) * CHUNK), dtype=np.int32)
+    padded[0, :n] = seq_np
+    out = mtf_ranks_narrow_batch(torch.from_numpy(padded).to(device), 16)
+    return out[0, :n].cpu().numpy()
 
 
 _LIB = None

@@ -17,12 +17,16 @@ never falls back from one to the other.
 A symbol ``>= width`` (or negative) matches no symbol, as in the Pallas
 kernel: its rank is ``width`` and it leaves the recency order unchanged.
 Ranks past a row's true length are garbage the caller masks.
+``mtf_ranks_wide_host`` is the host wrapper (numpy in, numpy out) of
+both ``mtf_ranks_pallas_host`` and ``mtf_jax.mtf_ranks_jax``, on an
+explicit device.
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 CHUNK = 1024  # positions per chunk of the kernel; n_max must be a multiple
@@ -128,6 +132,18 @@ def mtf_ranks_wide(seq: torch.Tensor) -> torch.Tensor:
     if seq.dim() != 1:
         raise TypeError(f"expected int32[n_max], got {seq.dtype} {tuple(seq.shape)}")
     return mtf_ranks_wide_batch(seq[None, :], 256)[0]
+
+
+def mtf_ranks_wide_host(seq_np: np.ndarray, device="cuda") -> np.ndarray:
+    """Host wrapper, the counterpart of ``mtf_ranks_pallas_host(seq)``
+    and ``mtf_ranks_jax(seq, n_sym)`` (whose ``n_sym`` is unused): one
+    row of symbols below 256, padded to a multiple of ``CHUNK`` (1024, as
+    the Pallas host wrapper; ``mtf_ranks_jax`` pads to 512), through
+    ``mtf_ranks_wide`` on ``device``; returns its ``n`` ranks."""
+    n = seq_np.size
+    padded = np.zeros(-(-n // CHUNK) * CHUNK, dtype=np.int32)
+    padded[:n] = seq_np
+    return mtf_ranks_wide(torch.from_numpy(padded).to(device))[:n].cpu().numpy()
 
 
 _LIB = None

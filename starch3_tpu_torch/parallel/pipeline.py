@@ -381,12 +381,12 @@ def _unpack_results_rle2(out: np.ndarray, b: int) -> list:
     return res
 
 
-def raw_batch(block_datas, n_max: int, b_pad: int | None = None, pin: bool = False):
+def raw_batch(block_datas, n_max: int, b_pad: int | None = None):
     """The exact modes' upload: raw bytes, uint8[b_pad, n_max], padding
-    rows of length 1 and zero bytes.  ``pin`` pins the tensor.  Returns
+    rows of length 1 and zero bytes, in pageable memory.  Returns
     (tensor, lens int32[b_pad])."""
     b_pad = max(len(block_datas), b_pad or 0)
-    buf = torch.zeros((b_pad, n_max), dtype=torch.uint8, pin_memory=pin)
+    buf = torch.zeros((b_pad, n_max), dtype=torch.uint8)
     rows_np = buf.numpy()
     lens = np.ones(b_pad, dtype=np.int32)
     for i, data in enumerate(block_datas):
@@ -478,29 +478,29 @@ def _dense_remap(arr: np.ndarray, out_row: np.ndarray):
     return int(used.sum()), used
 
 
-def pack_batch(block_datas, n_max: int, bits: int, b_pad: int | None = None, pin: bool = False):
+def pack_batch(block_datas, n_max: int, bits: int, b_pad: int | None = None):
     """Dense-remap and pack blocks into the upload format of the ``bits``
     tier's step, padded to ``b_pad`` rows (length 1, one symbol):
     nibble pairs (uint8[B, n_max // 2]) at bits 4, ``30 // bits`` symbols
     per word (int32[B, ceil(n_max / spw)]) at bits 5/6, one symbol per byte
-    (uint8[B, n_max]) at bits 8.  ``pin`` pins the tensor for a
-    non-blocking upload.  Returns (tensor, lens int32[B], nsyms int32[B],
-    the blocks' ``used`` bool[256] tables)."""
+    (uint8[B, n_max]) at bits 8, in pageable memory.  Returns (tensor,
+    lens int32[B], nsyms int32[B], the blocks' ``used`` bool[256]
+    tables)."""
     if bits not in CLASSES:
         raise ValueError(f"unknown alphabet class bits=={bits}")
     b_pad = max(len(block_datas), b_pad or 0)
     lens = np.ones(b_pad, dtype=np.int32)
     nsyms = np.ones(b_pad, dtype=np.int32)
     if bits == 4:
-        buf = torch.zeros((b_pad, n_max // 2), dtype=torch.uint8, pin_memory=pin)
+        buf = torch.zeros((b_pad, n_max // 2), dtype=torch.uint8)
         rows_np = buf.numpy()
         pack = _dense_pack4
     elif bits in (5, 6):
-        buf = torch.zeros((b_pad, -(-n_max // (30 // bits))), dtype=torch.int32, pin_memory=pin)
+        buf = torch.zeros((b_pad, -(-n_max // (30 // bits))), dtype=torch.int32)
         rows_np = buf.numpy().view(np.uint32)
         pack = functools.partial(_dense_pack_words, bits=bits)
     else:
-        buf = torch.zeros((b_pad, n_max), dtype=torch.uint8, pin_memory=pin)
+        buf = torch.zeros((b_pad, n_max), dtype=torch.uint8)
         rows_np = buf.numpy()
         pack = _dense_remap
     useds = []
@@ -569,8 +569,8 @@ def _dispatch_chunk(block_datas, nm, device, pad_to=None, mode: str = "fast"):
     its ``BlockMesh``.  Returns ``(handle, aux)``; under a mesh the handle
     is ``_Meshed``, whose parts are each entry's ``(handle, aux)``, padded
     together to a multiple of the mesh's size, and aux is None.  The
-    one-device forms are ``_dispatch_one``'s and ``_dispatch_exact``'s.
-    Counts one batch in ``device_stats``."""
+    one-device form is ``_dispatch_one``'s.  Counts one batch in
+    ``device_stats``."""
     if isinstance(device, BlockMesh):
         handle = _dispatch_meshed(
             device, max(len(block_datas), pad_to or 0),
@@ -585,52 +585,68 @@ def _dispatch_chunk(block_datas, nm, device, pad_to=None, mode: str = "fast"):
     return out
 
 
+def _rows_width(mode: str, bits: int, n_max: int) -> int:
+    """The int32 columns of a batch's rows, which its drain reads back:
+    ``step_exact``'s, ``step_exact_rle2``'s, ``step_ranks4``'s,
+    ``step_ranks_mid``'s or ``step_fast``'s (``step_fast2``'s small rows
+    are the finisher's to count)."""
+    if mode == "ranks":
+        return 257 + n_max // 4
+    if mode == "rle2":
+        return 518 + (n_max + 3) // 2
+    if bits == 4:
+        return 2 + n_max // 8
+    if bits in (5, 6):
+        return 2 + -(-n_max // (30 // bits))
+    return 263 + (n_max + 3) // 2
+
+
 def _dispatch_one(block_datas, nm, device: torch.device, pad_to, mode: str):
     """``_dispatch_chunk`` on one device, on its current stream.
 
-    The handle starts ``(rows, event)``: on a CUDA device ``rows`` is a
-    pinned host tensor that a non-blocking copy is filling and ``event``
-    marks the end of the batch's work; on the CPU ``rows`` is ready and
-    ``event`` is None.  In ``fast_huff`` the rows are ``step_fast2``'s
-    small rows and the handle goes on with the device tensors the finisher
-    reads, ``(syms, m, hist)``.  The exact modes go to ``_dispatch_exact``.
-    Each batch gets its own pinned buffer: the drain hands row views to
-    the tail pool or the assembler, which read them later.  ``aux["d2h"]``
-    is the bytes its rows bring back (0 in ``fast_huff``, whose finisher
+    The driver's thread packs the batch in pageable memory.  On the CPU
+    the step runs here and the handle is ``(rows, None)``, the rows ready.
+    On a CUDA device the handle is ``(None, _Launched)``: the launcher
+    thread pins and uploads the batch, enqueues the step and a
+    non-blocking copy of its rows into pinned memory, and records an
+    event; ``_landed`` gives the handle in the CPU's form.  In
+    ``fast_huff`` the rows are ``step_fast2``'s small rows and the handle
+    goes on with the device tensors the finisher reads, ``(syms, m,
+    hist)``.  The exact modes (``ranks``, ``rle2``) upload the raw bytes,
+    whatever the class, to ``step_exact`` or ``step_exact_rle2``.  Each
+    batch gets its own pinned buffer: the drain hands row views to the
+    tail pool or the assembler, which read them later.  ``aux["d2h"]`` is
+    the bytes its rows bring back (0 in ``fast_huff``, whose finisher
     counts its own)."""
-    if mode in ("ranks", "rle2"):
-        return _dispatch_exact(block_datas, nm, device, pad_to, mode)
     n_max, bits = nm
-    # fast_huff packs bits 4 as nibbles and every other class as bytes
-    # (the reference's dispatch: no word pack at bits 5/6 there)
-    step_bits = bits if mode == "fast" else (4 if bits == 4 else 8)
-    cuda = device.type == "cuda"
-    packed, lens, nsyms, useds = pack_batch(block_datas, n_max, step_bits, pad_to, pin=cuda)
+    aux = {"bits": bits, "mode": mode, "n_max": n_max}
+    if mode in ("ranks", "rle2"):
+        raw, lens = raw_batch(block_datas, n_max, pad_to)
+        inputs = (raw, torch.from_numpy(lens))
+        exact = step_exact if mode == "ranks" else step_exact_rle2
 
-    def upload(t: torch.Tensor) -> torch.Tensor:
-        # pinned, so that the copy never waits on a stalled stream
-        if cuda and not t.is_pinned():
-            t = t.pin_memory()
-        return t.to(device, non_blocking=True)
-
-    args = (upload(packed), upload(torch.from_numpy(lens)), upload(torch.from_numpy(nsyms)))
-    if mode == "fast_huff":
-        rows, syms = step_fast2(*args, step_bits)
-        m = rows[:, 1].contiguous()
-        # the histograms launch at once; they stay on the device with syms
-        on_device = (syms, m, group_hist_padded(syms, m, n_max))
+        def step(*args):
+            return exact(*args), ()
     else:
-        rows = step_for_class(*args, bits, n_max)
-        on_device = ()
-    aux = {"useds": useds, "lens": lens, "bits": bits, "mode": mode, "n_max": n_max,
-           "d2h": 0 if mode == "fast_huff" else rows.nbytes}
-    if not cuda:
+        # fast_huff packs bits 4 as nibbles and every other class as bytes
+        # (the reference's dispatch: no word pack at bits 5/6 there)
+        step_bits = bits if mode == "fast" else (4 if bits == 4 else 8)
+        packed, lens, nsyms, aux["useds"] = pack_batch(block_datas, n_max, step_bits, pad_to)
+        inputs = (packed, torch.from_numpy(lens), torch.from_numpy(nsyms))
+
+        def step(*args):
+            if mode != "fast_huff":
+                return step_for_class(*args, bits, n_max), ()
+            rows, syms = step_fast2(*args, step_bits)
+            m = rows[:, 1].contiguous()
+            # the histograms launch at once; they stay on the device with syms
+            return rows, (syms, m, group_hist_padded(syms, m, n_max))
+    aux["lens"] = lens
+    aux["d2h"] = 0 if mode == "fast_huff" else lens.size * _rows_width(mode, bits, n_max) * 4
+    if device.type != "cuda":
+        rows, on_device = step(*inputs)
         return (rows, None) + on_device, aux
-    out = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=True)
-    out.copy_(rows, non_blocking=True)
-    event = torch.cuda.Event()
-    event.record(torch.cuda.current_stream(device))
-    return (out, event) + on_device, aux
+    return (None, _launch(device, inputs, step)), aux
 
 
 def _count_batch(b: int, bits: int, d2h_bytes: int) -> None:
@@ -644,18 +660,25 @@ def _count_batch(b: int, bits: int, d2h_bytes: int) -> None:
 
 
 class _Launched:
-    """The end of an exact-mode batch whose kernels the launcher thread
-    enqueues: ``query`` and ``synchronize`` as the CUDA event's that the
-    launcher records after them.  A launch error raises from both."""
+    """A batch whose work the launcher thread enqueues: ``query`` and
+    ``synchronize`` as the CUDA event's that the launcher records after
+    it; ``future`` gives ``(rows, event, *on_device)``.  A launch error
+    raises from each."""
 
     def __init__(self, future):
         self.future = future
 
     def query(self) -> bool:
-        return self.future.done() and self.future.result().query()
+        return self.future.done() and self.future.result()[1].query()
 
     def synchronize(self) -> None:
-        self.future.result().synchronize()
+        self.future.result()[1].synchronize()
+
+
+def _landed(handle) -> tuple:
+    """A one-device handle as ``(rows, event, *on_device)``, waiting for
+    its launcher when it has one (not for its event)."""
+    return handle[1].future.result() if handle[0] is None else handle
 
 
 _LAUNCHER = None
@@ -663,15 +686,17 @@ _launcher_lock = threading.Lock()
 
 
 def _launcher():
-    """The process's exact-mode launcher: one thread, so batches enqueue in
-    dispatch order.  An exact step enqueues 48 kernels and copies a
-    doubling round and about 1,400 a batch at (3, 901,120) (``chip_smoke.py``
-    phase 10 a and b, NVIDIA H100 80GB HBM3, 700 W), more than a CUDA stream
-    queues ahead of a stalled card: a launch then blocks until the card
-    drains, and a dispatch on the driver's thread waited out a whole 3 s
-    stall (phase 10 e, same card).  Off the driver's thread only the
-    launcher waits, and the driver can abandon the batch, as in fast
-    mode."""
+    """The process's launcher: one thread, so batches enqueue in dispatch
+    order.  The driver's thread makes no CUDA call for a batch, because a
+    CUDA call can wait on a stalled card, and a dispatch that waits hides
+    the stall from the driver, which then cannot abandon the batch.  On
+    an NVIDIA H100 80GB HBM3, 700 W (``chip_smoke.py`` phases 8 b and
+    10 e): an exact step enqueues about 1,400 kernels and copies a batch
+    at (3, 901,120), more than a stream queues ahead of a stalled card, so
+    a launch blocks until the card drains; a page-locked allocation that
+    misses the caching host allocator (``cudaHostAlloc``) then waits as
+    long on any thread; and in a fresh process the first launches of a
+    fast-mode step waited out a whole 3 s stall."""
     global _LAUNCHER
     with _launcher_lock:
         if _LAUNCHER is None:
@@ -681,38 +706,24 @@ def _launcher():
         return _LAUNCHER
 
 
-def _dispatch_exact(block_datas, nm, device: torch.device, pad_to, mode: str):
-    """``_dispatch_one`` of the exact modes: raw bytes, whatever the
-    class, through ``step_exact`` (``ranks``) or ``step_exact_rle2``
-    (``rle2``).  On the CPU the rows are ready; on a CUDA device the handle
-    is ``(rows, _Launched)``: the pinned rows, which the launcher's
-    non-blocking copy fills.  The launcher enqueues on the stream that is
-    current here, the device's or a mesh entry's."""
-    n_max, bits = nm
-    cuda = device.type == "cuda"
-    raw, lens = raw_batch(block_datas, n_max, pad_to, pin=cuda)
-    lens_t = torch.from_numpy(lens)
-    step = step_exact if mode == "ranks" else step_exact_rle2
-    aux = {"lens": lens, "bits": bits, "mode": mode, "n_max": n_max}
-    if not cuda:
-        rows = step(raw, lens_t)
-        aux["d2h"] = rows.nbytes
-        return (rows, None), aux
-    width = 257 + n_max // 4 if mode == "ranks" else 518 + (n_max + 3) // 2
-    out = torch.empty((raw.shape[0], width), dtype=torch.int32, pin_memory=True)
-    lens_t = lens_t.pin_memory()
-    aux["d2h"] = out.nbytes
+def _launch(device: torch.device, inputs, step) -> _Launched:
+    """Submit one batch to the launcher: pin and upload ``inputs``, run
+    ``step(*uploads)`` -> ``(rows, on_device)``, copy the rows into pinned
+    memory and record an event, on the stream that is current here (the
+    device's or a mesh entry's)."""
     stream = torch.cuda.current_stream(device)
 
-    def launch() -> torch.cuda.Event:
+    def launch():
         with torch.cuda.device(device), torch.cuda.stream(stream):
-            rows = step(raw.to(device, non_blocking=True), lens_t.to(device, non_blocking=True))
+            # pinned, so that the uploads never wait on a stalled stream
+            rows, on_device = step(*(t.pin_memory().to(device, non_blocking=True) for t in inputs))
+            out = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=True)
             out.copy_(rows, non_blocking=True)
             event = torch.cuda.Event()
             event.record(stream)
-        return event
+        return (out, event) + on_device
 
-    return (out, _Launched(_launcher().submit(launch))), aux
+    return _Launched(_launcher().submit(launch))
 
 
 def _batch_ready(handle) -> bool:
@@ -765,7 +776,7 @@ def _drain_into(results, per_stream_blocks, item, on_done=None, huff=None):
 
         pool.submit(finish)
         return
-    rows, event = handle
+    rows, event = _landed(handle)
     if event is not None:
         event.synchronize()
     out = rows.numpy()
@@ -850,7 +861,7 @@ def _drain_fast_huff(results, per_stream_blocks, chunk, handle, aux) -> None:
         write_block_header_native,
     )
 
-    small_h, event, syms, m_d, hist = handle
+    small_h, event, syms, m_d, hist = _landed(handle)
     n_max, bits = aux["n_max"], aux["bits"]
     dev = syms.device
     stream = None

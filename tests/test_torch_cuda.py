@@ -256,6 +256,21 @@ def test_exact_mode_abandons_a_stalled_stream(cuda):
     chip_smoke.phase_exact_fault(cuda, texts, torch.cuda.get_device_name(0), stall_s=2.0)
 
 
+@pytest.mark.parametrize("phase", ["phase_faults", "phase_exact_fault"])
+def test_stalled_stream_in_a_fresh_process(cuda, phase):
+    """The two tests above, each in a fresh process: a cold CUDA context
+    and a cold caching host allocator.  There a page-locked allocation or
+    a first launch on the driver's thread waited out the whole stall, so
+    no batch could be abandoned in time (ROADMAP C2); every dispatch must
+    stay below ``_ABANDON_S``."""
+    code = ("import torch, chip_smoke\n"
+            "from starch3_tpu_torch import corpus\n"
+            "texts = chip_smoke.texts_of(corpus.make_bed(corpus.GENOME_CHROMS[:12], 3_000, seed=3))\n"
+            f"chip_smoke.{phase}(torch.device('cuda'), texts, torch.cuda.get_device_name(0), stall_s=2.0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+
+
 def _huff_inputs(n_max: int, seed: int):
     """Symbol streams, counts, tables and selectors of a batch of three,
     one row empty, one full, one part-filled with symbols past 257."""

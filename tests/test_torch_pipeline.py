@@ -286,8 +286,9 @@ def test_torch_bz2_compress(rng):
 
 def test_launched_batch_is_ready_after_its_launcher():
     """An exact-mode batch on a card is ready only once the launcher
-    thread has enqueued it and its event has passed; a launch error
-    raises from ``_batch_ready`` and from the drain's wait."""
+    thread has enqueued it and its event has passed, and its rows are the
+    ones the launcher made; a launch error raises from ``_batch_ready``
+    and from the drain's wait."""
     from concurrent.futures import Future
 
     class Event:
@@ -303,18 +304,32 @@ def test_launched_batch_is_ready_after_its_launcher():
     fut, event = Future(), Event()
     handle = (None, pipeline._Launched(fut))
     assert not pipeline._batch_ready(handle)
-    fut.set_result(event)
+    rows = torch.zeros((2, 3), dtype=torch.int32)
+    fut.set_result((rows, event))
     assert not pipeline._batch_ready(handle)
     event.done = True
     assert pipeline._batch_ready(handle)
     handle[1].synchronize()
     assert event.waited
+    assert pipeline._landed(handle)[0] is rows
     failed = Future()
     failed.set_exception(RuntimeError("launch failed"))
     with pytest.raises(RuntimeError, match="launch failed"):
         pipeline._batch_ready((None, pipeline._Launched(failed)))
     with pytest.raises(RuntimeError, match="launch failed"):
         pipeline._Launched(failed).synchronize()
+
+
+@pytest.mark.parametrize("mode,bits", [("fast", 4), ("fast", 5), ("fast", 6), ("fast", 8), ("ranks", 4),
+                                       ("rle2", 8)])
+def test_counted_bytes_are_the_rows_the_drain_reads(rng, mode, bits):
+    """``aux["d2h"]``, which the driver counts before the launcher has
+    made the rows on a card, is the size of the rows the step returns."""
+    alphabet = {4: 12, 5: 24, 6: 50, 8: 200}[bits]
+    datas = [bytes(rng.integers(0, alphabet, n, dtype=np.uint8)) for n in (3_000, 4_096, 700)]
+    (rows, event), aux = pipeline._dispatch_one(datas, (4_096, bits), torch.device("cpu"), 4, mode)
+    assert event is None and rows.shape[0] == 4
+    assert aux["d2h"] == rows.nbytes
 
 
 def test_torch_bz2_compress_exact_mode(rng, monkeypatch):
