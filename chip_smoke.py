@@ -131,6 +131,31 @@ streams and archives.  It exits 0 only if every phase passes:
      (c) the host helpers ``bwt_fast_host``, ``mtf_ranks_narrow_host`` and
      ``mtf_ranks_wide_host`` on one real block each, card equal to CPU,
      each helper's kernel launched once.
+  13. the main path at the scale its users run, each leg a child process
+     of ``python -m starch3_tpu_torch.scale_run`` (killed with what it
+     started when it fails or outlives its timeout), on the scale corpus
+     ``corpus.gigabyte_bed`` at 1.1e9 bytes of BED (``TestGigabyteScale``'s
+     bytes, about 44M intervals in 22 chromosomes) and its quarter at
+     2.75e8 bytes, a prefix, both in a temporary directory (the phase
+     fails when the disk lacks room): (a) the host path,
+     ``compress_bed_file(EncodeConfig())``, gives the reference archive;
+     (b) ``compress_bed_file(EncodeConfig(use_jax=True))`` on the quarter
+     corpus and on the whole one: the whole archive equals (a)'s, the
+     quarter's streams are (a)'s first streams, no batch abandoned;
+     (c) ``cat corpus | python -m starch3_tpu_torch.cli --jax`` writes
+     (a)'s bytes; (d) device only under ``STARCH3_TPU_NO_HOST_FALLBACK=1``,
+     each chromosome transformed whole and fed in order to
+     ``encode_streams_iter(host_assist=False)``: every stream equals
+     (a)'s, every block on the device, nothing abandoned or benched, the
+     width-16 launches equal the bits-4 batches, and the card's busy
+     share over a traced window of at least 50 batches
+     (``device_trace``); a differing stream's text and first differing
+     block go to ``build/``; (e) ``decompress_starch_file`` of (b)'s
+     archive gives back the corpus; (f) from the quarter run to the
+     whole one, peak RSS (sampled every 20 ms: a child keeps
+     ``ru_maxrss`` from this process) grows by at most 15% and
+     ``max_memory_reserved`` by at most 10%.  Each leg prints its times,
+     digests, memory peaks and counters.
 
 The port imports nothing of JAX and nothing of the JAX package
 ``starch3_tpu``; the run fails if either is loaded.  The line before the
@@ -149,6 +174,7 @@ import argparse
 import bz2
 import collections
 import concurrent.futures
+import hashlib
 import json
 import os
 import statistics
@@ -1213,6 +1239,124 @@ def phase_host_helpers(device, texts2, texts8, smi: str) -> dict:
     return launches
 
 
+SCALE_TARGET = 1_100_000_000  # BED bytes of the scale corpus (TestGigabyteScale's)
+SCALE_QUARTER = 275_000_000  # the quarter corpus, a prefix of it
+SCALE_FREE_BYTES = 3_000_000_000  # both corpora and four archives, with room to spare
+
+
+def scale_child(label: str, args, deadline: float, limit_s: float, env=None) -> dict:
+    """One leg of ``starch3_tpu_torch.scale_run`` in a child process of its
+    own session, killed with everything it started when it fails or is
+    still running after ``limit_s`` seconds or at ``deadline``.  Returns
+    its JSON line; a non-zero exit fails the phase."""
+    timeout_s = min(limit_s, deadline - time.monotonic())
+    if timeout_s <= 0:
+        raise AssertionError(f"scale {label}: no time left in the phase")
+    proc = subprocess.Popen([sys.executable, "-m", "starch3_tpu_torch.scale_run", *map(str, args)], cwd=ROOT,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, start_new_session=True,
+                            env=dict(os.environ, **(env or {})))
+    try:
+        out, err = proc.communicate(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"scale {label}: still running after {timeout_s:.0f} s") from None
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, 9)
+            proc.wait()
+    lines = out.decode().splitlines()
+    if proc.returncode != 0:
+        raise AssertionError(f"scale {label}: exit {proc.returncode}: {lines[-1:]} {err.decode()[-3000:]}")
+    res = json.loads(lines[-1])
+    log(f"scale {label}: {json.dumps(res)}")
+    return res
+
+
+def archive_streams_end(path: str) -> int:
+    """The archive's metadata offset: its streams are the bytes before it."""
+    with open(path, "rb") as f:
+        f.seek(-128, os.SEEK_END)
+        return int(f.read(20))
+
+
+def phase_scale(smi: str, deadline: float) -> int:
+    """Phase 13: the main path at the scale its users run, each leg in a
+    child process (``scale_child``).  Returns the width-16 launches of
+    (b) and (d)."""
+    import shutil
+
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="s3t-scale-") as d:
+        free = shutil.disk_usage(d).free
+        if free < SCALE_FREE_BYTES:
+            raise AssertionError(f"scale: {free} bytes free in {d}, the phase needs {SCALE_FREE_BYTES}")
+        bed, quarter = os.path.join(d, "full.bed"), os.path.join(d, "quarter.bed")
+        arc = {k: os.path.join(d, f"{k}.starch") for k in ("a", "b_quarter", "b", "c")}
+        with concurrent.futures.ThreadPoolExecutor(2) as ex:
+            gens = [ex.submit(scale_child, f"corpus {t:.3g}", ["gen", path, t], deadline, 240)
+                    for path, t in ((bed, SCALE_TARGET), (quarter, SCALE_QUARTER))]
+            full, part = (g.result() for g in gens)
+        if full["bytes"] < 1_000_000_000:
+            raise AssertionError(f"scale: the corpus has {full['bytes']} bytes")
+        with open(bed, "rb") as f:
+            if hashlib.sha256(f.read(part["bytes"])).hexdigest() != part["digest"]:
+                raise AssertionError("scale: the quarter corpus is not a prefix of the corpus")
+        # (a) the reference bytes: the host path
+        a = scale_child("(a) host path", ["encode", bed, arc["a"]], deadline, 300)
+        # (b) the hybrid through the file entry, quarter then whole; (e) decode
+        bq = scale_child("(b) hybrid, quarter corpus", ["encode", quarter, arc["b_quarter"], "--jax"], deadline, 200)
+        b = scale_child("(b) hybrid + (e) decode", ["encode", bed, arc["b"], "--jax", "--decode"], deadline, 300)
+        # (c) the CLI through a real pipe
+        c = scale_child("(c) cat | cli --jax", ["pipe", bed, arc["c"]], deadline, 300)
+        # (d) device only, every stream against (a)'s
+        dv = scale_child("(d) device only", ["device", bed, arc["a"], "--trace-dir", os.path.join(d, "trace"),
+                                             "--mismatch-dir", BUILD_DIR],
+                         deadline, 300, env={"STARCH3_TPU_NO_HOST_FALLBACK": "1"})
+        with open(arc["a"], "rb") as fa, open(arc["b_quarter"], "rb") as fq:
+            end = archive_streams_end(arc["b_quarter"])
+            quarter_streams_ok = fq.read(end) == fa.read(end)
+    faults = []
+    for label, r in (("(b) hybrid", b), ("(c) pipe", c)):
+        if r["archive_digest"] != a["archive_digest"]:
+            faults.append(f"{label} archive {r['archive_digest']} != host path's {a['archive_digest']}")
+    if not quarter_streams_ok:
+        faults.append("(b) the quarter archive's streams are not the host archive's first streams")
+    for label, r in (("(b) quarter", bq), ("(b) hybrid", b)):
+        if r["scheduler_stats"]["abandoned_batches"]:
+            faults.append(f"{label} abandoned batches: {r['scheduler_stats']}")
+    if b["decode"]["digest"] != full["digest"] or b["decode"]["bytes"] != full["bytes"]:
+        faults.append(f"(e) decode {b['decode']} != the corpus {full['digest']} {full['bytes']}")
+    trace = dv["traced"]["trace"]
+    if (trace.get("batches") or 0) < 50:
+        faults.append(f"(d) the traced window holds {trace.get('batches')} batches, fewer than 50")
+    rss, reserved = b["peak_rss_mb"] / bq["peak_rss_mb"], b["max_memory_reserved"] / bq["max_memory_reserved"]
+    if rss > 1.15 or reserved > 1.10:
+        faults.append(f"(f) memory grew with the corpus: peak RSS x{rss:.4f} (bound 1.15), "
+                      f"max_memory_reserved x{reserved:.4f} (bound 1.10)")
+    st = b["device_stats"]
+    n = full["bytes"]
+    launches = sum(r["width_launches"]["16"] for r in (bq, b, dv, dv["traced"]))
+    log(f"scale summary, {n} bytes of BED ({full['seconds']:.3f} s to generate): "
+        f"(a) host {a['mb_per_s_bed']:.3f} MB/s of BED ({dv['text_bytes'] / a['seconds'] / 1e6:.3f} of text); "
+        f"(b) hybrid {b['mb_per_s_bed']:.3f} MB/s of BED, blocks on the device {st.get('blocks', 0)} "
+        f"({st.get('batches', 0)} batches) and on the stealers {dv['blocks'] - st.get('blocks', 0)}, tie re-encodes {st.get('tie_reencodes', 0)}, "
+        f"scheduler {b['scheduler_stats']}; "
+        f"(c) cat | cli --jax {c['mb_per_s_bed']:.3f} MB/s of BED; "
+        f"(d) device only {dv['mb_per_s_text']:.3f} MB/s of text ({dv['text_bytes']} bytes, "
+        f"{dv['blocks']} blocks, {dv['device_stats'].get('batches', 0)} batches; traced run "
+        f"{dv['traced']['mb_per_s_text']:.3f} MB/s), busy share {trace.get('busy_share')} over "
+        f"{trace.get('batches')} batches of the traced run; "
+        f"(e) decode {b['decode']['mb_per_s_bed']:.3f} MB/s of BED; "
+        f"(f) peak RSS (sampled) {bq['peak_rss_mb']:.1f} -> {b['peak_rss_mb']:.1f} MB (x{rss:.4f}; "
+        f"{b['rss_start_mb']:.1f} MB at the start; ru_maxrss, which a child keeps from this process, "
+        f"{bq['ru_maxrss_mb']:.1f} -> {b['ru_maxrss_mb']:.1f}), "
+        f"max_memory_reserved {bq['max_memory_reserved']} -> {b['max_memory_reserved']} (x{reserved:.4f}), "
+        f"page-locked bytes held {bq.get('pinned_bytes')} -> {b.get('pinned_bytes')} "
+        f"(device only {dv.get('pinned_bytes')}); width-16 launches {launches}; on {smi}")
+    if faults:
+        raise AssertionError("scale: " + "; ".join(faults))
+    return launches
+
+
 def card_name() -> str:
     """The card's name and power limit as nvidia-smi prints them."""
     return subprocess.run(
@@ -1229,6 +1373,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("torch.cuda.is_available() is false: chip_smoke needs a CUDA card")
     device = torch.device("cuda")
+    t_start = time.monotonic()
     smi = card_name()
     kind = torch.cuda.get_device_name(0)
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; device {kind}")
@@ -1318,6 +1463,7 @@ def main() -> int:
     launches["mtf_narrow"] += helpers["narrow"]
     launches["mtf_wide"] += helpers["wide"]
     wide_by_width[256] += helpers["wide"]
+    launches["mtf_narrow"] += phase_scale(smi, t_start + 1140)
 
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")

@@ -133,3 +133,66 @@ def wide8_bed(seed: int = 17, chroms=("chr1", "chr2", "chr3"), n_per: int = 40_0
         blocks, classes = _split_classify(tf.text, 9)
         assert set(classes) == {8}, (tf.chrom, classes)
     return bed
+
+
+
+# the five ASCII digits of every number below 100,000, zero-padded
+_DIGITS5 = ((np.arange(100_000)[:, None] // 10 ** np.arange(4, -1, -1)) % 10 + 48).astype(np.uint8)
+_POW10 = 10 ** np.arange(1, 10, dtype=np.int64)
+
+
+def _decimal_columns(values: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Each ``values[i]`` (non-negative, below 10**10) as a row of ASCII
+    digits, zero-padded on the left to the widest, and the mask of the
+    digits that print."""
+    if values.size and int(values.max()) >= 10**10:
+        raise ValueError("a value of 10**10 or more")
+    hi, lo = np.divmod(values, 100_000)
+    ndig = 1 + np.searchsorted(_POW10, values, side="right")
+    width = int(ndig.max())
+    digits = np.concatenate([_DIGITS5[hi], _DIGITS5[lo]], axis=1)[:, 10 - width :]
+    return digits, np.arange(width)[None, :] >= (width - ndig)[:, None]
+
+
+def gigabyte_bed(path, target: int, seed: int = 11, n_per: int = 2_000_000) -> tuple[str, int]:
+    """Write the scale corpus to ``path`` in chunks and return its SHA-256
+    hex digest and byte count.
+
+    Sorted 3-column BED: ``chr1``, ``chr2``, ... of ``n_per`` intervals
+    each, start gaps 1..1499 after 10,000 and lengths 20..399 from
+    ``np.random.default_rng(seed)``, whole chromosomes appended until at
+    least ``target`` bytes are written.  At the default ``n_per`` these are
+    the bytes of ``TestGigabyteScale.GEN`` in ``tests/test_archive.py``
+    (the same draws, formatted here with NumPy instead of a line loop);
+    at ``target = 1.1e9`` about 44M intervals in 20 chromosomes, the
+    shape of BASELINE config 4 (a WGS BED of many blocks per
+    chromosome).  A smaller ``target`` gives a prefix of a larger one."""
+    import hashlib
+
+    gen = np.random.default_rng(seed)
+    digest = hashlib.sha256()
+    written = 0
+    c = 0
+    with open(path, "wb") as f:
+        while written < target:
+            c += 1
+            name = np.frombuffer(f"chr{c}".encode(), dtype=np.uint8)
+            starts = 10_000 + np.cumsum(gen.integers(1, 1500, n_per))
+            stops = starts + gen.integers(20, 400, n_per)
+            for lo in range(0, n_per, 250_000):  # GEN's chunks, a bounded buffer
+                s, e = starts[lo : lo + 250_000], stops[lo : lo + 250_000]
+                # the lines as rows of "name \t start \t stop \n", each
+                # number padded on the left; the mask drops the padding
+                cols, keep = [np.broadcast_to(name, (s.size, name.size))], [np.ones((s.size, name.size), bool)]
+                for v in (s, e):
+                    d, k = _decimal_columns(v)
+                    cols += [np.full((s.size, 1), 9, np.uint8), d]
+                    keep += [np.ones((s.size, 1), bool), k]
+                cols.append(np.full((s.size, 1), 10, np.uint8))
+                keep.append(np.ones((s.size, 1), bool))
+                out = np.concatenate(cols, axis=1)[np.concatenate(keep, axis=1)]
+                chunk = out.tobytes()
+                f.write(chunk)
+                digest.update(chunk)
+                written += len(chunk)
+    return digest.hexdigest(), written

@@ -1061,8 +1061,9 @@ def _device_driver(q: _BlockQueue, results, errors, device, batch_size, reserve,
     The claim loop and its fault handling are those of the JAX
     ``_device_driver``.  ``claim_priority`` orders the buckets and
     ``class_gated`` routes a class to the stealers when its measured
-    device rate loses to theirs.  The drain-to-drain rate benches
-    ("demotes") the whole device when it falls below ``_DEMOTE_FRACTION``
+    device rate loses to theirs.  The drain-to-drain rate (from the
+    batch's dispatch when the pipeline had run dry) benches ("demotes")
+    the whole device when it falls below ``_DEMOTE_FRACTION``
     of the stealers' aggregate; a benched device is probed with one batch
     every ``_DEMOTE_PROBE_S`` and resumes when the probe runs fast enough.
     A batch not ready ``_ABANDON_S`` after its dispatch is abandoned
@@ -1082,16 +1083,20 @@ def _device_driver(q: _BlockQueue, results, errors, device, batch_size, reserve,
     drain_clock = [None]
     fallback_ok = not host._no_host_fallback()
 
-    def note_drain(nbytes: int, bits: int) -> None:
+    def note_drain(nbytes: int, bits: int, t_dispatch: float) -> None:
         # drain-to-drain rate, in all and per alphabet class (read by
-        # class_gated, kept for the next encode in _class_rate_cache)
+        # class_gated, kept for the next encode in _class_rate_cache).  A
+        # batch dispatched after the last drain found the pipeline empty:
+        # the time before its dispatch went waiting for blocks, not on the
+        # device, so its interval starts at the dispatch (the reference
+        # counts that wait, and benches a starved device at scale)
         now = time.monotonic()
         with q.cond:
             prev = drain_clock[0]
             drain_clock[0] = now
             if prev is None or now <= prev:
                 return
-            r = nbytes / (now - prev)
+            r = nbytes / (now - max(prev, t_dispatch))
             q.device_rate = r if q.device_rate is None else 0.6 * q.device_rate + 0.4 * r
             q.device_rate_samples += 1
             cr = q.class_rate.get(bits)
@@ -1118,9 +1123,9 @@ def _device_driver(q: _BlockQueue, results, errors, device, batch_size, reserve,
         return _batch_ready(pending[0][1][1][0])
 
     def drain_oldest() -> None:
-        nm0, (chunk, (handle, aux)), nbytes, _t0 = pending.popleft()
+        nm0, (chunk, (handle, aux)), nbytes, t0 = pending.popleft()
         items = _per_entry(chunk, handle, (handle, aux))
-        on_done = _after_all(len(items), functools.partial(note_drain, nbytes, nm0[1]))
+        on_done = _after_all(len(items), functools.partial(note_drain, nbytes, nm0[1], t0))
         for item in items:  # a mesh's entries in order, each as one batch
             _drain_into(results, q.per_stream_blocks, item, on_done=on_done, huff=huff)
         with q.cond:  # wake the incremental assembler
@@ -1398,7 +1403,11 @@ def encode_streams_iter(
     def run_feed():
         """Feeder: the caller's iterator runs here; segmentation and
         classing run in order on a small prefetch pool (the natives
-        release the GIL)."""
+        release the GIL).  What is split is fed before the next text is
+        asked for: a slow source (the streaming parser of
+        ``api.compress_bed_stream``) would otherwise hold back every
+        block until the prefetch is full, ``width + 2`` texts (the
+        reference's feeder waits so)."""
         import os
         from concurrent.futures import ThreadPoolExecutor
 
@@ -1409,18 +1418,18 @@ def encode_streams_iter(
                 it = iter(text_iter)
                 exhausted = False
                 while True:
-                    while not exhausted and len(futs) < width + 2:
+                    while not exhausted and len(futs) < width + 2 and not (errors or q.cancelled):
+                        while futs and futs[0].done():
+                            q.feed_blocks(*futs.popleft().result())
                         try:
                             text = next(it)
                         except StopIteration:
                             exhausted = True
                             break
                         futs.append(ex.submit(_split_classify, text, level))
-                    if not futs:
+                    if not futs or errors or q.cancelled:
                         break
                     q.feed_blocks(*futs.popleft().result())
-                    if errors or q.cancelled:
-                        break
         except BaseException as e:  # surfaced by the generator below
             errors.append(e)
         finally:

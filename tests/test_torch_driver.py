@@ -190,6 +190,58 @@ def test_slow_device_is_benched(rng, monkeypatch, fake, encode_threads):
     assert fake.drained >= 2
 
 
+def test_starved_device_is_not_benched(rng, monkeypatch, fake, encode_threads):
+    """The drain rate counts the device's own time, not the wait for
+    blocks: a device with no delay, fed a text of four level-1 blocks
+    after each 0.8 s pause, takes a batch of three, and the one stealer
+    (0.05 s a block here, about 1.6 MB/s) the rest.  Counting the pause
+    (about 0.4 MB/s for the device) would bench it at the second drain,
+    as the reference does on a 1.1 GB hybrid encode."""
+    _, hooks = encode_threads
+    monkeypatch.setattr(os, "cpu_count", lambda: 1)
+    monkeypatch.setattr(host, "_DEMOTE_MIN_SAMPLES", 1)
+    hooks["before"] = lambda: time.sleep(0.05)
+    texts = [ALPHABET[rng.integers(0, ALPHABET.size, 4 * 99_000)].tobytes() for _ in range(5)]
+
+    def feed():
+        for t in texts:
+            time.sleep(0.8)
+            yield t
+
+    before = dict(host.scheduler_stats)
+    streams = _encode(feed(), host_assist=True, level=1)
+    assert [s.data for s in streams] == [bz2.compress(t, 1) for t in texts]
+    delta = _stats_since(before)
+    assert delta["demotions"] == 0 and delta["abandoned_batches"] == 0
+    assert fake.drained >= 2
+
+
+def test_slow_source_is_fed_as_it_arrives(rng, monkeypatch, fake):
+    """A source that takes 0.2 s a text: its first blocks reach the queue
+    by the time the second text is in, not once the feeder's prefetch
+    holds ``width + 2`` texts (4 on two cores)."""
+    monkeypatch.setattr(os, "cpu_count", lambda: 2)
+    asked, first_feed = [], []
+
+    class Queue(host._BlockQueue):
+        def feed_blocks(self, blocks, classes):
+            if not first_feed:
+                first_feed.append(len(asked))
+            super().feed_blocks(blocks, classes)
+
+    monkeypatch.setattr(pipeline, "_BlockQueue", Queue)
+    texts = _texts(rng, 6)
+
+    def feed():
+        for t in texts:
+            asked.append(t)
+            time.sleep(0.2)
+            yield t
+
+    _assert_exact(texts, _encode(feed(), host_assist=False))
+    assert first_feed and first_feed[0] <= 2
+
+
 def test_dead_device_batches_are_abandoned(rng, monkeypatch, fake, encode_threads):
     """A device that never delivers: its stuck batches go back to the
     queue front after ``_ABANDON_S`` and the stealers encode them.  The

@@ -74,6 +74,7 @@ PORT_ONLY_MODULES = {
     "kernel_check.py": "first launches of the CUDA kernels on a sentinel-filled output",
     "profile_kernels.py": "device times of the CUDA kernels",
     "profile_step.py": "a tier's time breakdown on the card",
+    "scale_run.py": "the legs of chip_smoke.py phase 13, the main path at 1.1 GB, one per process",
     "stall_probe.py": "which host calls wait on a stalled CUDA stream",
     "parallel/host.py": "the host scheduler and tail, copied out of the JAX package's parallel/pipeline.py",
 }
