@@ -1088,8 +1088,10 @@ def _device_driver(q: _BlockQueue, results, errors, device, batch_size, reserve,
         # class_gated, kept for the next encode in _class_rate_cache).  A
         # batch dispatched after the last drain found the pipeline empty:
         # the time before its dispatch went waiting for blocks, not on the
-        # device, so its interval starts at the dispatch (the reference
-        # counts that wait, and benches a starved device at scale)
+        # device, so its interval starts at the dispatch.  This is the one
+        # guard against feed starvation: the reference resets the clock
+        # when its claim finds nothing, which its claim loop never lets
+        # happen, so it counts that wait and benches a starved device
         now = time.monotonic()
         with q.cond:
             prev = drain_clock[0]
@@ -1239,18 +1241,17 @@ def _device_driver(q: _BlockQueue, results, errors, device, batch_size, reserve,
             if inline_claim is not None:
                 _host_encode(q, results, inline_claim)
                 continue
-            if chunk is None and not pending:
-                drain_clock[0] = None  # feed-starved: the idle gap is no device time
             if probing:
                 probe(chunk, this_nm)
                 continue
             if chunk is not None:
                 datas = [q.per_stream_blocks[si][bi].data for si, bi in chunk]
+                t_dispatch = time.monotonic()  # the pack and dispatch are the device lane's time
                 pending.append((
                     this_nm,
                     (chunk, _dispatch_chunk(datas, this_nm, device, pad_to=pad, mode=mode)),
                     sum(map(len, datas)),
-                    time.monotonic(),
+                    t_dispatch,
                 ))
                 if len(pending) < _PIPELINE_DEPTH:
                     continue

@@ -5,7 +5,7 @@ process, for ``chip_smoke.py`` phase 13 and ``tests/test_torch_scale.py``.
     python -m starch3_tpu_torch.scale_run gen OUT TARGET [--n-per N]
     python -m starch3_tpu_torch.scale_run encode IN OUT [--jax] [--decode]
     python -m starch3_tpu_torch.scale_run pipe IN OUT
-    python -m starch3_tpu_torch.scale_run device IN REF [--trace-dir DIR]
+    python -m starch3_tpu_torch.scale_run device IN REF TRACE_DIR MISMATCH_DIR
 
 ``gen`` writes the corpus.  ``encode`` is ``api.compress_bed_file`` with
 ``EncodeConfig()`` (the host path) or, with ``--jax``, the device path
@@ -15,15 +15,16 @@ archive with ``api.decompress_starch_file`` and hashes what comes out.
 real pipe into the CLI's stdin.  ``device`` transforms each chromosome of
 IN whole with the native transform, feeds the texts in order to
 ``pipeline.encode_streams_iter(host_assist=False)`` and holds every
-stream to the stream of the same chromosome in the archive REF; with
-``--trace-dir`` it first runs the encode once under
-``observability.device_trace`` and reads the card's busy share there.
+stream to the stream of the same chromosome in the archive REF, twice:
+first under ``observability.device_trace`` into TRACE_DIR, where it reads
+the card's busy share, then timed.  A stream that differs leaves its text
+and its first differing block in MISMATCH_DIR.
 
 Each leg prints one JSON line, its last: its seconds, digests, peak RSS
 (sampled: ``PeakRss``; ``ru_maxrss`` beside it) and the resident set
-before the encode, on a card the
-caching allocator's peaks and the page-locked bytes the process holds,
-and the counters it read
+before the encode, a series of the resident set and of the C heap's bytes
+in use and held over the leg, on a card the caching allocator's peaks and
+the page-locked bytes the process holds, and the counters it read
 (``pipeline.device_stats``, ``host.scheduler_stats``, the narrow MTF
 kernel's launches by width), each set to 0 just before the leg.  A leg
 that finds a mismatch exits non-zero.
@@ -33,6 +34,7 @@ from __future__ import annotations
 
 import argparse
 import bisect
+import ctypes
 import hashlib
 import json
 import os
@@ -75,24 +77,57 @@ def rss_mb() -> float:
         return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE") / 2**20
 
 
+class _MallInfo2(ctypes.Structure):
+    _fields_ = [(f, ctypes.c_size_t) for f in (
+        "arena", "ordblks", "smblks", "hblks", "hblkhd", "usmblks", "fsmblks", "uordblks", "fordblks", "keepcost")]
+
+
+def c_heap_mb() -> tuple[float, float] | None:
+    """glibc's heap over all arenas, in MB: the bytes in use (allocated
+    chunks and mmapped blocks) and the bytes held from the system, which
+    also counts freed chunks the allocator keeps.  None without
+    ``mallinfo2`` (glibc before 2.33, or another C library)."""
+    fn = getattr(ctypes.CDLL(None), "mallinfo2", None)
+    if fn is None:
+        return None
+    fn.restype = _MallInfo2
+    m = fn()
+    return (m.uordblks + m.hblkhd) / 2**20, (m.arena + m.hblkhd) / 2**20
+
+
 class PeakRss:
     """The largest resident set of this process seen by a thread of its
     own, every ``every_s`` seconds, from ``start()`` to ``stop()``.  A
     child keeps ``ru_maxrss`` from the parent it was forked from, across
     exec, so a leg started by a large process would read the parent's
     peak there; and ``VmHWM`` is not in ``/proc/self/status`` on every
-    kernel (gVisor's lacks it)."""
+    kernel (gVisor's lacks it).  Every ``series_s`` seconds it also keeps
+    a point ``[seconds, RSS, C heap in use, C heap held, progress()]``
+    (MB; the heap's are None without ``c_heap_mb``): whether a leg's
+    memory levels off or keeps growing, and whether what grows is live
+    data or freed memory the allocator holds."""
 
-    def __init__(self, every_s: float = 0.02):
+    def __init__(self, every_s: float = 0.02, series_s: float = 0.5, progress=lambda: 0):
         import threading
 
-        self.every_s, self.mb = every_s, rss_mb()
+        self.every_s, self.series_s, self.progress = every_s, series_s, progress
+        self.mb, self.series = rss_mb(), []
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._run, name="peak-rss", daemon=True)
 
+    def _point(self, t0: float) -> None:
+        heap = c_heap_mb() or (None, None)
+        self.series.append([round(time.perf_counter() - t0, 3), round(rss_mb(), 1),
+                            *(h if h is None else round(h, 1) for h in heap), self.progress()])
+
     def _run(self) -> None:
+        t0 = next_point = time.perf_counter()
         while not self._stop.wait(self.every_s):
             self.mb = max(self.mb, rss_mb())
+            if time.perf_counter() >= next_point:
+                self._point(t0)
+                next_point += self.series_s
+        self._point(t0)
 
     def start(self) -> "PeakRss":
         self._thread.start()
@@ -129,12 +164,16 @@ def _counters() -> dict:
 
 
 def _memory(device: str, peak: PeakRss) -> dict:
-    """Peak RSS, and on a card the caching allocator's peaks and the
-    page-locked bytes of the caching host allocator, where torch has
-    ``host_memory_stats``."""
+    """Peak RSS and the C heap's peaks, and on a card the caching
+    allocator's peaks and the page-locked bytes of the caching host
+    allocator, where torch has ``host_memory_stats``."""
     import torch
 
     out = {"peak_rss_mb": peak.peak_mb(), "ru_maxrss_mb": ru_maxrss_mb()}
+    heap = [p[2:4] for p in list(peak.series) if p[2] is not None]
+    if heap:  # at the series' points so far
+        out["c_heap_in_use_peak_mb"] = max(h[0] for h in heap)
+        out["c_heap_held_peak_mb"] = max(h[1] for h in heap)
     if device.startswith("cuda"):
         out["max_memory_reserved"] = torch.cuda.max_memory_reserved()
         out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
@@ -293,15 +332,16 @@ def gpu_busy_share(trace_path: str, skip: int = 10) -> dict:
             cur1 = max(cur1, b)
     if cur1 is not None:
         busy += cur1 - cur0
-    return {"batches": len(marks) - 1, "window_ms": (hi - lo) / 1e3, "busy_ms": busy / 1e3,
-            "busy_share": busy / (hi - lo), "gpu_events": len(gpu)}
+    n = len(marks) - 1
+    return {"batches": n, "window_ms": (hi - lo) / 1e3, "busy_ms": busy / 1e3, "busy_share": busy / (hi - lo),
+            "batches_per_s": n / (hi - lo) * 1e6, "device_ms_per_batch": busy / 1e3 / n, "gpu_events": len(gpu)}
 
 
-def _device_run(texts, chroms, want, args, mismatch_dir=None) -> dict:
+def _device_run(texts, chroms, want, args) -> dict:
     """One device-only encode of ``texts``, counters set to 0 just before
     it and read just after, every stream held to ``want``, REF's
     ``(metadata, stream)`` of the same chromosome; a differing stream's
-    text and first differing block go to ``mismatch_dir``."""
+    text and first differing block go to ``args.mismatch_dir``."""
     from starch3_tpu_torch.parallel import pipeline
 
     _zero_counters()
@@ -316,13 +356,12 @@ def _device_run(texts, chroms, want, args, mismatch_dir=None) -> dict:
             continue
         k = first_differing_block(enc.data, enc.block_bit_offsets, stream, meta.block_bit_offsets)
         bad.append({"stream": i, "chrom": chroms[i], "ref_chrom": meta.chromosome, "first_block": k})
-        if mismatch_dir:
-            os.makedirs(mismatch_dir, exist_ok=True)
-            base = os.path.join(mismatch_dir, f"scale-mismatch-{chroms[i]}")
-            with open(base + ".text", "wb") as f:
-                f.write(texts[i])
-            with open(base + ".json", "w") as f:
-                json.dump(bad[-1], f)
+        os.makedirs(args.mismatch_dir, exist_ok=True)
+        base = os.path.join(args.mismatch_dir, f"scale-mismatch-{chroms[i]}")
+        with open(base + ".text", "wb") as f:
+            f.write(texts[i])
+        with open(base + ".json", "w") as f:
+            json.dump(bad[-1], f)
     dt = time.perf_counter() - t0
     run = {"seconds": dt, "mb_per_s_text": sum(map(len, texts)) / dt / 1e6, "streams": n, "blocks": blocks,
            "mismatches": bad}
@@ -344,8 +383,8 @@ def _device_run(texts, chroms, want, args, mismatch_dir=None) -> dict:
 
 
 def leg_device(args, peak: PeakRss) -> dict:
-    """Device only, twice: an encode traced by ``device_trace`` (with
-    ``--trace-dir``), which also warms the process, then the timed one.
+    """Device only, twice: an encode traced by ``device_trace``, which
+    also warms the process, then the timed one.
     In each, every stream equals REF's stream of its chromosome, every
     block ran on the device, nothing was abandoned and the device was
     never benched, and the width-16 kernel launched once per bits-4
@@ -368,18 +407,20 @@ def leg_device(args, peak: PeakRss) -> dict:
             texts.append(groups[0][1])
     res = {"leg": "device", "device": args.device, "streams": len(texts), "ref_streams": len(want),
            "text_bytes": sum(map(len, texts)), "transform_seconds": time.perf_counter() - t0}
-    if args.trace_dir:
-        t0 = time.perf_counter()
-        with device_trace(args.trace_dir, args.device):
-            trace_start_s = time.perf_counter() - t0  # the profiler's own start
-            traced = _device_run(texts, chroms, want, args, args.mismatch_dir)
-        traced["trace_start_seconds"] = trace_start_s
-        files = sorted(os.listdir(args.trace_dir))
-        traced["trace"] = gpu_busy_share(os.path.join(args.trace_dir, files[0]))
-        res["traced"] = traced
-    res.update(_device_run(texts, chroms, want, args, args.mismatch_dir))
+    t0 = time.perf_counter()
+    with device_trace(args.trace_dir, args.device):
+        trace_start_s = time.perf_counter() - t0  # the profiler's own start
+        traced = _device_run(texts, chroms, want, args)
+    traced["trace_start_seconds"] = trace_start_s
+    traced["trace"] = gpu_busy_share(os.path.join(args.trace_dir, sorted(os.listdir(args.trace_dir))[0]))
+    res["traced"] = traced
+    res.update(_device_run(texts, chroms, want, args))
+    # the timed run is not traced (the profiler slows it): its busy share is
+    # the traced device time a batch times its batches, over its seconds
+    ms = traced["trace"].get("device_ms_per_batch")
+    res["busy_share_derived"] = ms and ms * res["device_stats"].get("batches", 0) / (res["seconds"] * 1e3)
     res.update(_memory(args.device, peak))
-    res["faults"] = res["faults"] + [f"traced: {f}" for f in res.get("traced", {}).get("faults", [])]
+    res["faults"] = res["faults"] + [f"traced: {f}" for f in traced["faults"]]
     return res
 
 
@@ -402,14 +443,17 @@ def main(argv=None) -> int:
     enc.add_argument("--jax", action="store_true")
     enc.add_argument("--decode", action="store_true")
     dev = sub.choices["device"]
-    dev.add_argument("--trace-dir")
-    dev.add_argument("--mismatch-dir")
+    dev.add_argument("trace_dir")
+    dev.add_argument("mismatch_dir")
     args = ap.parse_args(argv)
-    peak = PeakRss().start()
+    # progress: the archive's bytes on disk, in the legs that write one
+    out = getattr(args, "out", None)
+    peak = PeakRss(progress=lambda: os.path.getsize(out) if out and os.path.exists(out) else 0).start()
     try:
         res = {"gen": leg_gen, "encode": leg_encode, "pipe": leg_pipe, "device": leg_device}[args.leg](args, peak)
     finally:
         peak.stop()
+    res["memory_series"] = peak.series
     print(json.dumps(res), flush=True)
     return 1 if res.get("faults") else 0
 

@@ -110,8 +110,7 @@ def test_device_leg_matches_every_stream(small):
     host archive's, in the traced run and in the timed one."""
     d, _gen, _ = small
     r = _run(["-m", "starch3_tpu_torch.scale_run", "device", d / "in.bed", d / "host.starch", "--device", "cpu",
-              "--level", 1, "--chunk-bytes", 5000, "--trace-dir", d / "trace",
-              "--mismatch-dir", d / "mismatch"],
+              "--level", 1, "--chunk-bytes", 5000, d / "trace", d / "mismatch"],
              env=dict(os.environ, STARCH3_TPU_NO_HOST_FALLBACK="1"))
     assert r.returncode == 0, r.stderr.decode()[-2000:]
     res = json.loads(r.stdout.decode().splitlines()[-1])
@@ -120,6 +119,7 @@ def test_device_leg_matches_every_stream(small):
     assert res["device_stats"]["blocks"] == res["blocks"] == 6
     assert res["traced"]["faults"] == [] and res["traced"]["blocks"] == 6
     assert res["traced"]["trace"]["batches"] == 0  # no kernel on the CPU
+    assert res["busy_share_derived"] is None
     assert not (d / "mismatch").exists()
 
 
@@ -227,3 +227,52 @@ def test_peak_rss_sees_a_transient_allocation():
         peak.stop()
     assert peak.peak_mb() > before + 150
     assert not peak._thread.is_alive()
+
+
+def test_peak_rss_keeps_a_series_with_the_c_heap_and_progress():
+    """Each point of ``PeakRss.series`` is ``[seconds, RSS, C heap in
+    use, C heap held, progress()]``; a live 100 MB allocation shows in
+    the heap in use (glibc's ``mallinfo2``)."""
+    import time
+
+    done = [0]
+    peak = scale_run.PeakRss(every_s=0.005, series_s=0.02, progress=lambda: done[0]).start()
+    try:
+        time.sleep(0.06)
+        block = bytearray(100 << 20)
+        done[0] = len(block)
+        time.sleep(0.06)
+        del block
+    finally:
+        peak.stop()
+    assert len(peak.series) >= 4 and all(len(p) == 5 for p in peak.series)
+    assert [p[0] for p in peak.series] == sorted(p[0] for p in peak.series)
+    assert peak.series[0][4] == 0 and peak.series[-1][4] == 100 << 20
+    heap = scale_run.c_heap_mb()
+    assert heap is not None and heap[0] <= heap[1]
+    in_use = [p[2] for p in peak.series]
+    assert max(in_use) - in_use[0] > 90
+
+
+def _trace(tmp_path, events):
+    path = tmp_path / "t.json"
+    path.write_text(json.dumps({"traceEvents": events}))
+    return str(path)
+
+
+def test_gpu_busy_share_over_the_steady_window(tmp_path):
+    """Twelve width-16 launches 1 ms apart, each 100 µs, and a 300 µs
+    copy overlapping one of them: with ``skip=1`` the window runs from
+    the second launch to the eleventh (9 batches, 9 ms), busy 1.2 ms of
+    it (the launch at its end adds nothing); a CPU event is not counted."""
+    events = [{"cat": "kernel", "name": "mtf16_kernel", "ts": 1000.0 * i, "dur": 100.0} for i in range(12)]
+    events += [{"cat": "gpu_memcpy", "name": "Memcpy HtoD", "ts": 2050.0, "dur": 300.0},
+               {"cat": "cpu_op", "name": "aten::sort", "ts": 1000.0, "dur": 5000.0}]
+    got = scale_run.gpu_busy_share(_trace(tmp_path, events), skip=1)
+    assert got["batches"] == 9 and got["window_ms"] == pytest.approx(9.0)
+    # launches 1..9 (100 µs each, the copy adds 250 µs past launch 2's end)
+    assert got["busy_ms"] == pytest.approx(0.9 + 0.25)
+    assert got["busy_share"] == pytest.approx(1.15 / 9.0)
+    assert got["batches_per_s"] == pytest.approx(1000.0)
+    assert got["device_ms_per_batch"] == pytest.approx(1.15 / 9)
+    assert scale_run.gpu_busy_share(_trace(tmp_path, events[:3]), skip=1)["busy_share"] is None
