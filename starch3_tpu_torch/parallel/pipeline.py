@@ -617,7 +617,8 @@ def _dispatch_one(block_datas, nm, device: torch.device, pad_to, mode: str):
     batch gets its own pinned buffer: the drain hands row views to the
     tail pool or the assembler, which read them later.  ``aux["d2h"]`` is
     the bytes its rows bring back (0 in ``fast_huff``, whose finisher
-    counts its own)."""
+    counts its own); on the CPU ``aux["step_s"]`` is the step's wall time,
+    the batch's own time on the device (``_device_seconds``)."""
     n_max, bits = nm
     aux = {"bits": bits, "mode": mode, "n_max": n_max}
     if mode in ("ranks", "rle2"):
@@ -644,7 +645,9 @@ def _dispatch_one(block_datas, nm, device: torch.device, pad_to, mode: str):
     aux["lens"] = lens
     aux["d2h"] = 0 if mode == "fast_huff" else lens.size * _rows_width(mode, bits, n_max) * 4
     if device.type != "cuda":
+        t0 = time.monotonic()
         rows, on_device = step(*inputs)
+        aux["step_s"] = time.monotonic() - t0
         return (rows, None) + on_device, aux
     return (None, _launch(device, inputs, step)), aux
 
@@ -663,16 +666,23 @@ class _Launched:
     """A batch whose work the launcher thread enqueues: ``query`` and
     ``synchronize`` as the CUDA event's that the launcher records after
     it; ``future`` gives ``(rows, event, *on_device)``.  A launch error
-    raises from each."""
+    raises from each.  ``start`` is the timing event the launcher records
+    before the batch's uploads, set before ``future`` completes."""
 
-    def __init__(self, future):
+    def __init__(self, future=None):
         self.future = future
+        self.start = None
 
     def query(self) -> bool:
         return self.future.done() and self.future.result()[1].query()
 
     def synchronize(self) -> None:
         self.future.result()[1].synchronize()
+
+    def elapsed_s(self) -> float:
+        """Seconds on the card from before the uploads to after the rows'
+        copy, once the batch is ready."""
+        return self.start.elapsed_time(self.future.result()[1]) / 1e3
 
 
 def _landed(handle) -> tuple:
@@ -707,23 +717,47 @@ def _launcher():
 
 
 def _launch(device: torch.device, inputs, step) -> _Launched:
-    """Submit one batch to the launcher: pin and upload ``inputs``, run
-    ``step(*uploads)`` -> ``(rows, on_device)``, copy the rows into pinned
-    memory and record an event, on the stream that is current here (the
-    device's or a mesh entry's)."""
+    """Submit one batch to the launcher: record a timing event, pin and
+    upload ``inputs``, run ``step(*uploads)`` -> ``(rows, on_device)``, copy
+    the rows into pinned memory and record an event, on the stream that is
+    current here (the device's or a mesh entry's)."""
     stream = torch.cuda.current_stream(device)
+    launched = _Launched()
 
     def launch():
         with torch.cuda.device(device), torch.cuda.stream(stream):
+            start = torch.cuda.Event(enable_timing=True)
+            start.record(stream)
             # pinned, so that the uploads never wait on a stalled stream
             rows, on_device = step(*(t.pin_memory().to(device, non_blocking=True) for t in inputs))
             out = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=True)
             out.copy_(rows, non_blocking=True)
-            event = torch.cuda.Event()
+            event = torch.cuda.Event(enable_timing=True)
             event.record(stream)
+        launched.start = start
         return (out, event) + on_device
 
-    return _Launched(_launcher().submit(launch))
+    launched.future = _launcher().submit(launch)
+    return launched
+
+
+def _device_seconds(handle, aux) -> float:
+    """A ready batch's own time on its device: on a card, the CUDA events'
+    elapsed time from before its uploads to after its rows' copy; on the
+    CPU, the step's wall time (``aux["step_s"]``, 0 when a caller's
+    dispatch gives none).  Under a mesh, the slowest entry's."""
+    if isinstance(handle, _Meshed):
+        return max(_device_seconds(h, a) for h, a in handle.parts)
+    if handle[0] is None:
+        return handle[1].elapsed_s()
+    return aux.get("step_s", 0.0)
+
+
+def _await_rows(handle) -> None:
+    """Wait until a one-device batch's rows are on the host."""
+    event = _landed(handle)[1]
+    if event is not None:
+        event.synchronize()
 
 
 def _batch_ready(handle) -> bool:
@@ -747,7 +781,12 @@ def _drain_into(results, per_stream_blocks, item, on_done=None, huff=None):
     ``_huff_pool()``, so its device round trips and host heaps overlap the
     driver's next dispatch.  ``on_done`` (the driver's drain-rate hook)
     then fires from the finisher thread, when the blocks exist; a failed
-    finisher sets its exception on every future of the batch."""
+    finisher sets its exception on every future of the batch.
+
+    ``on_done(work_s, device_s)`` gets the lane's host work on the batch
+    once its rows had landed (the drain here, or the finisher's run; not
+    the wait for the rows, nor the hand-off to a finisher) and the batch's
+    own device time (``_device_seconds``)."""
     chunk, (handle, aux) = item
     if aux.get("mode") == "fast_huff":
         from concurrent.futures import Future
@@ -760,8 +799,11 @@ def _drain_into(results, per_stream_blocks, item, on_done=None, huff=None):
         def finish():
             nonlocal handle
             try:
+                _await_rows(handle)
+                t_work = time.monotonic()
                 local: dict = {}
                 _drain_fast_huff(local, per_stream_blocks, chunk, handle, aux)
+                timing = (time.monotonic() - t_work, _device_seconds(handle, aux))
             except BaseException as e:
                 for f in futs.values():
                     f.set_exception(e)
@@ -769,17 +811,16 @@ def _drain_into(results, per_stream_blocks, item, on_done=None, huff=None):
                 for key, f in futs.items():
                     f.set_result(local[key])
                 if on_done is not None:
-                    on_done()
+                    on_done(*timing)
             finally:
                 handle = None  # free the batch's device tensors now
                 slots.release()
 
         pool.submit(finish)
         return
-    rows, event = _landed(handle)
-    if event is not None:
-        event.synchronize()
-    out = rows.numpy()
+    _await_rows(handle)
+    t_work = time.monotonic()
+    out = _landed(handle)[0].numpy()
     mode = aux.get("mode")
     if mode in ("ranks", "rle2"):
         # the exact modes: no tie column, no host re-encode; the tuples go
@@ -792,7 +833,7 @@ def _drain_into(results, per_stream_blocks, item, on_done=None, huff=None):
         )
         results.update(zip(chunk, unpacked))
         if on_done is not None:
-            on_done()
+            on_done(time.monotonic() - t_work, _device_seconds(handle, aux))
         return
     bits = aux["bits"]
     tie_col = 2 if bits == 8 else 1  # rows [ptr, m, ties, ...] at bits 8
@@ -812,25 +853,28 @@ def _drain_into(results, per_stream_blocks, item, on_done=None, huff=None):
             )
     _count(**{"tie_reencodes": ties, f"tie_reencodes_bits{bits}": ties})
     if on_done is not None:
-        on_done()
+        on_done(time.monotonic() - t_work, _device_seconds(handle, aux))
 
 
 def _after_all(n: int, fn):
-    """A callable that calls ``fn`` on its ``n``-th call, from whichever
-    thread makes it: the drain-rate hook of a batch whose mesh entries
-    drain separately (a ``fast_huff`` entry's finisher calls it when its
-    blocks exist)."""
+    """A callable ``(work_s, device_s)`` that calls ``fn`` on its ``n``-th
+    call, from whichever thread makes it, with the calls' summed host work
+    and their longest device time: the drain-rate hook of a batch whose
+    mesh entries drain separately (a ``fast_huff`` entry's finisher calls
+    it when its blocks exist)."""
     if n == 1:
         return fn
-    left = [n]
+    acc = [n, 0.0, 0.0]  # calls left, work, device
     lock = threading.Lock()
 
-    def call() -> None:
+    def call(work_s: float, device_s: float) -> None:
         with lock:
-            left[0] -= 1
-            last = left[0] == 0
+            acc[0] -= 1
+            acc[1] += work_s
+            acc[2] = max(acc[2], device_s)
+            last = acc[0] == 0
         if last:
-            fn()
+            fn(acc[1], acc[2])
 
     return call
 
@@ -1028,7 +1072,7 @@ def _abandon_batch(q: _BlockQueue, results, entry) -> None:
     host-encoded right here, so the encode terminates either way.  A
     later duplicate encode of a re-enqueued block is benign (per-block
     byte determinism).  The caller keeps the batch's handles."""
-    nm, (chunk, _handles), _nbytes, _t0 = entry
+    nm, (chunk, _handles) = entry[:2]
     with q.cond:
         q.device_demoted = True
         q.device_probe_at = time.monotonic() + host._DEMOTE_PROBE_S
@@ -1061,11 +1105,11 @@ def _device_driver(q: _BlockQueue, results, errors, device, batch_size, reserve,
     The claim loop and its fault handling are those of the JAX
     ``_device_driver``.  ``claim_priority`` orders the buckets and
     ``class_gated`` routes a class to the stealers when its measured
-    device rate loses to theirs.  The drain-to-drain rate (from the
-    batch's dispatch when the pipeline had run dry) benches ("demotes")
-    the whole device when it falls below ``_DEMOTE_FRACTION``
-    of the stealers' aggregate; a benched device is probed with one batch
-    every ``_DEMOTE_PROBE_S`` and resumes when the probe runs fast enough.
+    device rate loses to theirs.  The lane's drain rate (``note_drain``)
+    benches ("demotes") the whole device when it falls below
+    ``_DEMOTE_FRACTION`` of the stealers' aggregate; a benched device is
+    probed with one batch every ``_DEMOTE_PROBE_S`` and resumes when the
+    probe, rated by the same rule, runs fast enough.
     A batch not ready ``_ABANDON_S`` after its dispatch is abandoned
     (``_abandon_batch``) and the device benched, so a stalled stream
     cannot hang the encode.  With no stealer the driver itself host-encodes
@@ -1078,27 +1122,36 @@ def _device_driver(q: _BlockQueue, results, errors, device, batch_size, reserve,
     rows land or the driver returns, so no pinned buffer that a pending copy
     still targets is dropped here.  The constants are read from ``host`` at
     call time.  Scheduling only: bytes are claim-order invariant."""
-    pending: collections.deque = collections.deque()  # (nm, (chunk, handle), nbytes, t0)
+    pending: collections.deque = collections.deque()  # (nm, (chunk, handle), nbytes, t0, pack_s)
     orphans: list = []  # handles of batches given up on before their rows landed
     drain_clock = [None]
     fallback_ok = not host._no_host_fallback()
 
-    def note_drain(nbytes: int, bits: int, t_dispatch: float) -> None:
-        # drain-to-drain rate, in all and per alphabet class (read by
+    def note_drain(nbytes: int, bits: int, t_dispatch: float, pack_s: float, work_s: float,
+                   device_s: float) -> None:
+        # the lane's rate, in all and per alphabet class (read by
         # class_gated, kept for the next encode in _class_rate_cache).  A
-        # batch dispatched after the last drain found the pipeline empty:
-        # the time before its dispatch went waiting for blocks, not on the
-        # device, so its interval starts at the dispatch.  This is the one
-        # guard against feed starvation: the reference resets the clock
-        # when its claim finds nothing, which its claim loop never lets
-        # happen, so it counts that wait and benches a starved device
+        # batch queued behind another is rated drain to drain: the lane
+        # was busy all that interval.  A batch dispatched after the last
+        # drain found the pipeline dry, so its wait for blocks and its
+        # latency (the launcher's queue, the copies' turnaround) are not
+        # what the lane sustains at _PIPELINE_DEPTH: it is rated by its
+        # own time, the driver's pack and drain (serial with each other)
+        # against its device time (which overlaps them).  The first drain,
+        # and the first after an abandonment or a probe, only starts the
+        # clock.  The reference counts the wait for blocks and benches a
+        # starved device (it resets the clock when its claim finds
+        # nothing, which its claim loop never lets happen)
         now = time.monotonic()
         with q.cond:
             prev = drain_clock[0]
             drain_clock[0] = now
             if prev is None or now <= prev:
                 return
-            r = nbytes / (now - max(prev, t_dispatch))
+            span = now - prev if t_dispatch < prev else max(pack_s + work_s, device_s)
+            if span <= 0:
+                return
+            r = nbytes / span
             q.device_rate = r if q.device_rate is None else 0.6 * q.device_rate + 0.4 * r
             q.device_rate_samples += 1
             cr = q.class_rate.get(bits)
@@ -1125,9 +1178,9 @@ def _device_driver(q: _BlockQueue, results, errors, device, batch_size, reserve,
         return _batch_ready(pending[0][1][1][0])
 
     def drain_oldest() -> None:
-        nm0, (chunk, (handle, aux)), nbytes, t0 = pending.popleft()
+        nm0, (chunk, (handle, aux)), nbytes, t0, pack_s = pending.popleft()
         items = _per_entry(chunk, handle, (handle, aux))
-        on_done = _after_all(len(items), functools.partial(note_drain, nbytes, nm0[1], t0))
+        on_done = _after_all(len(items), functools.partial(note_drain, nbytes, nm0[1], t0, pack_s))
         for item in items:  # a mesh's entries in order, each as one batch
             _drain_into(results, q.per_stream_blocks, item, on_done=on_done, huff=huff)
         with q.cond:  # wake the incremental assembler
@@ -1146,11 +1199,14 @@ def _device_driver(q: _BlockQueue, results, errors, device, batch_size, reserve,
         ``_ABANDON_S`` for the rows (host-encoding queued blocks meanwhile
         when no stealer is left) and repromote the device if they came
         fast enough, or re-arm the probe.  The rows are only a rate
-        signal; the duplicate encode is byte-identical."""
+        signal, so the rate is note_drain's for a dry pipeline with no
+        drain: the pack against the device time.  The duplicate encode is
+        byte-identical."""
         datas = [q.per_stream_blocks[si][bi].data for si, bi in chunk]
         nbytes = sum(map(len, datas))
         t0 = time.monotonic()
-        handle = _dispatch_chunk(datas, nm, device, pad_to=batch_size, mode=mode)[0]
+        handle, aux = _dispatch_chunk(datas, nm, device, pad_to=batch_size, mode=mode)
+        pack_s = time.monotonic() - t0
         for key in chunk:
             _host_encode(q, results, key)
         while (
@@ -1168,9 +1224,8 @@ def _device_driver(q: _BlockQueue, results, errors, device, batch_size, reserve,
                 _host_encode(q, results, fill)
             else:
                 time.sleep(0.01)
-        dt = time.monotonic() - t0
-        rate = nbytes / dt if dt > 0 else 0.0
         ready = _batch_ready(handle)
+        rate = nbytes / max(pack_s, _device_seconds(handle, aux), 1e-9) if ready else 0.0
         with q.cond:
             if ready and (
                 not q.stealer_rate
@@ -1246,13 +1301,11 @@ def _device_driver(q: _BlockQueue, results, errors, device, batch_size, reserve,
                 continue
             if chunk is not None:
                 datas = [q.per_stream_blocks[si][bi].data for si, bi in chunk]
-                t_dispatch = time.monotonic()  # the pack and dispatch are the device lane's time
-                pending.append((
-                    this_nm,
-                    (chunk, _dispatch_chunk(datas, this_nm, device, pad_to=pad, mode=mode)),
-                    sum(map(len, datas)),
-                    t_dispatch,
-                ))
+                t_dispatch = time.monotonic()
+                handle = _dispatch_chunk(datas, this_nm, device, pad_to=pad, mode=mode)
+                # the pack and dispatch are the lane's own time
+                pending.append((this_nm, (chunk, handle), sum(map(len, datas)), t_dispatch,
+                                time.monotonic() - t_dispatch))
                 if len(pending) < _PIPELINE_DEPTH:
                     continue
             if not pending:

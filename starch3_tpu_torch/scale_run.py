@@ -11,6 +11,8 @@ process, for ``chip_smoke.py`` phase 13 and ``tests/test_torch_scale.py``.
 ``EncodeConfig()`` (the host path) or, with ``--jax``, the device path
 beside the host stealers on ``--device``; ``--decode`` then decodes the
 archive with ``api.decompress_starch_file`` and hashes what comes out.
+It also gives the archive's blocks and the feed's transform seconds
+(``timed_transform``).
 ``pipe`` runs ``cat IN | python -m starch3_tpu_torch.cli --jax > OUT``, a
 real pipe into the CLI's stdin.  ``device`` transforms each chromosome of
 IN whole with the native transform, feeds the texts in order to
@@ -34,6 +36,7 @@ from __future__ import annotations
 
 import argparse
 import bisect
+import contextlib
 import ctypes
 import hashlib
 import json
@@ -58,6 +61,44 @@ class _Hasher:
         self.h.update(b)
         self.n += len(b)
         return len(b)
+
+
+def archive_blocks(path: str) -> int:
+    """The blocks of an archive's streams, read from its metadata alone."""
+    from starch3_tpu_torch.format.archive import FOOTER_LEN
+    from starch3_tpu_torch.format.metadata import ArchiveMetadata
+
+    with open(path, "rb") as f:
+        f.seek(-FOOTER_LEN, os.SEEK_END)
+        end = f.tell()
+        offset = int(f.read(20))
+        f.seek(offset)
+        meta = ArchiveMetadata.from_json_bytes(f.read(end - offset))
+    return sum(len(s.block_bit_offsets) for s in meta.streams)
+
+
+@contextlib.contextmanager
+def timed_transform():
+    """Sums, into the list it yields, the wall time of every call of
+    ``runtime.bed_transform_native`` made inside it: the file entry's feed
+    (which imports the function when it is called), whose one thread's
+    transform bounds a streaming encode."""
+    from starch3_tpu_torch import runtime
+
+    real, spent = runtime.bed_transform_native, [0.0]
+
+    def timed(data):
+        t0 = time.perf_counter()
+        try:
+            return real(data)
+        finally:
+            spent[0] += time.perf_counter() - t0
+
+    runtime.bed_transform_native = timed
+    try:
+        yield spent
+    finally:
+        runtime.bed_transform_native = real
 
 
 def file_digest(path: str) -> str:
@@ -202,13 +243,14 @@ def leg_encode(args, peak: PeakRss) -> dict:
     n_in = os.path.getsize(args.inp)
     rss0 = rss_mb()
     t0 = time.perf_counter()
-    with open(args.out, "wb") as fh:
+    with open(args.out, "wb") as fh, timed_transform() as transform_s:
         api.compress_bed_file(args.inp, fh, cfg, chunk_bytes=args.chunk_bytes, device=args.device)
     dt = time.perf_counter() - t0
     res = {
         "leg": "encode", "jax": args.jax, "device": args.device if args.jax else None, "bytes_in": n_in,
-        "seconds": dt, "mb_per_s_bed": n_in / dt / 1e6, "archive_digest": file_digest(args.out),
-        "archive_bytes": os.path.getsize(args.out), "rss_start_mb": rss0,
+        "seconds": dt, "mb_per_s_bed": n_in / dt / 1e6, "transform_seconds": transform_s[0],
+        "archive_digest": file_digest(args.out), "archive_bytes": os.path.getsize(args.out),
+        "blocks": archive_blocks(args.out), "rss_start_mb": rss0,
     }
     res.update(_memory(args.device if args.jax else "cpu", peak))
     res.update(_counters())

@@ -86,10 +86,13 @@ class _Event:
 
 class FakeDevice:
     """Stands in for ``_dispatch_chunk``: batches run one after another,
-    ``delay_s`` each; the first ``dead_first`` dispatches never finish."""
+    ``delay_s`` each, which is their own time on the device
+    (``aux["step_s"]``), and none starts sooner than ``latency_s`` after
+    its dispatch (a queue before the step); the first ``dead_first``
+    dispatches never finish."""
 
-    def __init__(self, delay_s=0.0, dead_first=0):
-        self.delay_s, self.dead_first = delay_s, dead_first
+    def __init__(self, delay_s=0.0, dead_first=0, latency_s=0.0):
+        self.delay_s, self.dead_first, self.latency_s = delay_s, dead_first, latency_s
         self.cond = threading.Condition()
         self.busy_until = 0.0
         self.dispatched = 0  # batches
@@ -105,8 +108,10 @@ class FakeDevice:
             self.blocks += len(block_datas)
             ready_at = None
             if not dead:
-                ready_at = self.busy_until = max(time.monotonic(), self.busy_until) + self.delay_s
+                start = max(time.monotonic() + self.latency_s, self.busy_until)
+                ready_at = self.busy_until = start + self.delay_s
             self.cond.notify_all()
+        aux["step_s"] = self.delay_s
         return (rows, _Event(self, ready_at)), aux
 
     def wait_dispatched(self, k):
@@ -214,6 +219,63 @@ def test_starved_device_is_not_benched(rng, monkeypatch, fake, encode_threads):
     delta = _stats_since(before)
     assert delta["demotions"] == 0 and delta["abandoned_batches"] == 0
     assert fake.drained >= 2
+
+
+def _paced_texts(rng, n):
+    """``n`` texts of four level-1 blocks each, and a feed that yields
+    each after a 0.8 s pause."""
+    texts = [ALPHABET[rng.integers(0, ALPHABET.size, 4 * 99_000)].tobytes() for _ in range(n)]
+
+    def feed():
+        for t in texts:
+            time.sleep(0.8)
+            yield t
+
+    return texts, feed()
+
+
+def test_starved_device_with_latency_is_not_benched(rng, monkeypatch, fake, encode_threads):
+    """A healthy device whose batches each wait 0.5 s in a queue before a
+    step of no time, fed four level-1 blocks after each 0.8 s pause,
+    against one stealer at about 1.6 MB/s: each batch finds the pipeline
+    dry and drains before the next text, so it is rated by its own time
+    (its pack and drain against its device time).  Rated by its latency,
+    about 0.6 MB/s, it would be benched at the second drain."""
+    _, hooks = encode_threads
+    monkeypatch.setattr(os, "cpu_count", lambda: 1)
+    monkeypatch.setattr(host, "_DEMOTE_MIN_SAMPLES", 1)
+    hooks["before"] = lambda: time.sleep(0.05)
+    fake.latency_s = 0.5
+    texts, feed = _paced_texts(rng, 5)
+    before = dict(host.scheduler_stats)
+    streams = _encode(feed, host_assist=True, level=1)
+    assert [s.data for s in streams] == [bz2.compress(t, 1) for t in texts]
+    delta = _stats_since(before)
+    assert delta["demotions"] == 0 and delta["abandoned_batches"] == 0
+    assert fake.drained >= 2
+
+
+def test_probe_repromotes_a_healthy_starved_device(rng, monkeypatch, fake, encode_threads):
+    """The same device and feed, its first batch dead: that batch is
+    abandoned after ``_ABANDON_S`` and the device benched; the next claim
+    is a probe, whose rows come 0.5 s after it while the driver
+    host-encodes its blocks.  Rated by its pack against its device time,
+    the probe repromotes the device (rated by its wait, about 0.6 MB/s, it
+    would not), and the device is not benched again."""
+    _, hooks = encode_threads
+    monkeypatch.setattr(os, "cpu_count", lambda: 1)
+    monkeypatch.setattr(host, "_DEMOTE_MIN_SAMPLES", 1)
+    monkeypatch.setattr(host, "_ABANDON_S", 1.0)
+    monkeypatch.setattr(host, "_DEMOTE_PROBE_S", 0.0)
+    hooks["before"] = lambda: time.sleep(0.05)
+    fake.latency_s, fake.dead_first = 0.5, 1
+    texts, feed = _paced_texts(rng, 6)
+    before = dict(host.scheduler_stats)
+    streams = _encode(feed, host_assist=True, level=1)
+    assert [s.data for s in streams] == [bz2.compress(t, 1) for t in texts]
+    delta = _stats_since(before)
+    assert delta["abandoned_batches"] == delta["demotions"] == 1
+    assert delta["repromotions"] >= 1
 
 
 def test_slow_source_is_fed_as_it_arrives(rng, monkeypatch, fake):

@@ -73,6 +73,7 @@ PORT_ONLY_MODULES = {
     "corpus.py": "the seeded corpora of chip_smoke.py and the profilers",
     "kernel_check.py": "first launches of the CUDA kernels on a sentinel-filled output",
     "profile_kernels.py": "device times of the CUDA kernels",
+    "profile_lane.py": "where the device lane's time goes in a hybrid encode",
     "profile_step.py": "a tier's time breakdown on the card",
     "scale_run.py": "the legs of chip_smoke.py phase 13, the main path at 1.1 GB, one per process",
     "stall_probe.py": "which host calls wait on a stalled CUDA stream",

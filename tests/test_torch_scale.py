@@ -90,7 +90,10 @@ def small(tmp_path_factory):
 
 def test_encode_leg_hybrid_round_trip(small):
     """Phase 13 (b) and (e) on the CPU: the hybrid through the file entry
-    with 4 kB chunks, so every chromosome spans chunks."""
+    with 4 kB chunks, so every chromosome spans chunks.  How the 6 blocks
+    split between the device and the stealers depends on the feed's pace
+    (a missing class key counts 0 blocks); the next test makes the
+    device's share certain."""
     d, gen, host_digest = small
     assert gen["bytes"] > 3 * 4096
     r = _run(["-m", "starch3_tpu_torch.scale_run", "encode", d / "in.bed", d / "b.starch", "--jax",
@@ -101,8 +104,49 @@ def test_encode_leg_hybrid_round_trip(small):
     assert res["decode"]["digest"] == gen["digest"] == _sha256(d / "in.bed")
     assert res["decode"]["bytes"] == gen["bytes"]
     assert res["scheduler_stats"]["abandoned_batches"] == 0
-    assert res["device_stats"]["blocks_bits4"] > 0
+    assert res["blocks"] == 6 and 0 < res["transform_seconds"] < res["seconds"]
+    assert res["device_stats"].get("blocks_bits4", 0) <= res["blocks"]
     assert res["peak_rss_mb"] > 0
+
+
+def test_encode_leg_hybrid_puts_a_batch_on_the_device(small, tmp_path, monkeypatch):
+    """The same leg in this process, with the feed held open until the
+    device has claimed a batch: while blocks may still arrive and the
+    device's pipeline is not primed, the stealers leave a batch in each
+    bucket to the device, so it takes one for certain (without the hold,
+    fast stealers may take every block once the feed ends).  The archive
+    is the host path's, and every thread the encode started has ended,
+    apart from the process's tail pool."""
+    import threading
+    import time
+    from types import SimpleNamespace
+
+    from starch3_tpu_torch.parallel import host, pipeline
+
+    class Queue(host._BlockQueue):
+        def finish_feeding(self):
+            deadline = time.monotonic() + 60
+            with self.cond:
+                while not (self.device_claimed or self.cancelled) and time.monotonic() < deadline:
+                    self.cond.wait(0.01)
+            super().finish_feeding()
+
+    monkeypatch.setattr(pipeline, "_BlockQueue", Queue)
+    monkeypatch.setattr(host, "_class_rate_cache", {})  # no class gated by an earlier encode's rate
+    d, _gen, host_digest = small
+    before = set(threading.enumerate())
+    args = SimpleNamespace(inp=str(d / "in.bed"), out=str(tmp_path / "b.starch"), jax=True, device="cpu",
+                           level=1, chunk_bytes=4096, decode=False)
+    peak = scale_run.PeakRss().start()
+    try:
+        res = scale_run.leg_encode(args, peak)
+    finally:
+        peak.stop()
+    assert res["archive_digest"] == host_digest
+    assert res["scheduler_stats"]["abandoned_batches"] == 0
+    assert res["device_stats"].get("blocks_bits4", 0) >= EncodeConfig().blocks_per_batch
+    left = [t.name for t in threading.enumerate() if t not in before and not t.name.startswith("s3tail")]
+    assert left == []
 
 
 def test_device_leg_matches_every_stream(small):
