@@ -33,8 +33,16 @@ streams and archives.  It exits 0 only if every phase passes:
      torch.profiler;
   4. each tier's device step on the card against the same step on the
      CPU, for one production batch of real transformed blocks: bits 4 at
-     458,752, bits 5, 6 and 8 at 901,120.  Rows equal (a tied bits-8 row:
-     columns ptr and ties);
+     458,752, bits 5, 6 and 8 at 901,120, called directly, and through
+     the launcher as a dispatch runs it, eagerly and as the fast step's
+     CUDA graph (the first batch of a key warms it up, the second
+     captures and replays it, the third replays it).  Rows equal (a tied
+     bits-8 row: columns ptr and ties); the captures made, one per key,
+     and the replays are printed, and the per-width launches of the
+     replays equal the eager launches.  One more replay runs under
+     ``torch.profiler``: the MTF kernels its trace shows, by width, equal
+     what the counters add for it (the capture's tally), so the replays'
+     counts in the kernels line are launches the card ran;
   5. device-only end to end, ``encode_streams(host_assist=False)``, one
      run per corpus: config 2 plus one ~400,000-interval chromosome
      (bits 4, multi-block streams), config 3 (bits 5), the gene-id corpus
@@ -43,15 +51,17 @@ streams and archives.  It exits 0 only if every phase passes:
      equal all blocks, no batch was abandoned and the device was never
      benched (``scheduler_stats``), each corpus's class ran on the
      device, the narrow kernel's launches at widths 16, 32 and 64 equal the bits 4, 5 and 6
-     batches and the wide kernel's the bits-8 batches, and at least one
-     bits-8 block was tie-free;
+     batches and the wide kernel's the bits-8 batches (most of them graph
+     replays, which count what their capture launched; the captures and
+     replays are printed), and at least one bits-8 block was tie-free;
      MB/s beside same-run libbz2 -9;
   6. the entry points, on config 2 and on config 3:
      ``compress_bed_bytes(use_jax=True)`` equals the host path's archive
      and decodes back to the BED, and ``python -m starch3_tpu_torch.cli
      --jax FILE`` writes the same bytes.  The hybrid abandons no batch;
-     its demotions, repromotions and class skips, and its blocks on the
-     device against those on the stealers, are printed;
+     its demotions, repromotions and class skips, its blocks on the
+     device against those on the stealers, and the graph captures and
+     replays and per-width launches are printed;
   7. ``device_huffman`` (mode ``fast_huff``), device only, on the config 2,
      config 3 and free-text texts, each run between two runs of ``fast``
      mode on the same texts (fast, fast_huff, fast_huff, fast): every
@@ -141,8 +151,9 @@ streams and archives.  It exits 0 only if every phase passes:
      ``compress_bed_file(EncodeConfig())``, gives the reference archive;
      (b) ``compress_bed_file(EncodeConfig(use_jax=True))`` on the half
      corpus and on the whole one: the whole archive equals (a)'s, the
-     half's streams are (a)'s first streams, no batch abandoned (each
-     run's demotions and blocks on the device are printed);
+     half's streams are (a)'s first streams, no batch abandoned and the
+     device never benched (0 demotions in each run; its blocks on the
+     device are printed);
      (c) ``cat corpus | python -m starch3_tpu_torch.cli --jax`` writes
      (a)'s bytes; (d) device only under ``STARCH3_TPU_NO_HOST_FALLBACK=1``,
      each chromosome transformed whole and fed in order to
@@ -357,21 +368,92 @@ def phase_kernel(device, seed: int, name: str, texts, buckets=BUCKETS, short=819
     return max_err, cases
 
 
+def launched_rows(device, inputs, bits: int, n_max: int, graphed: bool) -> torch.Tensor:
+    """One batch through the launcher as a fast-mode dispatch launches it
+    (``pipeline._launch``): eagerly, or through the step's CUDA graph;
+    its rows once they have landed."""
+    def step(*args):
+        return pipeline.step_for_class(*args, bits, n_max), ()
+
+    launched = pipeline._launch(device, inputs, step, (bits, n_max) if graphed else None)
+    launched.synchronize()
+    return launched.future.result()[0].clone()
+
+
+def launch_counts() -> tuple:
+    return dict(mtf_narrow.width_launches), dict(mtf_wide.width_launches)
+
+
+def count_delta(before: tuple, after: tuple) -> dict:
+    return {f"{name}{w}": a[w] - b[w] for name, b, a in zip(("narrow", "wide"), before, after) for w in a
+            if a[w] - b[w]}
+
+
+def traced_mtf_launches(fn) -> dict:
+    """The MTF kernels that one call of ``fn`` ran on the card, by width,
+    as ``torch.profiler`` traces them (a graph's replay too): one
+    ``mtf16_kernel`` per width-16 launch, one ``carry_scan_kernel<W>`` per
+    launch of the windowed kernel at width W."""
+    import re
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    widths = collections.Counter()
+    for evt in prof.key_averages():
+        if getattr(evt, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        m = re.search(r"mtf16_kernel|carry_scan_kernel<(\d+)>", evt.key)
+        if m:
+            widths[int(m.group(1) or 16)] += evt.count
+    return dict(widths)
+
+
 def phase_step(device, texts, bits: int, n_max: int):
     """Phase 4: one tier's device step on ``device`` vs the CPU, real
-    blocks.  A tied bits-8 row compares its ptr and ties columns only:
-    the order of tied rotations is not defined there."""
+    blocks: called directly, and through the launcher eagerly and as the
+    fast step's graph (warm-up, capture and replay, replay).  A tied
+    bits-8 row compares its ptr and ties columns only: the order of tied
+    rotations is not defined there."""
     packed, lens, nsyms = real_batch(texts, bits, n_max)
-    got = pipeline.step_for_class(
-        packed.to(device), lens.to(device), nsyms.to(device), bits, n_max
-    ).cpu()
     want = pipeline.step_for_class(packed, lens, nsyms, bits, n_max)
+    got = {"direct": pipeline.step_for_class(
+        packed.to(device), lens.to(device), nsyms.to(device), bits, n_max
+    ).cpu()}
+    stats = dict(pipeline.device_stats)
+    c0 = launch_counts()
+    got["eager"] = launched_rows(device, (packed, lens, nsyms), bits, n_max, graphed=False)
+    c1 = launch_counts()
+    for k in range(3):
+        got[f"graphed {k}"] = launched_rows(device, (packed, lens, nsyms), bits, n_max, graphed=True)
+    c2 = launch_counts()
+    stats = stats_since(pipeline.device_stats, stats)
+    eager, graphed = count_delta(c0, c1), count_delta(c1, c2)
+    if stats["graph_replays"] < 2 or graphed != {k: 3 * n for k, n in eager.items()}:
+        raise AssertionError(f"bits {bits} step: {stats['graph_replays']} replays in 3 graphed launches, "
+                             f"launches {graphed} against 3 x eager {eager}")
+    # one more replay under the profiler: the kernels the card ran are the
+    # ones the capture recorded, which the counters add for each replay
+    c3, traced_rows = launch_counts(), []
+    traced = traced_mtf_launches(
+        lambda: traced_rows.append(launched_rows(device, (packed, lens, nsyms), bits, n_max, graphed=True)))
+    got["graphed traced"] = traced_rows[0]
+    counted = {int("".join(filter(str.isdigit, k))): n for k, n in count_delta(c3, launch_counts()).items()}
+    if not traced or traced != counted:
+        raise AssertionError(f"bits {bits} step: a traced replay ran MTF kernels {traced} by width, "
+                             f"its count says {counted}")
     tie_col = 2 if bits == 8 else 1
-    for i in range(got.shape[0]):
-        cols = slice(None) if want[i, tie_col] == 0 or bits != 8 else [0, 2]
-        check_equal(f"bits {bits} step row {i} (3, {n_max})", got[i, cols], want[i, cols])
-    log(f"bits {bits} step: {device} rows equal CPU rows at n_max {n_max}; lens {lens.tolist()}, "
-        f"ptrs {got[:, 0].tolist()}, ties {got[:, tie_col].tolist()}")
+    for how, rows in got.items():
+        for i in range(rows.shape[0]):
+            cols = slice(None) if want[i, tie_col] == 0 or bits != 8 else [0, 2]
+            check_equal(f"bits {bits} step row {i} (3, {n_max}) {how}", rows[i, cols], want[i, cols])
+    log(f"bits {bits} step: {device} rows equal CPU rows at n_max {n_max}, called directly, launched eagerly and "
+        f"as the graph ({stats['graph_captures']} captured, {stats['graph_replays']} replays); launches of one "
+        f"eager batch {eager}, of the 3 graphed {graphed}; MTF kernels in a traced replay by width {traced}, "
+        f"as counted; lens {lens.tolist()}, ptrs {got['direct'][:, 0].tolist()}, "
+        f"ties {got['direct'][:, tie_col].tolist()}")
 
 
 def zero_counts() -> None:
@@ -441,7 +523,9 @@ def phase_end_to_end(device, label: str, texts, classes):
     per_class = {c: (stats[f"blocks_bits{c}"], stats[f"batches_bits{c}"],
                      stats[f"tie_reencodes_bits{c}"]) for c in pipeline.CLASSES}
     log(f"{label} end to end (device only): {len(texts)} streams, {total} bytes, {n_blocks} blocks, "
-        f"{stats['batches']} batches, 0 abandons and demotions, launches narrow {narrow} (by width {by_width}) wide {wide}, "
+        f"{stats['batches']} batches, 0 abandons and demotions, graph captures {stats['graph_captures']} "
+        f"(keys now {sum(map(len, pipeline._STEP_GRAPHS.values()))}) and replays {stats['graph_replays']}, "
+        f"launches narrow {narrow} (by width {by_width}) wide {wide}, "
         f"{stats['tie_reencodes']} tie re-encodes; (blocks, batches, tie re-encodes) per class "
         f"{per_class}; all streams == bz2.compress(text, 9)")
     log(f"{label} end to end: {total / dt / 1e6:.3f} MB/s ({dt:.3f} s); "
@@ -488,12 +572,13 @@ def phase_fast_huff(device, label: str, texts) -> dict:
 def phase_entry_points(device, label: str, bed: bytes, device_huffman: bool = False):
     """Phases 6 and 7: the archive API and the CLI against the host path."""
     cfg = api.EncodeConfig(use_jax=True, device_huffman=device_huffman)
-    sched, dev_stats = dict(host.scheduler_stats), dict(pipeline.device_stats)
+    sched, dev_stats, counts = dict(host.scheduler_stats), dict(pipeline.device_stats), launch_counts()
     t0 = time.perf_counter()
     got = api.compress_bed_bytes(bed, cfg, device=device)
     dt = time.perf_counter() - t0
     sched = stats_since(host.scheduler_stats, sched)
     dev_stats = stats_since(pipeline.device_stats, dev_stats)
+    counts = count_delta(counts, launch_counts())
     if sched["abandoned_batches"]:
         raise AssertionError(f"{label} compress_bed_bytes: a device batch was abandoned: {sched}")
     n_blocks = count_blocks(texts_of(bed))
@@ -511,7 +596,8 @@ def phase_entry_points(device, label: str, bed: bytes, device_huffman: bool = Fa
         f"{sched['repromotions']}, class_skips {sched['class_skips']}, abandoned 0; of {n_blocks} blocks "
         f"{dev_stats['blocks']} went to the device in {dev_stats['batches']} batches "
         f"({dev_stats['tie_reencodes']} re-encoded for ties) and {n_blocks - dev_stats['blocks']} to the "
-        f"stealers; per-class device rates now {host._class_rate_cache}")
+        f"stealers; graph captures {dev_stats['graph_captures']}, replays {dev_stats['graph_replays']}, "
+        f"launches by width {counts}; per-class device rates now {host._class_rate_cache}")
     with tempfile.TemporaryDirectory() as d:
         src, out = os.path.join(d, "in.bed"), os.path.join(d, "out.starch")
         with open(src, "wb") as f:
@@ -1326,14 +1412,15 @@ def phase_scale(smi: str, deadline: float) -> int:
     if not half_streams_ok:
         faults.append("(b) the half archive's streams are not the host archive's first streams")
     for label, r in (("(b) half", bh), ("(b) hybrid", b)):
-        # demotions are printed, not gated: beside the feed and the
-        # stealers the lane's own host time can fall below half of theirs
+        # a healthy card is never benched beside the feed and the stealers
         # (ROADMAP C4)
         sched, on_device = r["scheduler_stats"], r["device_stats"].get("blocks", 0)
         log(f"scale {label}: demotions {sched['demotions']}, blocks on the device {on_device} of {r['blocks']}, "
-            f"{r['mb_per_s_bed']:.3f} MB/s of BED, the feed's transform {r['transform_seconds']:.3f} s; on {smi}")
-        if sched["abandoned_batches"]:
-            faults.append(f"{label} abandoned batches: {sched}")
+            f"{r['mb_per_s_bed']:.3f} MB/s of BED, the feed's transform {r['transform_seconds']:.3f} s, graph "
+            f"captures {r['device_stats'].get('graph_captures', 0)} and replays "
+            f"{r['device_stats'].get('graph_replays', 0)}; on {smi}")
+        if sched["abandoned_batches"] or sched["demotions"]:
+            faults.append(f"{label} benched the device: {sched}")
     if b["decode"]["digest"] != full["digest"] or b["decode"]["bytes"] != full["bytes"]:
         faults.append(f"(e) decode {b['decode']} != the corpus {full['digest']} {full['bytes']}")
     trace = dv["traced"]["trace"]

@@ -15,6 +15,8 @@ from __future__ import annotations
 import dataclasses
 import zlib
 
+import numpy as np
+
 from starch3_tpu_torch.bed.parser import parse_bed
 from starch3_tpu_torch.bed.writer import write_bed_chrom
 from starch3_tpu_torch.config import CompressionMethod, EncodeConfig
@@ -534,6 +536,19 @@ def _verify_stream_tail(chrom: str, stream: bytes, block_crcs: list[int]) -> Non
     raise FormatError(f"{chrom}: missing stream-end magic")
 
 
+def _append_bytes(buf: np.ndarray, length: int, part: np.ndarray) -> tuple[np.ndarray, int]:
+    """Append ``part`` to the first ``length`` bytes of ``buf``, growing it
+    (at least twofold) when it lacks room.  NumPy copies without the GIL.
+    Returns the buffer and the new length."""
+    end = length + part.size
+    if end > buf.size:
+        grown = np.empty(max(end, 2 * buf.size), dtype=np.uint8)
+        grown[:length] = buf[:length]
+        buf = grown
+    buf[length:end] = part
+    return buf, end
+
+
 def compress_bed_file(
     in_path: str,
     out_fh,
@@ -651,66 +666,83 @@ def compress_bed_stream(
         )
         drain(workers + 1)
 
-    def transform_or_raise(raw: bytes):
+    def transform_or_raise(raw):
         groups = bed_transform_native(raw)
         if groups is None:
             # parse error: rerun the NumPy parser for the exact diagnostic
-            _parse_transform(raw)
+            _parse_transform(bytes(raw))
             raise BedParseError("unparseable BED chunk")
         return groups
 
     def iter_groups():
         """Yield each completed chromosome's native transform tuple as
         the chunked read progresses (the carry logic merges a chromosome
-        whose lines span chunk boundaries)."""
+        whose lines span chunk boundaries).
+
+        No bulk copy holds the GIL, which the device lane's threads
+        need: chunks are read into one reused buffer (``readinto``, or
+        ``read`` and a NumPy copy for a file object without it), lines
+        are cut by views of it, and a chromosome carried across chunks
+        is gathered into a reused NumPy buffer (NumPy lets the GIL go
+        while it copies)."""
+        readinto = getattr(in_fh, "readinto", None)
+        buf = bytearray(chunk_bytes + (1 << 16))
+        carry = np.empty(0, dtype=np.uint8)
+        carry_len = 0
         carry_name: str | None = None
-        carry_parts: list[bytes] = []
-        partial = b""
+        filled = 0  # the partial line at the front of buf
         while True:
-            chunk = in_fh.read(chunk_bytes)
-            if not chunk:
+            if len(buf) - filled < chunk_bytes:  # a line longer than the slack
+                grown = bytearray(filled + chunk_bytes + (1 << 16))
+                np.frombuffer(grown, np.uint8)[:filled] = np.frombuffer(buf, np.uint8)[:filled]
+                buf = grown
+            view = memoryview(buf)
+            if readinto is not None:
+                n = readinto(view[filled : filled + chunk_bytes])
+            else:
+                chunk = in_fh.read(chunk_bytes)
+                n = len(chunk) if chunk else 0
+                np.frombuffer(buf, np.uint8)[filled : filled + n] = np.frombuffer(chunk, np.uint8)
+                del chunk
+            if not n:
                 break
-            buf = partial + chunk
-            cut = buf.rfind(b"\n")
+            total = filled + n
+            cut = buf.rfind(b"\n", 0, total)
             if cut < 0:
-                partial = buf
+                filled = total
                 continue
-            partial = buf[cut + 1 :]
-            buf = buf[: cut + 1]
-            groups = transform_or_raise(buf)
-            if not groups:
-                continue
+            arr = np.frombuffer(buf, np.uint8)
+            body = arr[: cut + 1]
+            groups = transform_or_raise(body)
             # raw span boundaries come straight from the parse: group
-            # k's raw text spans [off_k, off_{k+1}) in buf
+            # k's raw text spans [off_k, off_{k+1}) in body
             names = [g[0] for g in groups]
-            if (
-                carry_name is not None
-                and names[0] == carry_name
-                and len(groups) == 1
-            ):
-                carry_parts.append(buf)  # chromosome still continuing
-                continue
-            offs = [g[5] for g in groups] + [len(buf)]
-            spans = [(offs[k], offs[k + 1]) for k in range(len(groups))]
-            if carry_name is not None:
-                if names[0] == carry_name:
-                    carry_parts.append(buf[: spans[1][0]])
-                    groups = groups[1:]
-                    names = names[1:]
-                    spans = spans[1:]
-                carry_raw = b"".join(carry_parts)
-                yield from transform_or_raise(carry_raw)
-                carry_name, carry_parts = None, []
-            # all groups except the last are fully bounded: final
-            yield from groups[:-1]
-            carry_name = names[-1]
-            carry_parts = [buf[spans[-1][0] :]]
-        writer.final_newline = not partial
-        if partial:
-            carry_parts.append(partial)  # final line without newline
-        if carry_parts:
-            carry_raw = b"".join(carry_parts)
-            yield from transform_or_raise(carry_raw)
+            if not groups:
+                parts = []  # blank lines only
+            elif carry_name is not None and names[0] == carry_name and len(groups) == 1:
+                parts = [body]  # chromosome still continuing
+            else:
+                offs = [g[5] for g in groups] + [body.size]
+                if carry_name is not None:
+                    if names[0] == carry_name:
+                        carry, carry_len = _append_bytes(carry, carry_len, body[: offs[1]])
+                        groups, names, offs = groups[1:], names[1:], offs[1:]
+                    yield from transform_or_raise(carry[:carry_len])
+                    carry_len = 0
+                # all groups except the last are fully bounded: final
+                yield from groups[:-1]
+                carry_name = names[-1]
+                parts = [body[offs[-2] :]]
+            for part in parts:
+                carry, carry_len = _append_bytes(carry, carry_len, part)
+            # the partial line moves to the front for the next read
+            filled = total - (cut + 1)
+            arr[:filled] = arr[cut + 1 : total].copy()
+        writer.final_newline = not filled
+        if filled:  # final line without newline
+            carry, carry_len = _append_bytes(carry, carry_len, np.frombuffer(buf, np.uint8)[:filled])
+        if carry_len:
+            yield from transform_or_raise(carry[:carry_len])
 
     if use_jax_queue:
         # the device queue runs across the whole corpus: the feeder

@@ -25,6 +25,7 @@ numpy out) on an explicit device.
 from __future__ import annotations
 
 import ctypes
+import sys
 
 import numpy as np
 import torch
@@ -36,9 +37,10 @@ WIDTHS = (16, 32, 64)
 _NEG = -(1 << 30)
 
 # kernel launches made by mtf_ranks_narrow_batch (one per call on a CUDA
-# tensor), in all and by width (16: csrc/mtf_narrow.cu; 32/64: the
-# windowed kernel of csrc/mtf_wide.cu); callers zero them and read them
-# to prove a run used the kernels
+# tensor, or per replay of a CUDA graph that captured one:
+# mtf_wide.count_launch), in all and by width (16: csrc/mtf_narrow.cu;
+# 32/64: the windowed kernel of csrc/mtf_wide.cu); callers zero them and
+# read them to prove a run used the kernels
 launches = 0
 width_launches = dict.fromkeys(WIDTHS, 0)
 
@@ -91,10 +93,12 @@ def mtf_ranks_narrow_batch(seqs: torch.Tensor, width: int = 16) -> torch.Tensor:
     if width == 16:
         n_chunks = n_max // CHUNK
         lib = _lib()
-        # each chunk's published table, then a tile counter
+        # each chunk's published table, then a tile counter, zeroed on the
+        # stream: under a graph's capture a node of the graph, so that
+        # every replay starts from zero
         tables = torch.zeros(b * n_chunks * 16 + 1, dtype=torch.int32, device=seqs.device)
         with torch.cuda.device(seqs.device):
-            stream = torch.cuda.current_stream().cuda_stream
+            stream = torch.cuda.current_stream(seqs.device).cuda_stream
             err = lib.s3t_mtf_narrow16(
                 seqs.data_ptr(), out.data_ptr(), tables.data_ptr(), b, n_chunks, stream,
             )
@@ -103,12 +107,9 @@ def mtf_ranks_narrow_batch(seqs: torch.Tensor, width: int = 16) -> torch.Tensor:
                 f"mtf_narrow kernel launch failed: CUDA error {err} "
                 f"({lib.s3t_error_string(err).decode()})"
             )
-        width_launches[16] += 1
     else:
         mtf_wide.launch(seqs, out, width, "mtf_narrow")
-        width_launches[width] += 1
-    global launches
-    launches += 1
+    mtf_wide.count_launch(sys.modules[__name__], width)
     return out
 
 

@@ -24,7 +24,10 @@ explicit device.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import sys
+import threading
 
 import numpy as np
 import torch
@@ -35,10 +38,44 @@ MAX_N = 1 << 22
 _NEG = -(1 << 30)
 
 # kernel launches made by mtf_ranks_wide_batch (one per call on a CUDA
-# tensor), in all and by width; callers zero them and read them to prove
-# a run used the kernel at the widths it should
+# tensor, or per replay of a CUDA graph that captured one), in all and by
+# width; callers zero them and read them to prove a run used the kernel at
+# the widths it should
 launches = 0
 width_launches = dict.fromkeys(WIDTHS, 0)
+_capture = threading.local()
+
+
+@contextlib.contextmanager
+def captured_launches():
+    """While this thread captures a CUDA graph, the MTF wrappers' launches
+    are recorded, not counted: a capture launches nothing.  Yields the
+    list of ``(module, width)`` recorded; each replay of the graph counts
+    them (``count_replayed``)."""
+    _capture.tally = tally = []
+    try:
+        yield tally
+    finally:
+        _capture.tally = None
+
+
+def count_launch(module, width: int) -> None:
+    """One launch of ``module``'s kernel (this module's, or
+    ``mtf_narrow``'s) at ``width``, counted in its ``launches`` and
+    ``width_launches``; inside ``captured_launches`` on this thread,
+    recorded for the graph instead."""
+    tally = getattr(_capture, "tally", None)
+    if tally is not None:
+        tally.append((module, width))
+    else:
+        count_replayed(((module, width),))
+
+
+def count_replayed(tally) -> None:
+    """Count the launches a replayed graph's capture recorded."""
+    for module, width in tally:
+        module.width_launches[width] += 1
+        module.launches += 1
 
 
 def mtf_ranks_wide_reference(seqs: torch.Tensor, width: int = 256) -> torch.Tensor:
@@ -96,9 +133,7 @@ def mtf_ranks_wide_batch(seqs: torch.Tensor, width: int = 256) -> torch.Tensor:
     if b == 0:
         return out
     launch(seqs, out, width, "mtf_wide")
-    width_launches[width] += 1
-    global launches
-    launches += 1
+    count_launch(sys.modules[__name__], width)
     return out
 
 
@@ -114,7 +149,7 @@ def launch(seqs: torch.Tensor, out: torch.Tensor, width: int, name: str) -> None
     tables = torch.empty((b, n_chunks, width), dtype=torch.int32, device=seqs.device)
     lib = _lib()
     with torch.cuda.device(seqs.device):
-        stream = torch.cuda.current_stream().cuda_stream
+        stream = torch.cuda.current_stream(seqs.device).cuda_stream
         err = lib.s3t_mtf_wide(
             seqs.data_ptr(), out.data_ptr(), tables.data_ptr(),
             b, n_chunks, width, stream,

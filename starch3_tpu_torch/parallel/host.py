@@ -489,9 +489,10 @@ def _start_host_stealers(q: _BlockQueue, results, errors, host_assist):
                     q.live_stealers -= 1  # in the claim loop, atomically)
                 q.cond.notify_all()
 
-    # every core can steal; the native encode releases the GIL and the
-    # device driver thread mostly blocks on transfers
-    n_workers = os.cpu_count() or 2
+    # every core can steal (the native encode releases the GIL and the
+    # device driver thread mostly blocks on transfers), unless the caller
+    # set fewer in q.n_stealers
+    n_workers = q.n_stealers or os.cpu_count() or 2
     q.n_stealers = n_workers
     threads = [
         threading.Thread(target=steal, name=f"s3steal{i}", daemon=True)

@@ -74,6 +74,7 @@ from __future__ import annotations
 
 import collections
 import functools
+import os
 import threading
 import time
 
@@ -109,6 +110,7 @@ from starch3_tpu_torch.ops.ibwt import ibwt_padded
 from starch3_tpu_torch.ops.imtf import imtf_decode_padded
 from starch3_tpu_torch.ops.irle2 import irle2_decode_padded
 from starch3_tpu_torch.ops.mtf_narrow import mtf_ranks_narrow_batch
+from starch3_tpu_torch.ops import mtf_wide
 from starch3_tpu_torch.ops.mtf_wide import mtf_ranks_wide_batch
 from starch3_tpu_torch.ops.rle2 import rle2_from_ranks_padded
 from starch3_tpu_torch.runtime import read_block_symbols_native
@@ -119,12 +121,13 @@ CLASSES = (4, 5, 6, 8)  # the alphabet classes of _bits_class
 # alphabet class (chip_smoke.py and the tests read these; results never
 # depend on them): batches and blocks dispatched, blocks re-encoded on the
 # host for ties and (fast_huff) for an emit overflow, and the bytes the
-# host reads back from the device; and the decode batches and blocks
+# host reads back from the device; the decode batches and blocks; and the
+# fast step's CUDA graphs captured and replayed (``_StepGraph``)
 device_stats = {
     f"{k}{c}": 0
     for k in ("batches", "blocks", "tie_reencodes", "huff_host_reencodes", "d2h_bytes")
     for c in ("",) + tuple(f"_bits{c}" for c in CLASSES)
-} | {"decode_batches": 0, "decode_blocks": 0}
+} | {"decode_batches": 0, "decode_blocks": 0, "graph_captures": 0, "graph_replays": 0}
 _stats_lock = threading.Lock()
 
 
@@ -434,8 +437,9 @@ def _emit_w_cap(n_max: int) -> int:
 
 def _dense_pack4(arr: np.ndarray, out_row: np.ndarray):
     """Dense-remap one block and pack two symbols per byte into
-    ``out_row``: the native pass, or the same in NumPy without the native
-    lib.  Returns (distinct bytes, used bool[256])."""
+    ``out_row``: the native pass (which keeps the GIL), or the same in
+    NumPy without the native lib.  Returns (distinct bytes, used
+    bool[256])."""
     from starch3_tpu_torch.runtime import dense_pack4_native
 
     res = dense_pack4_native(arr, out_row)
@@ -451,8 +455,9 @@ def _dense_pack4(arr: np.ndarray, out_row: np.ndarray):
 
 def _dense_pack_words(arr: np.ndarray, out_words: np.ndarray, bits: int):
     """Dense-remap one block and pack ``30 // bits`` symbols per uint32
-    word into ``out_words``: the native pass, or the same in NumPy
-    without the native lib.  Returns (distinct bytes, used bool[256])."""
+    word into ``out_words``: the native pass (which keeps the GIL), or
+    the same in NumPy without the native lib.  Returns (distinct bytes,
+    used bool[256])."""
     from starch3_tpu_torch.runtime import dense_pack_words_native
 
     res = dense_pack_words_native(arr, bits, out_words)
@@ -485,23 +490,24 @@ def pack_batch(block_datas, n_max: int, bits: int, b_pad: int | None = None):
     per word (int32[B, ceil(n_max / spw)]) at bits 5/6, one symbol per byte
     (uint8[B, n_max]) at bits 8, in pageable memory.  Returns (tensor,
     lens int32[B], nsyms int32[B], the blocks' ``used`` bool[256]
-    tables)."""
+    tables).  The rows are NumPy's zeros (a torch call would let the GIL
+    go and wait to win it back), and the native packs keep the GIL."""
     if bits not in CLASSES:
         raise ValueError(f"unknown alphabet class bits=={bits}")
     b_pad = max(len(block_datas), b_pad or 0)
     lens = np.ones(b_pad, dtype=np.int32)
     nsyms = np.ones(b_pad, dtype=np.int32)
     if bits == 4:
-        buf = torch.zeros((b_pad, n_max // 2), dtype=torch.uint8)
-        rows_np = buf.numpy()
+        rows_np = np.zeros((b_pad, n_max // 2), dtype=np.uint8)
+        buf = torch.from_numpy(rows_np)
         pack = _dense_pack4
     elif bits in (5, 6):
-        buf = torch.zeros((b_pad, -(-n_max // (30 // bits))), dtype=torch.int32)
-        rows_np = buf.numpy().view(np.uint32)
+        rows_np = np.zeros((b_pad, -(-n_max // (30 // bits))), dtype=np.uint32)
+        buf = torch.from_numpy(rows_np.view(np.int32))
         pack = functools.partial(_dense_pack_words, bits=bits)
     else:
-        buf = torch.zeros((b_pad, n_max), dtype=torch.uint8)
-        rows_np = buf.numpy()
+        rows_np = np.zeros((b_pad, n_max), dtype=np.uint8)
+        buf = torch.from_numpy(rows_np)
         pack = _dense_remap
     useds = []
     for i, data in enumerate(block_datas):
@@ -607,9 +613,10 @@ def _dispatch_one(block_datas, nm, device: torch.device, pad_to, mode: str):
     The driver's thread packs the batch in pageable memory.  On the CPU
     the step runs here and the handle is ``(rows, None)``, the rows ready.
     On a CUDA device the handle is ``(None, _Launched)``: the launcher
-    thread pins and uploads the batch, enqueues the step and a
-    non-blocking copy of its rows into pinned memory, and records an
-    event; ``_landed`` gives the handle in the CPU's form.  In
+    thread pins and uploads the batch, enqueues the step (in ``fast``
+    mode a replay of its CUDA graph, ``_StepGraph``) and a non-blocking
+    copy of its rows into pinned memory, and records an event;
+    ``_landed`` gives the handle in the CPU's form.  In
     ``fast_huff`` the rows are ``step_fast2``'s small rows and the handle
     goes on with the device tensors the finisher reads, ``(syms, m,
     hist)``.  The exact modes (``ranks``, ``rle2``) upload the raw bytes,
@@ -649,7 +656,7 @@ def _dispatch_one(block_datas, nm, device: torch.device, pad_to, mode: str):
         rows, on_device = step(*inputs)
         aux["step_s"] = time.monotonic() - t0
         return (rows, None) + on_device, aux
-    return (None, _launch(device, inputs, step)), aux
+    return (None, _launch(device, inputs, step, (bits, n_max) if mode == "fast" else None)), aux
 
 
 def _count_batch(b: int, bits: int, d2h_bytes: int) -> None:
@@ -667,11 +674,15 @@ class _Launched:
     ``synchronize`` as the CUDA event's that the launcher records after
     it; ``future`` gives ``(rows, event, *on_device)``.  A launch error
     raises from each.  ``start`` is the timing event the launcher records
-    before the batch's uploads, set before ``future`` completes."""
+    before the batch's uploads, set before ``future`` completes;
+    ``first_of_key`` is True when the batch warmed up its key or captured
+    its graph for the first time (``_step_graph``), a cost paid once per
+    key."""
 
     def __init__(self, future=None):
         self.future = future
         self.start = None
+        self.first_of_key = False
 
     def query(self) -> bool:
         return self.future.done() and self.future.result()[1].query()
@@ -716,24 +727,158 @@ def _launcher():
         return _LAUNCHER
 
 
-def _launch(device: torch.device, inputs, step) -> _Launched:
-    """Submit one batch to the launcher: record a timing event, pin and
-    upload ``inputs``, run ``step(*uploads)`` -> ``(rows, on_device)``, copy
+_STEP_GRAPHS_MAX = 8  # per card, stream and class, as the reference's lru_cache(maxsize=8) per class
+# the fast step's graphs: (device index, stream, bits) -> (n_max, input
+# shapes) -> _StepGraph, least recently used first.  A key's first batch
+# ever runs eagerly (the warm-up, ``_warmed``); its graph is captured at
+# its second.  Only the launcher thread reads or writes these.
+_STEP_GRAPHS: dict = {}
+_warmed: set = set()  # (device index, stream, bits, n_max, shapes) whose warm-up ran
+_captured: set = set()  # the same keys, once captured (a capture after an eviction is not the first)
+_capture_streams: dict = {}  # device index -> the side stream captures run on
+
+
+class _StepGraph:
+    """The fast-mode step of one key captured as a CUDA graph: the port's
+    counterpart of the reference's cached ``jax.jit``.  A replay launches
+    the step's hundred-odd kernels and copies in one call, where the
+    eager step issues each from Python, letting the GIL go and taking it
+    back each time; the kernels are the same.
+
+    The capture runs on the launcher thread, on a side stream, in
+    ``thread_local`` mode, so that the other threads' CUDA calls (a mesh
+    entry's, the ``fast_huff`` finisher's, decode's) go on meanwhile; it
+    does not synchronize the device, so a stalled stream does not hold it
+    up.  Its memory comes from the pool of a live graph of the same
+    stream, where there is one (a pool whose graphs were all dropped is
+    gone): a stream's graphs replay one at a time in its order, and each
+    batch's rows are copied out on the stream before the next replay
+    overwrites them.  The inputs are views of one static buffer outside
+    the pool, which each batch fills with one upload from one pinned
+    buffer (``stage``).  The MTF wrappers count no launch while a capture
+    records their kernels (``mtf_wide.captured_launches``); each replay
+    counts what the capture recorded.  A failed capture raises: there is
+    no fallback to the eager step."""
+
+    def __init__(self, stream, step, inputs):
+        dev = stream.device
+        self.spans, end = [], 0  # each input's bytes in the static buffer, 16-byte aligned
+        for t in inputs:
+            self.spans.append((end, end + t.numel() * t.element_size()))
+            end = -(-self.spans[-1][1] // 16) * 16
+        self.flat = torch.empty(end, dtype=torch.uint8, device=dev)
+        self.static = [self.flat[a:b].view(t.dtype).view(t.shape) for (a, b), t in zip(self.spans, inputs)]
+        self.graph = torch.cuda.CUDAGraph()
+        pool = next((g.graph.pool() for where, graphs in _STEP_GRAPHS.items()
+                     if where[:2] == (dev.index, stream.cuda_stream) for g in graphs.values()), None)
+        side = _capture_streams.get(dev.index)
+        if side is None:
+            side = _capture_streams[dev.index] = torch.cuda.Stream(dev)
+        with torch.cuda.stream(side), mtf_wide.captured_launches() as tally:
+            self.graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+            try:
+                self.rows = step(*self.static)[0]
+            except BaseException:
+                try:
+                    self.graph.capture_end()
+                except Exception:
+                    pass  # the capture is invalid anyway; the step's error is the one to raise
+                raise
+            self.graph.capture_end()
+        self.launches = tuple(tally)
+        self.done = None  # the event after the latest replay's rows were copied out
+        _count(graph_captures=1)
+
+    def stage(self, inputs) -> torch.Tensor:
+        """A batch's inputs copied into one pinned buffer laid out as the
+        static one (NumPy copies, which let the GIL go)."""
+        pinned = torch.empty(self.flat.shape, dtype=torch.uint8, pin_memory=True)
+        host_view = pinned.numpy()
+        for (a, b), t in zip(self.spans, inputs):
+            host_view[a:b] = t.numpy().reshape(-1).view(np.uint8)
+        return pinned
+
+    def replay(self, pinned) -> torch.Tensor:
+        """Upload a staged batch into the static inputs and replay the
+        step on the current stream; returns the static rows, which the
+        next replay overwrites.  The caller counts the replay
+        (``counted``) once its work is enqueued."""
+        self.flat.copy_(pinned, non_blocking=True)
+        self.graph.replay()
+        return self.rows
+
+    def counted(self) -> None:
+        """Count one replay and the kernel launches its capture recorded."""
+        mtf_wide.count_replayed(self.launches)
+        _count(graph_replays=1)
+
+
+def _step_graph(stream, graph_key, inputs, step):
+    """``(graph, first)``: the graph of this batch's key on ``stream``,
+    captured now if it is not cached; None at the key's first batch ever,
+    which runs eagerly, the capture's warm-up (every kernel loaded, every
+    lazy initialization done).  ``first`` is True for the warm-up and for
+    the key's first capture, not for a capture after an eviction.  Past
+    ``_STEP_GRAPHS_MAX`` keys of one card, stream and class, the least
+    recently used graph is dropped once its last replay is done."""
+    bits, n_max = graph_key
+    where = (stream.device.index, stream.cuda_stream, bits)
+    key = (n_max, *(tuple(t.shape) for t in inputs))
+    if where + key not in _warmed:
+        _warmed.add(where + key)
+        return None, True
+    graphs = _STEP_GRAPHS.setdefault(where, collections.OrderedDict())
+    if key in graphs:
+        graphs.move_to_end(key)
+        return graphs[key], False
+    while len(graphs) >= _STEP_GRAPHS_MAX:
+        old = graphs.pop(next(iter(graphs)))
+        if old.done is not None:
+            old.done.synchronize()  # its pool's memory is reused once it is dropped
+    graphs[key] = _StepGraph(stream, step, inputs)
+    first = where + key not in _captured
+    _captured.add(where + key)
+    return graphs[key], first
+
+
+def _launch(device: torch.device, inputs, step, graph_key=None) -> _Launched:
+    """Submit one batch to the launcher: pin ``inputs``, record a timing
+    event, upload them, run ``step(*uploads)`` -> ``(rows, on_device)``, copy
     the rows into pinned memory and record an event, on the stream that is
-    current here (the device's or a mesh entry's)."""
+    current here (the device's or a mesh entry's).  With a ``graph_key``
+    (``(bits, n_max)``, the fast step's) the step runs as a replay of its
+    ``_StepGraph``, captured at the key's second batch (``_step_graph``)."""
+    if device.index is None:
+        # resolving "cuda" to its index asks torch.cuda.is_available(),
+        # which may query NVML: once here, not on every call below
+        device = torch.device("cuda", torch.cuda.current_device())
     stream = torch.cuda.current_stream(device)
     launched = _Launched()
 
     def launch():
         with torch.cuda.device(device), torch.cuda.stream(stream):
+            graph, launched.first_of_key = (None, False) if graph_key is None else _step_graph(
+                stream, graph_key, inputs, step)
+            # pinned, so that the uploads never wait on a stalled stream;
+            # the host copies come before the timing event
+            if graph is None:
+                pinned, out = [t.pin_memory() for t in inputs], None
+            else:
+                pinned = graph.stage(inputs)
+                out = torch.empty(graph.rows.shape, dtype=graph.rows.dtype, pin_memory=True)
             start = torch.cuda.Event(enable_timing=True)
             start.record(stream)
-            # pinned, so that the uploads never wait on a stalled stream
-            rows, on_device = step(*(t.pin_memory().to(device, non_blocking=True) for t in inputs))
-            out = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=True)
+            if graph is not None:
+                rows, on_device = graph.replay(pinned), ()
+            else:
+                rows, on_device = step(*(t.to(device, non_blocking=True) for t in pinned))
+                out = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=True)
             out.copy_(rows, non_blocking=True)
             event = torch.cuda.Event(enable_timing=True)
             event.record(stream)
+            if graph is not None:
+                graph.done = event
+                graph.counted()
         launched.start = start
         return (out, event) + on_device
 
@@ -751,6 +896,14 @@ def _device_seconds(handle, aux) -> float:
     if handle[0] is None:
         return handle[1].elapsed_s()
     return aux.get("step_s", 0.0)
+
+
+def _first_of_key(handle) -> bool:
+    """True when a ready batch warmed up its key or captured its key's
+    graph for the first time (under a mesh, on any entry)."""
+    if isinstance(handle, _Meshed):
+        return any(_first_of_key(h) for h, _aux in handle.parts)
+    return handle[0] is None and handle[1].first_of_key
 
 
 def _await_rows(handle) -> None:
@@ -1127,7 +1280,7 @@ def _device_driver(q: _BlockQueue, results, errors, device, batch_size, reserve,
     drain_clock = [None]
     fallback_ok = not host._no_host_fallback()
 
-    def note_drain(nbytes: int, bits: int, t_dispatch: float, pack_s: float, work_s: float,
+    def note_drain(nbytes: int, bits: int, t_dispatch: float, pack_s: float, handle, work_s: float,
                    device_s: float) -> None:
         # the lane's rate, in all and per alphabet class (read by
         # class_gated, kept for the next encode in _class_rate_cache).  A
@@ -1138,15 +1291,17 @@ def _device_driver(q: _BlockQueue, results, errors, device, batch_size, reserve,
         # what the lane sustains at _PIPELINE_DEPTH: it is rated by its
         # own time, the driver's pack and drain (serial with each other)
         # against its device time (which overlaps them).  The first drain,
-        # and the first after an abandonment or a probe, only starts the
-        # clock.  The reference counts the wait for blocks and benches a
-        # starved device (it resets the clock when its claim finds
+        # the first after an abandonment or a probe, and a batch that
+        # warmed up or captured its key's graph (once per key, as the
+        # reference's first call of a jitted step compiles it) only start
+        # the clock.  The reference counts the wait for blocks and benches
+        # a starved device (it resets the clock when its claim finds
         # nothing, which its claim loop never lets happen)
         now = time.monotonic()
         with q.cond:
             prev = drain_clock[0]
             drain_clock[0] = now
-            if prev is None or now <= prev:
+            if prev is None or now <= prev or _first_of_key(handle):
                 return
             span = now - prev if t_dispatch < prev else max(pack_s + work_s, device_s)
             if span <= 0:
@@ -1180,7 +1335,7 @@ def _device_driver(q: _BlockQueue, results, errors, device, batch_size, reserve,
     def drain_oldest() -> None:
         nm0, (chunk, (handle, aux)), nbytes, t0, pack_s = pending.popleft()
         items = _per_entry(chunk, handle, (handle, aux))
-        on_done = _after_all(len(items), functools.partial(note_drain, nbytes, nm0[1], t0, pack_s))
+        on_done = _after_all(len(items), functools.partial(note_drain, nbytes, nm0[1], t0, pack_s, handle))
         for item in items:  # a mesh's entries in order, each as one batch
             _drain_into(results, q.per_stream_blocks, item, on_done=on_done, huff=huff)
         with q.cond:  # wake the incremental assembler
@@ -1403,6 +1558,27 @@ def encode_streams_feed(
     )
 
 
+# cores kept beside a card for the threads of the feed and the device lane:
+# the feed (``s3tfeed``), the driver (``s3tdevice``), the launcher
+# (``s3tlaunch``) and the tail pool (``s3tail``)
+_LANE_CORES = 4
+
+
+def _host_threads(on_card: bool) -> tuple[int, int]:
+    """(host stealers, split workers) of an encode.  On the CPU every
+    core steals, as in the reference.  Beside a card the stealers and the
+    split pool take the cores left after ``_LANE_CORES`` (at least 1 and
+    2).  On an 8-core host (NVIDIA H100 80GB HBM3, 700 W, ``profile_lane``
+    at 1.1e9 bytes of BED), 8 or 6 stealers left the lane's dry batches
+    20-58 ms of host time each and benched a healthy card once (ROADMAP
+    C4); 4 stealers and 4 split workers left them a few ms."""
+    cores = os.cpu_count() or 2
+    if not on_card:
+        return cores, max(2, min(8, cores))
+    free = max(1, cores - _LANE_CORES)
+    return free, max(2, min(8, free))
+
+
 def encode_streams_iter(
     text_iter,
     level: int = 9,
@@ -1443,6 +1619,10 @@ def encode_streams_iter(
     q.class_samples.update({b: host._CLASS_MIN_SAMPLES for b in host._class_rate_cache})
     results: dict = {}
     errors: list[BaseException] = []
+    on_card = dev.type == "cuda" if isinstance(dev, torch.device) else any(d.type == "cuda" for d in dev.devices)
+    n_stealers, split_width = _host_threads(on_card)
+    if host_assist:
+        q.n_stealers = n_stealers
     stealers = _start_host_stealers(q, results, errors, host_assist)
     reserve = _TAIL_RESERVE_PER_STEALER * len(stealers)
     huff = _huff_pool() if mode == "fast_huff" else None
@@ -1462,10 +1642,9 @@ def encode_streams_iter(
         ``api.compress_bed_stream``) would otherwise hold back every
         block until the prefetch is full, ``width + 2`` texts (the
         reference's feeder waits so)."""
-        import os
         from concurrent.futures import ThreadPoolExecutor
 
-        width = max(2, min(8, os.cpu_count() or 2))
+        width = split_width
         try:
             with ThreadPoolExecutor(width, thread_name_prefix="s3tsplit") as ex:
                 futs: collections.deque = collections.deque()

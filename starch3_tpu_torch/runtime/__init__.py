@@ -6,7 +6,10 @@ package's.  Only the build differs: the library is built with g++ at
 first use into the repository's ``build/`` (``_build.build_host``),
 named by a hash of the source and the flags, never next to the source.
 Every entry point has a NumPy fallback so the package works without a
-toolchain; ``get_lib()`` says which one runs.
+toolchain; ``get_lib()`` says which one runs.  The dense packs of the
+device lane (``dense_pack4_native``, ``dense_pack_words_native``) call the
+same library through a second, ``ctypes.PyDLL`` handle, which keeps the
+GIL for the call.
 
 The environment knobs keep their names: STARCH3_TPU_NO_NATIVE skips the
 library, STARCH3_TPU_NO_SIMD drops ``-march=native`` (the scalar paths),
@@ -29,6 +32,7 @@ import numpy as np
 _SRC = Path(__file__).resolve().parent / "runtime.cpp"
 _lock = threading.Lock()
 _lib = None
+_gil_lib = None  # the same library through ctypes.PyDLL: its calls keep the GIL
 _tried = False
 lib_path: Path | None = None  # the loaded library, once get_lib() found one
 
@@ -41,7 +45,7 @@ def _flags() -> tuple[str, ...]:
 
 def get_lib():
     """The loaded native library, or None (fallback mode)."""
-    global _lib, _tried, lib_path
+    global _lib, _gil_lib, _tried, lib_path
     if _lib is not None or _tried:
         return _lib
     with _lock:
@@ -102,15 +106,6 @@ def get_lib():
         lib.s3_selector_mtf.restype = None
         lib.s3_selector_mtf.argtypes = [
             ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-        ]
-        lib.s3_dense_pack4.restype = ctypes.c_int32
-        lib.s3_dense_pack4.argtypes = [
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
-        ]
-        lib.s3_dense_pack_words.restype = ctypes.c_int32
-        lib.s3_dense_pack_words.argtypes = [
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32,
-            ctypes.c_void_p, ctypes.c_void_p,
         ]
         lib.s3_read_block_symbols.restype = ctypes.c_int64
         lib.s3_read_block_symbols.argtypes = [
@@ -178,7 +173,20 @@ def get_lib():
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_int64,
         ]
-        _lib, lib_path = lib, path
+        # the device lane's packs take about a millisecond a block: letting
+        # the GIL go around each and winning it back beside a busy feed and
+        # the host stealers cost the lane tens of ms a batch (ROADMAP C4)
+        gil = ctypes.PyDLL(str(path))
+        gil.s3_dense_pack4.restype = ctypes.c_int32
+        gil.s3_dense_pack4.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+        ]
+        gil.s3_dense_pack_words.restype = ctypes.c_int32
+        gil.s3_dense_pack_words.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32,
+            ctypes.c_void_p, ctypes.c_void_p,
+        ]
+        _lib, _gil_lib, lib_path = lib, gil, path
         return _lib
 
 
@@ -400,18 +408,25 @@ def emit_decimals_native(
     return True
 
 
-def bed_transform_native(data: bytes):
+def bed_transform_native(data):
     """Fused BED parse + delta transform (runtime.cpp s3_bed_transform).
 
-    Returns a list of 6-tuples (chrom_name: str, text: bytes, line_count,
-    base_count_nonunique, base_count_unique, raw_input_offset) in input
-    order — raw_input_offset is the byte offset of the group's first
-    line in ``data`` — or None to fall back to the NumPy path
-    (unavailable runtime, or any parse error — the fallback re-raises
-    with exact diagnostics).
+    ``data`` is any contiguous byte buffer (``bytes``, ``bytearray``,
+    ``memoryview``, a uint8 NumPy array).  Returns a list of 6-tuples
+    (chrom_name: str, text, line_count, base_count_nonunique,
+    base_count_unique, raw_input_offset) in input order — raw_input_offset
+    is the byte offset of the group's first line in ``data`` — or None to
+    fall back to the NumPy path (unavailable runtime, or any parse error —
+    the fallback re-raises with exact diagnostics).
+
+    Each ``text`` is a read-only ``memoryview`` of one buffer the native
+    pass wrote, not a copy: copying a chunk's text to ``bytes`` holds the
+    GIL, which starves the threads beside the feed.  It equals the JAX
+    package's ``bytes`` under ``==``, and every consumer of a text (the
+    block split, the host encoders, ``len``) takes a buffer.
     """
     lib = get_lib()
-    if lib is None or not data:
+    if lib is None or not len(data):
         return None
     arr = np.frombuffer(data, dtype=np.uint8)
     # optimistic capacities first (counting newlines to size exactly costs
@@ -422,7 +437,7 @@ def bed_transform_native(data: bytes):
             out_cap = arr.size + arr.size // 4 + 4096
             max_chroms = 65536
         else:
-            n_lines = data.count(b"\n") + 1
+            n_lines = int(np.count_nonzero(arr == 10)) + 1
             out_cap = arr.size + 48 * n_lines + 64
             max_chroms = n_lines + 1
         out = np.empty(out_cap, dtype=np.uint8)
@@ -444,10 +459,10 @@ def bed_transform_native(data: bytes):
             break
     if nc < 0:
         return None
-    buf = out[: int(text_offsets[nc])].tobytes()
+    buf = memoryview(out).toreadonly()
     result = []
     for k in range(nc):
-        name = data[name_offsets[k] : name_offsets[k] + name_lens[k]]
+        name = arr[name_offsets[k] : name_offsets[k] + name_lens[k]].tobytes()
         result.append(
             (
                 name.decode("ascii"),
@@ -649,14 +664,14 @@ def selector_mtf_native(selectors: np.ndarray):
 def dense_pack4_native(arr: np.ndarray, out_row: np.ndarray):
     """Dense-remap + nibble-pack one block into ``out_row`` (runtime.cpp
     s3_dense_pack4).  Returns (n_in_use, used bool[256]) — the packed
-    row is only valid when n_in_use <= 16 — or None without the lib."""
-    lib = get_lib()
-    if lib is None:
+    row is only valid when n_in_use <= 16 — or None without the lib.
+    The call keeps the GIL."""
+    if get_lib() is None:
         return None
     assert arr.dtype == np.uint8 and out_row.dtype == np.uint8
     assert out_row.flags.c_contiguous and out_row.size >= (arr.size + 1) // 2
     used = np.zeros(256, dtype=np.uint8)
-    n_in_use = lib.s3_dense_pack4(
+    n_in_use = _gil_lib.s3_dense_pack4(
         arr.ctypes.data, arr.size, out_row.ctypes.data, used.ctypes.data
     )
     return int(n_in_use), used.astype(bool)
@@ -666,16 +681,16 @@ def dense_pack_words_native(arr: np.ndarray, bits: int, out_words: np.ndarray):
     """Dense-remap + word-pack one block for the mid-width upload format
     (runtime.cpp s3_dense_pack_words): 30//bits symbols per uint32, low
     bits first.  Returns (n_in_use, used bool[256]) — the packed row is
-    only valid when n_in_use <= 1 << bits — or None without the lib."""
-    lib = get_lib()
-    if lib is None:
+    only valid when n_in_use <= 1 << bits — or None without the lib.
+    The call keeps the GIL."""
+    if get_lib() is None:
         return None
     spw = 30 // bits
     assert arr.dtype == np.uint8 and out_words.dtype == np.uint32
     assert out_words.flags.c_contiguous
     assert out_words.size >= (arr.size + spw - 1) // spw
     used = np.zeros(256, dtype=np.uint8)
-    n_in_use = lib.s3_dense_pack_words(
+    n_in_use = _gil_lib.s3_dense_pack_words(
         arr.ctypes.data, arr.size, bits, out_words.ctypes.data, used.ctypes.data
     )
     return int(n_in_use), used.astype(bool)

@@ -16,7 +16,10 @@ survive a stalled stream.  The device Huffman ops (``ops/huff.py``,
 decode step on the card must equal the CPU, and a device decode of
 multi-block streams must equal ``bz2.decompress``.  The exact modes' BWT
 and steps on the card must equal the CPU, and an encode in each exact
-mode must equal libbz2 -9."""
+mode must equal libbz2 -9.  The fast step replayed as its CUDA graph must
+equal the eager step and the CPU for every class, keep two batches in
+flight apart, count the launches an eager batch counts, and replay one
+graph per entry of a mesh, each entry keeping its graphs past four keys."""
 
 import bz2
 
@@ -503,3 +506,188 @@ def test_two_entry_mesh_on_one_card_equals_bz2(cuda):
         assert mtf_narrow.width_launches[width] - narrow[width] == 2 * stats[f"batches_bits{bits}"]
     assert mtf_wide.width_launches[256] - by_width[256] == 2 * stats["batches_bits8"]
     assert pipeline.decode_streams([g.data for g in got], mesh=mesh) == texts
+
+
+def _fast_batch(bits: int, n_max: int, seed: int):
+    """A random batch of three rows of class ``bits`` in the upload format
+    of its fast step (``pack_batch``'s), one row shorter, one of length 1."""
+    gen = torch.Generator().manual_seed(seed)
+    hi = 200 if bits == 8 else 1 << bits
+    syms = torch.randint(0, hi, (3, n_max), generator=gen)
+    if bits == 4:
+        packed = (syms[:, 0::2] | (syms[:, 1::2] << 4)).to(torch.uint8)
+    elif bits in (5, 6):
+        packed = pipeline._pack_words(syms, 30 // bits, bits).to(torch.int32)
+    else:
+        packed = syms.to(torch.uint8)
+    lens = torch.tensor([n_max, n_max - 12_345, 1], dtype=torch.int32)
+    return packed, lens, torch.tensor([hi, hi, 1], dtype=torch.int32)
+
+
+def _chip_smoke():
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+
+    return chip_smoke
+
+
+@pytest.mark.parametrize("n_max", [458_752, 901_120])
+@pytest.mark.parametrize("bits", [4, 5, 6, 8])
+def test_replayed_rows_equal_eager_and_cpu(cuda, bits, n_max):
+    """The fast step of each class through the launcher as its CUDA graph
+    (``pipeline._StepGraph``): two batches of different data, each twice,
+    after the key's warm-up and capture, equal the same batches launched
+    eagerly and the step on the CPU."""
+    cs = _chip_smoke()
+    batches = [_fast_batch(bits, n_max, seed) for seed in (1, 2)]
+    want = [pipeline.step_for_class(*x, bits, n_max) for x in batches]
+    eager = [cs.launched_rows(cuda, x, bits, n_max, graphed=False) for x in batches]
+    replays = pipeline.device_stats["graph_replays"]
+    got = [cs.launched_rows(cuda, batches[k % 2], bits, n_max, graphed=True) for k in range(6)]
+    assert pipeline.device_stats["graph_replays"] - replays >= 4
+    assert any(where[2] == bits and key[0] == n_max for where, graphs in pipeline._STEP_GRAPHS.items() for key in graphs)
+    for k, rows in enumerate(got):
+        assert torch.equal(rows, want[k % 2]) and torch.equal(rows, eager[k % 2])
+
+
+def test_two_replays_in_flight_stay_apart(cuda):
+    """Batches launched back to back without a wait share the graph's
+    static inputs and rows: each copies its rows out on the stream before
+    the next replay overwrites them, so every batch keeps its own."""
+    bits, n_max = 4, 458_752
+    cs = _chip_smoke()
+    batches = [_fast_batch(bits, n_max, seed) for seed in (3, 4, 5)]
+    want = [pipeline.step_for_class(*x, bits, n_max) for x in batches]
+    for x in batches[:2]:  # the key's warm-up and capture
+        cs.launched_rows(cuda, x, bits, n_max, graphed=True)
+
+    def step(*args):
+        return pipeline.step_for_class(*args, bits, n_max), ()
+
+    replays = pipeline.device_stats["graph_replays"]
+    order = [0, 1, 2, 1, 0, 2, 2, 0]
+    launched = [pipeline._launch(cuda, batches[i], step, (bits, n_max)) for i in order]
+    for i, one in zip(order, launched):
+        one.synchronize()
+        assert torch.equal(one.future.result()[0], want[i])
+    assert pipeline.device_stats["graph_replays"] - replays == len(order)
+
+
+@pytest.mark.parametrize("bits", [4, 5, 6, 8])
+def test_replays_count_the_launches_of_eager_batches(cuda, bits):
+    """The MTF launch counters, by width, after three eager batches and
+    after three through the graph (warm-up or replay): the same counts,
+    though a replay runs no Python of the wrappers."""
+    n_max = 458_752
+    cs = _chip_smoke()
+    batch = _fast_batch(bits, n_max, 6)
+    deltas = []
+    for graphed in (False, True):
+        before = cs.launch_counts()
+        for _ in range(3):
+            cs.launched_rows(cuda, batch, bits, n_max, graphed=graphed)
+        deltas.append(cs.count_delta(before, cs.launch_counts()))
+    width = {4: "narrow16", 5: "narrow32", 6: "narrow64", 8: "wide256"}[bits]
+    assert deltas[0] == deltas[1] == {width: 3}
+
+
+def test_two_entry_mesh_replays_a_graph_per_entry(cuda):
+    """A mesh that names ``cuda:0`` twice, device only, with enough bits-4
+    batches that each entry's stream replays its own graph: bytes equal
+    libbz2 -9, one capture per entry, and the MTF kernel counted once per
+    entry per batch."""
+    import numpy as np
+
+    from starch3_tpu_torch.parallel.mesh import make_block_mesh
+
+    rng = np.random.default_rng(12)
+    texts = [bytes(rng.integers(0, 16, 20_000, dtype=np.uint8)) for _ in range(15)]
+    mesh = make_block_mesh(devices=["cuda:0", "cuda:0"])
+    for k in pipeline.device_stats:
+        pipeline.device_stats[k] = 0
+    narrow = dict(mtf_narrow.width_launches)
+    got = pipeline.encode_streams(texts, mesh=mesh, host_assist=False)
+    assert [g.data for g in got] == [bz2.compress(t, 9) for t in texts]
+    stats = pipeline.device_stats
+    assert stats["blocks"] == len(texts) and stats["batches"] >= 5
+    # at most one capture per entry (a pooled stream may already hold its key)
+    assert stats["graph_captures"] <= 2 and stats["graph_replays"] >= 2 * 3
+    assert mtf_narrow.width_launches[16] - narrow[16] == 2 * stats["batches"]
+    streams = {where[1] for where, graphs in pipeline._STEP_GRAPHS.items() if graphs}
+    assert {s.cuda_stream for s in mesh.streams} <= streams
+
+
+def test_graphs_past_the_cache_bound_capture_again(cuda):
+    """More keys of one class than the graph cache holds for a stream
+    (``_STEP_GRAPHS_MAX``), on the default stream and on a stream of their
+    own: the least recently used graphs are dropped, with their pool once
+    no live graph shares it, and a dropped key seen again is captured
+    anew at once, without a second warm-up, and rated (its batch is not
+    ``first_of_key``); rows equal the CPU's.  The n_max is no encode's
+    bucket, so no other test has warmed these keys."""
+    bits, n_max = 4, 20_480
+    side = torch.cuda.Stream()
+    keys = [(b_pad, stream) for stream in (None, side) for b_pad in range(1, pipeline._STEP_GRAPHS_MAX + 2)]
+
+    def batch_of(b_pad):
+        packed, lens, nsyms = _fast_batch(bits, n_max, b_pad)
+        return packed[:1].repeat(b_pad, 1), lens[:1].repeat(b_pad), nsyms[:1].repeat(b_pad)
+
+    def step(*args):
+        return pipeline.step_for_class(*args, bits, n_max), ()
+
+    def launched(batch, stream):
+        with torch.cuda.stream(stream or torch.cuda.current_stream()):
+            one = pipeline._launch(cuda, batch, step, (bits, n_max))
+        one.synchronize()
+        assert torch.equal(one.future.result()[0], pipeline.step_for_class(*batch, bits, n_max))
+        return one
+
+    for b_pad, stream in keys:
+        batch = batch_of(b_pad)
+        # warm-up, first capture and replay, replay
+        assert [launched(batch, stream).first_of_key for _ in range(3)] == [True, True, False]
+    for stream in (torch.cuda.current_stream(), side):
+        assert len(pipeline._STEP_GRAPHS[(cuda.index or 0, stream.cuda_stream, bits)]) == pipeline._STEP_GRAPHS_MAX
+    b_pad, stream = keys[0]  # the least recently used: dropped
+    captures, replays = pipeline.device_stats["graph_captures"], pipeline.device_stats["graph_replays"]
+    assert not launched(batch_of(b_pad), stream).first_of_key
+    assert pipeline.device_stats["graph_captures"] == captures + 1
+    assert pipeline.device_stats["graph_replays"] == replays + 1
+
+
+def test_mesh_entries_keep_their_graphs_past_four_keys_each(cuda):
+    """A mesh that names ``cuda:0`` twice, each entry launching batches of
+    six keys in turns (three classes at two n_max), four rounds: the graph
+    cache is bounded per card, stream and class, so no key drops another
+    entry's graph or its own: each key warms up and captures once per
+    entry, then replays, so the replays outnumber the captures three to
+    one, and each entry's stream holds every key's graph at the end (no
+    other test uses these n_max).  Rows equal the CPU's."""
+    from starch3_tpu_torch.parallel.mesh import make_block_mesh, on_entry
+
+    mesh = make_block_mesh(devices=["cuda:0", "cuda:0"])
+    keys = [(bits, n_max) for bits in (4, 5, 8) for n_max in (32_768, 65_536)]
+    batches = {key: _fast_batch(*key, 7) for key in keys}
+    wants = {key: pipeline.step_for_class(*batches[key], *key) for key in keys}
+
+    def step_of(bits, n_max):
+        return lambda *args: (pipeline.step_for_class(*args, bits, n_max), ())
+
+    stats = dict(pipeline.device_stats)
+    for _ in range(4):
+        for key in keys:
+            launched = []
+            for dev, stream in zip(mesh.devices, mesh.streams):
+                with on_entry(dev, stream):
+                    launched.append(pipeline._launch(dev, batches[key], step_of(*key), key))
+            for one in launched:
+                one.synchronize()
+                assert torch.equal(one.future.result()[0], wants[key])
+    captures = pipeline.device_stats["graph_captures"] - stats["graph_captures"]
+    replays = pipeline.device_stats["graph_replays"] - stats["graph_replays"]
+    assert captures == mesh.size * len(keys) and replays == 3 * captures
+    for stream in mesh.streams:
+        for bits, n_max in keys:
+            shapes = tuple(tuple(t.shape) for t in batches[(bits, n_max)])
+            assert (n_max, *shapes) in pipeline._STEP_GRAPHS[(0, stream.cuda_stream, bits)]

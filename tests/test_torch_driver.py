@@ -195,6 +195,53 @@ def test_slow_device_is_benched(rng, monkeypatch, fake, encode_threads):
     assert fake.drained >= 2
 
 
+class _StartEvent:
+    """A mock launch's timing event: ``seconds`` before the batch's own."""
+
+    def __init__(self, seconds):
+        self.seconds = seconds
+
+    def elapsed_time(self, _end):
+        return self.seconds * 1e3
+
+
+@pytest.mark.parametrize("marked", [True, False], ids=["first_of_key", "unmarked"])
+def test_first_of_key_batches_only_restart_the_clock(rng, monkeypatch, fake, encode_threads, marked):
+    """A key's first two batches on a card warm its step up and capture its
+    CUDA graph, once; the rule does not rate them.  The mock's first two
+    batches take 1 s each, the rest no time, handed back as the launcher
+    hands them (``(None, _Launched)``); one stealer at about 1.6 MB/s
+    starts once the device holds two batches.  Marked ``first_of_key``,
+    the device is not benched; unmarked, the second batch (1 s, rated
+    drain to drain) benches it."""
+    from concurrent.futures import Future
+
+    _, hooks = encode_threads
+    monkeypatch.setattr(os, "cpu_count", lambda: 1)
+    monkeypatch.setattr(host, "_DEMOTE_MIN_SAMPLES", 1)
+    hooks["before"] = lambda: (fake.wait_dispatched(2), time.sleep(0.05))
+    real = fake.dispatch
+
+    def dispatch(block_datas, nm, device, pad_to=None, mode="fast"):
+        first = fake.dispatched < 2
+        fake.delay_s = 1.0 if first else 0.0
+        (rows, event), aux = real(block_datas, nm, device, pad_to, mode)
+        done = Future()
+        done.set_result((rows, event))
+        launched = pipeline._Launched(done)
+        launched.start, launched.first_of_key = _StartEvent(aux.pop("step_s")), marked and first
+        return (None, launched), aux
+
+    monkeypatch.setattr(pipeline, "_dispatch_chunk", dispatch)
+    texts = _texts(rng, 40)
+    before = dict(host.scheduler_stats)
+    _assert_exact(texts, _encode(iter(texts), host_assist=True))
+    delta = _stats_since(before)
+    assert delta["abandoned_batches"] == 0
+    assert (delta["demotions"] == 0) == marked
+    assert fake.drained >= 3
+
+
 def test_starved_device_is_not_benched(rng, monkeypatch, fake, encode_threads):
     """The drain rate counts the device's own time, not the wait for
     blocks: a device with no delay, fed a text of four level-1 blocks
@@ -418,3 +465,33 @@ def test_second_encode_is_seeded_from_the_class_rate_cache(rng, monkeypatch, fak
     monkeypatch.setattr(pipeline, "_BlockQueue", Queue)
     _assert_exact(texts, _encode(iter(texts), host_assist=False))
     assert seen == [(cache, dict.fromkeys(cache, host._CLASS_MIN_SAMPLES))]
+
+
+@pytest.mark.parametrize("cores,on_card,want", [
+    (8, False, (8, 8)), (8, True, (4, 4)), (32, True, (28, 8)), (6, True, (2, 2)), (2, True, (1, 2)),
+    (1, False, (1, 2)),
+])
+def test_host_threads_leave_cores_to_the_lane_beside_a_card(monkeypatch, cores, on_card, want):
+    """On the CPU every core steals, as in the reference; beside a card the
+    stealers and the split pool take the cores left after the lane's
+    four."""
+    monkeypatch.setattr(os, "cpu_count", lambda: cores)
+    assert pipeline._host_threads(on_card) == want
+
+
+def test_cpu_encode_starts_a_stealer_per_core(rng, monkeypatch):
+    """The CPU device's hybrid starts one stealer per core and splits on
+    as many threads (at most 8), as before."""
+    monkeypatch.setattr(os, "cpu_count", lambda: 3)
+    started = []
+    real = pipeline._start_host_stealers
+
+    def record(q, *args):
+        threads = real(q, *args)
+        started.append((len(threads), q.n_stealers))
+        return threads
+
+    monkeypatch.setattr(pipeline, "_start_host_stealers", record)
+    texts = _texts(rng, 4)
+    _assert_exact(texts, _encode(iter(texts), host_assist=True))
+    assert started == [(3, 3)]

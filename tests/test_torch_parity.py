@@ -90,7 +90,10 @@ PORT_EXTRAS = {
     "ops/imtf.py": (("tile_permutations", "compose_exclusive", "gather_symbols"),
                     "the parts of imtf_decode_padded, each held to the CPU and timed apart on the card"),
     "ops/mtf_narrow.py": (("mtf_ranks_narrow_reference",), "the kernel's plain version"),
-    "ops/mtf_wide.py": (("launch",), "the windowed kernel's launch, shared with mtf_narrow at widths 32/64"),
+    "ops/mtf_wide.py": (("launch", "captured_launches", "count_launch", "count_replayed"),
+                        "the windowed kernel's launch, shared with mtf_narrow at widths 32/64, and the "
+                        "launch counts of both wrappers, which a CUDA graph's replay counts as its capture "
+                        "recorded them"),
     "parallel/distributed.py": (("shutdown_distributed",), "ends the gloo process group"),
     "parallel/mesh.py": (("BlockMesh", "on_entry"),
                          "a mesh of torch devices, each with its stream, in place of a jax.sharding.Mesh"),

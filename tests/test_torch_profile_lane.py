@@ -1,6 +1,8 @@
 """``starch3_tpu_torch.profile_lane`` on the CPU at a small size: it records
 one rate sample for each batch the driver drained, with the rule's parts,
-and leaves the driver's names and no thread of its own behind."""
+the GIL probe's long waits with the threads and places it charges them
+to, and the torch operations of one batch on the thread that runs the
+step, and leaves the driver's names and no thread of its own behind."""
 
 import threading
 
@@ -27,7 +29,7 @@ def test_one_sample_per_drained_batch(bed, feed):
     assert len(res["samples"]) == res["device_batches"] >= 1
     assert res["samples"][0]["kind"] == "first"
     for s in res["samples"]:
-        assert s["kind"] in ("first", "dry", "queued")
+        assert s["kind"] in ("first", "dry", "queued")  # "once" needs a card's graph
         if s["kind"] != "queued":
             assert s["span_ms"] == max(s["pack_ms"] + s["drain_ms"], s["device_ms"])
         if s["kind"] != "first":  # the driver's rate has a sample by now
@@ -35,3 +37,50 @@ def test_one_sample_per_drained_batch(bed, feed):
     assert len(res["pack_ms"]) == 5 and res["pack_ms"] == sorted(res["pack_ms"])
     assert res["dry"]["n"] + res["queued"]["n"] == len(res["samples"]) - 1
     assert res["mb_per_s"] > 0 and res["gil_wait_ms"]
+    assert res["gil_long_waits"] >= 0 and res["gil_long_wait_ms"] >= 0
+    assert res["dry_at_or_below_bench"] <= res["dry"]["n"]
+    for h in res["gil_holders"]:
+        assert set(h) == {"thread", "where", "top", "ms", "waits"}
+        assert h["ms"] > 0 and h["waits"] >= 1 and h["thread"] != "gil-probe"
+    assert sum(h["ms"] for h in res["gil_holders"]) <= res["gil_long_wait_ms"] + 1e-6
+    # no launcher on the CPU: the step runs in the dispatch
+    assert len(res["dispatch_ms"]) == 5 and res["dispatch_ms"][0] > 0
+    assert res["submit_ms"] == res["launch_ms"] == []
+    # the CPU runs the step op by op on the caller; no graph there
+    assert res["launcher_ops"]["eager"] > 20 and res["launcher_ops"]["replay"] is None
+
+
+def test_gil_holders_are_the_threads_that_ran():
+    """A long wait is charged to the threads whose innermost frame moved
+    while the probe slept, at their places, and to no parked thread."""
+    import time
+
+    holders = profile_lane._GilHolders()
+    parked, go, stop = threading.Event(), threading.Event(), threading.Event()
+
+    def park():
+        parked.wait()
+
+    def spin():
+        go.wait()
+        while not stop.is_set():
+            sum(range(200))
+
+    threads = [threading.Thread(target=park, name="parked_1"), threading.Thread(target=spin, name="busy_7")]
+    for t in threads:
+        t.start()
+    try:
+        time.sleep(0.05)
+        before = holders.before()
+        go.set()
+        time.sleep(0.05)
+        holders.after(12.0, before)
+    finally:
+        stop.set()
+        parked.set()
+        for t in threads:
+            t.join()
+    top = holders.top()
+    assert holders.long_waits == 1 and holders.long_wait_ms == 12.0
+    assert [h["thread"] for h in top] == ["busy"]
+    assert top[0]["ms"] == 12.0 and "test_torch_profile_lane.py" in top[0]["where"]

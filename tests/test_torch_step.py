@@ -22,6 +22,8 @@ alphabet tier plus pad rows.  Tolerance: zero.
   ``step_exact_rle2`` vs ``_jitted_fused_step_rle2(n_max, False)``, whole
   rows; ``device_encode_blocks`` vs the JAX one."""
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -119,6 +121,48 @@ def _tier_rows(bits: int, n_max: int):
     host, lens, nsyms, _ = pack_batch(datas, n_max, bits, b_pad=4)
     assert (nsyms[:2] > {5: 16, 6: 32, 8: 64}[bits]).all()
     return host.numpy(), lens, nsyms
+
+
+@pytest.mark.parametrize("native", [True, False], ids=["native", "numpy"])
+@pytest.mark.parametrize("bits", [4, 5, 6])
+def test_pack_batch_rows_equal_jax_runtime(rng, monkeypatch, bits, native):
+    """``pack_batch`` packs each block with the native runtime (through
+    its GIL-keeping handle), or in NumPy without the native lib: either
+    way each row, its distinct-byte count and its used table equal the
+    JAX runtime's packer on the block, and the pad row stays zero."""
+    from starch3_tpu import runtime as jax_runtime
+    from starch3_tpu_torch import runtime
+
+    n_max = 4096
+    if bits == 4:
+        text = b"".join(_parse_transform_text(make_bed_text(rng, n=1500)))
+    else:
+        text = _tier_text(bits, n_max)
+    assert len(text) >= 2 * n_max - 700
+    datas = [text[:n_max], text[n_max : 2 * n_max - 700], text[:1]]
+    if not native:
+        monkeypatch.setattr(runtime, "dense_pack4_native", lambda *a: None)
+        monkeypatch.setattr(runtime, "dense_pack_words_native", lambda *a: None)
+    else:
+        assert runtime.get_lib() is not None and isinstance(runtime._gil_lib, ctypes.PyDLL)
+    packed, lens, nsyms, useds = pack_batch(datas, n_max, bits, b_pad=4)
+    rows = packed.numpy().view(np.uint8 if bits == 4 else np.uint32)
+    assert lens.tolist() == [len(d) for d in datas] + [1] and nsyms[3] == 1 and not rows[3].any()
+    for i, data in enumerate(datas):
+        arr = np.frombuffer(data, np.uint8)
+        want = np.zeros_like(rows[i])
+        if bits == 4:
+            n_in_use, used = jax_runtime.dense_pack4_native(arr, want)
+        else:
+            n_in_use, used = jax_runtime.dense_pack_words_native(arr, bits, want)
+        assert nsyms[i] == n_in_use and useds[i].dtype == bool and (useds[i] == used).all()
+        assert (rows[i] == want).all()
+
+
+def _parse_transform_text(bed: bytes) -> list:
+    from starch3_tpu.api import _parse_transform
+
+    return [t.text for t in _parse_transform(bed)]
 
 
 @pytest.mark.parametrize("bits", [5, 6])
