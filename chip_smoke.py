@@ -141,45 +141,60 @@ streams and archives.  It exits 0 only if every phase passes:
      (c) the host helpers ``bwt_fast_host``, ``mtf_ranks_narrow_host`` and
      ``mtf_ranks_wide_host`` on one real block each, card equal to CPU,
      each helper's kernel launched once.
-  13. the main path at the scale its users run, each leg a child process
-     of ``python -m starch3_tpu_torch.scale_run`` (killed with what it
-     started when it fails or outlives its timeout), on the scale corpus
-     ``corpus.gigabyte_bed`` at 1.1e9 bytes of BED (``TestGigabyteScale``'s
-     bytes, about 44M intervals in 22 chromosomes) and its half at
-     5.5e8 bytes, a prefix, both in a temporary directory (the phase
-     fails when the disk lacks room): (a) the host path,
-     ``compress_bed_file(EncodeConfig())``, gives the reference archive;
+  13. the main path at the scale its users run (``phase_scale``), each
+     leg a child process of ``python -m starch3_tpu_torch.scale_run``
+     (killed with what it started when it fails or outlives its
+     timeout), on the scale corpus ``corpus.gigabyte_bed`` at 1.1e9
+     bytes of BED (``TestGigabyteScale``'s bytes, about 44M intervals in
+     22 chromosomes) and its half at 5.5e8 bytes, a prefix, both in a
+     temporary directory (the phase fails when the disk lacks room):
+     (a) the host path, ``compress_bed_file(EncodeConfig())``, gives the
+     reference archive;
      (b) ``compress_bed_file(EncodeConfig(use_jax=True))`` on the half
      corpus and on the whole one: the whole archive equals (a)'s, the
      half's streams are (a)'s first streams, no batch abandoned and the
      device never benched (0 demotions in each run; its blocks on the
-     device are printed);
+     device are printed), the MTF launches by width equal to the device
+     batches by class;
      (c) ``cat corpus | python -m starch3_tpu_torch.cli --jax`` writes
      (a)'s bytes; (d) device only under ``STARCH3_TPU_NO_HOST_FALLBACK=1``,
      each chromosome transformed whole and fed in order to
      ``encode_streams_iter(host_assist=False)``: every stream equals
-     (a)'s, every block on the device, nothing abandoned or benched, the
-     width-16 launches equal the bits-4 batches, and the card's busy
-     share over a traced window of at least 50 batches
-     (``device_trace``), and the timed run's share derived from it; a
-     differing stream's text and first differing
-     block go to ``build/``; (e) ``decompress_starch_file`` of (b)'s
-     archive gives back the corpus; (f) from the half run to the whole
-     one, the encode's own memory, its peak RSS (sampled every 20 ms: a
-     child keeps ``ru_maxrss`` from this process) above the RSS its leg
-     had before the encode, grows by at most 15% and
-     ``max_memory_reserved`` by at most 10%.  The encode's memory climbs
-     until its first streams are out, about 4-5 s in, then stays level;
-     both corpora run past that point (the quarter corpus does not), so
-     growth between them is a leak, not the climb.  Each leg prints its
-     times, digests, memory peaks and series, and counters.
+     (a)'s, every block on the device and of the corpus's tier, nothing
+     abandoned or benched, the MTF launches by width equal to the device
+     batches by class, and the card's busy share over a traced window of
+     at least 50 batches (``device_trace``), and the timed run's share
+     derived from it; a differing stream's text, record and first
+     differing block's MTF case go to ``build/``; (e)
+     ``decompress_starch_file`` of (b)'s archive gives back the corpus;
+     (f) from the half run to the whole one, the encode's own memory, its
+     peak RSS (sampled every 20 ms: a child keeps ``ru_maxrss`` from this
+     process) above the RSS its leg had before the encode, grows by at
+     most 15% and ``max_memory_reserved`` by at most 10%.  The encode's
+     memory climbs until its first streams are out, about 4-5 s in, then
+     stays level; both corpora run past that point (the quarter corpus
+     does not), so growth between them is a leak, not the climb.  Each
+     leg prints its times, digests, memory peaks and series, and
+     counters.
+  14. the BED6 tiers at scale, the same phase over the tiers of
+     ``SCALE_RUNS`` with their corpora written together:
+     ``corpus.config3_scale_bed`` (bits 5) at 1.1e9 bytes of BED and its
+     5.5e8-byte prefix, ``bits6_scale_bed`` (bits 6) at 5.5e8 and
+     ``wide8_scale_bed`` (bits 8) at 2.75e8.  Each runs (a), (b) (config3
+     on its half corpus too), (d), (e) and, on config3, (f), with the
+     gates of phase 13 (``scale_faults``), but no pipe leg, and a
+     demotion of the hybrid fails a tier only where (d)'s MB/s of text is
+     at least (a)'s.  Each tier prints its MB/s of BED and of text,
+     device blocks of all blocks, blocks, batches, tie re-encodes, graph
+     captures and replays and class skips per class, the busy share and
+     the memory peaks, beside the card's name and power limit.
 
 The port imports nothing of JAX and nothing of the JAX package
 ``starch3_tpu``; the run fails if either is loaded.  The line before the
 card's name is one JSON object describing each kernel of the path (the
 narrow wrapper's two kernels apart, each with the launches it counted);
-the wide kernel's entry counts its launches by width too, phases 10 and
-12 included; the last line
+the wide kernel's entry counts its launches by width too, phases 10,
+12 and 14 included; the last line
 is ``{"ok": true, "device": {...}}``.  Without
 a card, or without the rest of the repository, it fails before printing
 any result.
@@ -199,6 +214,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import typing
 
 import numpy as np
 import torch
@@ -1331,9 +1347,24 @@ def phase_host_helpers(device, texts2, texts8, smi: str) -> dict:
     return launches
 
 
-SCALE_TARGET = 1_100_000_000  # BED bytes of the scale corpus (TestGigabyteScale's)
-SCALE_HALF = 550_000_000  # the half corpus, a prefix of it, past the point where the encode's memory levels off
-SCALE_FREE_BYTES = 3_000_000_000  # both corpora and four archives, with room to spare
+class ScaleTier(typing.NamedTuple):
+    target: int  # BED bytes of its corpus
+    half: int | None  # BED bytes of its half corpus, a prefix of it, or None
+    pipe: bool  # whether it runs (c), ``cat | cli --jax``
+    keep_card: bool  # whether the hybrid must never bench the card, whatever (d)'s rate
+
+
+# the tiers at scale by ``corpus.SCALE_SHAPES``' shape: phase 13's bits 4
+# (``TestGigabyteScale``'s bytes) and phase 14's BED6 tiers, bits 5, 6 and
+# 8, cut to chip_smoke's time (PERF.md §4); each half corpus runs past the
+# point where the encode's memory levels off
+SCALE_RUNS = {
+    "bed3": ScaleTier(1_100_000_000, 550_000_000, pipe=True, keep_card=True),
+    "config3": ScaleTier(1_100_000_000, 550_000_000, pipe=False, keep_card=False),
+    "bits6": ScaleTier(550_000_000, None, pipe=False, keep_card=False),
+    "wide8": ScaleTier(275_000_000, None, pipe=False, keep_card=False),
+}
+SCALE_ARCHIVE_ROOM = 1_350_000_000  # one tier's archives beside its phase's corpora, with room to spare
 
 
 def scale_child(label: str, args, deadline: float, limit_s: float, env=None) -> dict:
@@ -1370,96 +1401,173 @@ def archive_streams_end(path: str) -> int:
         return int(f.read(20))
 
 
-def phase_scale(smi: str, deadline: float) -> int:
-    """Phase 13: the main path at the scale its users run, each leg in a
-    child process (``scale_child``).  Returns the width-16 launches of
-    (b) and (d)."""
+def streams_are_a_prefix(half_path: str, whole_path: str) -> bool:
+    """Whether the half corpus's archive holds the whole one's first streams."""
+    end = archive_streams_end(half_path)
+    with open(whole_path, "rb") as fw, open(half_path, "rb") as fh:
+        return fh.read(end) == fw.read(end)
+
+
+def memory_growth(half: dict, whole: dict) -> tuple[float, float]:
+    """From the half corpus's encode to the whole one's: the growth of the
+    encode's own peak RSS (above the RSS its leg had before it, about 4.5
+    GB of ``import torch`` on the card's host) and of
+    ``max_memory_reserved``; phase 13 (f) bounds them at x1.15 and x1.10."""
+    own = (whole["peak_rss_mb"] - whole["rss_start_mb"]) / (half["peak_rss_mb"] - half["rss_start_mb"])
+    return own, whole["max_memory_reserved"] / half["max_memory_reserved"]
+
+
+def scale_faults(shape: str, legs: dict, half_prefix: bool = True) -> list[str]:
+    """The gates of phases 13 and 14 on one tier's legs: ``gen`` (the
+    corpus), ``a``, ``b`` and ``d``, and ``b_half`` and ``c`` where the
+    tier runs them.  (b)'s and (c)'s archives equal (a)'s, the half
+    archive's streams are (a)'s first (``half_prefix``), (e) decodes to
+    the corpus, no hybrid abandons a batch, (d)'s traced window holds at
+    least 50 batches, and from half to whole the memory bounds of (f).
+    A hybrid must not bench the card where the tier says so
+    (``ScaleTier.keep_card``), nor where device only (d) encodes at least
+    the host path's (a) MB/s of text: there the card beats all the host
+    cores, and benching it is ROADMAP C4 again.  The children gate the
+    rest: each device leg its streams, tier, fallbacks and launches by
+    width, each hybrid its launches by width."""
+    full, a, b, dv = legs["gen"], legs["a"], legs["b"], legs["d"]
+    faults = []
+    for label in ("b", "c"):
+        if label in legs and legs[label]["archive_digest"] != a["archive_digest"]:
+            faults.append(f"({label}) archive {legs[label]['archive_digest']} != host path's {a['archive_digest']}")
+    if not half_prefix:
+        faults.append("(b) the half archive's streams are not the host archive's first streams")
+    if b["decode"]["digest"] != full["digest"] or b["decode"]["bytes"] != full["bytes"]:
+        faults.append(f"(e) decode {b['decode']} != the corpus {full['digest']} {full['bytes']}")
+    host_text = dv["text_bytes"] / a["seconds"] / 1e6
+    keep_card = SCALE_RUNS[shape].keep_card or dv["mb_per_s_text"] >= host_text
+    for label, key in (("(b) half", "b_half"), ("(b)", "b")):
+        sched = legs[key]["scheduler_stats"] if key in legs else {}
+        if sched.get("abandoned_batches"):
+            faults.append(f"{label} abandoned batches: {sched}")
+        if keep_card and sched.get("demotions"):
+            faults.append(f"{label} benched the device, which alone encodes {dv['mb_per_s_text']:.3f} MB/s of "
+                          f"text against the host path's {host_text:.3f}: {sched}")
+    batches = dv["traced"]["trace"].get("batches") or 0
+    if batches < 50:
+        faults.append(f"(d) the traced window holds {batches} batches, fewer than 50")
+    if "b_half" in legs:
+        rss, reserved = memory_growth(legs["b_half"], b)
+        if rss > 1.15 or reserved > 1.10:
+            faults.append(f"(f) memory grew with the corpus: the encode's peak RSS above its start x{rss:.4f} "
+                          f"(bound 1.15), max_memory_reserved x{reserved:.4f} (bound 1.10)")
+    return [f"{shape} {f}" for f in faults]
+
+
+def tier_launches(legs: dict) -> dict:
+    """The MTF launches by width of a tier's hybrids (b) and of both
+    device-only runs (d), each counted in its child process."""
+    runs = [legs[k] for k in ("b_half", "b") if k in legs] + [legs["d"], legs["d"]["traced"]]
+    return {w: sum(r["width_launches"][w] for r in runs) for w in ("16", "32", "64", "128", "256")}
+
+
+def phase_scale(smi: str, shapes, deadline: float) -> dict:
+    """Phases 13 and 14: the tiers ``shapes`` of ``SCALE_RUNS`` at the
+    scale their users run, their corpora written together in a temporary
+    directory (the disk's room checked first), then tier by tier each leg
+    in a child process (``scale_child``); every gate of ``scale_faults``.
+    Returns the MTF launches of (b) and (d) by width."""
     import shutil
 
     torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory(prefix="s3t-scale-") as d:
-        free = shutil.disk_usage(d).free
-        if free < SCALE_FREE_BYTES:
-            raise AssertionError(f"scale: {free} bytes free in {d}, the phase needs {SCALE_FREE_BYTES}")
-        bed, half = os.path.join(d, "full.bed"), os.path.join(d, "half.bed")
-        arc = {k: os.path.join(d, f"{k}.starch") for k in ("a", "b_half", "b", "c")}
-        with concurrent.futures.ThreadPoolExecutor(2) as ex:
-            gens = [ex.submit(scale_child, f"corpus {t:.3g}", ["gen", path, t], deadline, 240)
-                    for path, t in ((bed, SCALE_TARGET), (half, SCALE_HALF))]
-            full, part = (g.result() for g in gens)
-        if full["bytes"] < 1_000_000_000:
-            raise AssertionError(f"scale: the corpus has {full['bytes']} bytes")
-        with open(bed, "rb") as f:
-            if hashlib.sha256(f.read(part["bytes"])).hexdigest() != part["digest"]:
-                raise AssertionError("scale: the half corpus is not a prefix of the corpus")
-        # (a) the reference bytes: the host path
-        a = scale_child("(a) host path", ["encode", bed, arc["a"]], deadline, 300)
-        # (b) the hybrid through the file entry, half then whole; (e) decode
-        bh = scale_child("(b) hybrid, half corpus", ["encode", half, arc["b_half"], "--jax"], deadline, 200)
-        b = scale_child("(b) hybrid + (e) decode", ["encode", bed, arc["b"], "--jax", "--decode"], deadline, 300)
-        # (c) the CLI through a real pipe
-        c = scale_child("(c) cat | cli --jax", ["pipe", bed, arc["c"]], deadline, 300)
-        # (d) device only, every stream against (a)'s
-        dv = scale_child("(d) device only", ["device", bed, arc["a"], os.path.join(d, "trace"), BUILD_DIR],
-                         deadline, 300, env={"STARCH3_TPU_NO_HOST_FALLBACK": "1"})
-        with open(arc["a"], "rb") as fa, open(arc["b_half"], "rb") as fh:
-            end = archive_streams_end(arc["b_half"])
-            half_streams_ok = fh.read(end) == fa.read(end)
+    launches = dict.fromkeys(("16", "32", "64", "128", "256"), 0)
     faults = []
-    for label, r in (("(b) hybrid", b), ("(c) pipe", c)):
-        if r["archive_digest"] != a["archive_digest"]:
-            faults.append(f"{label} archive {r['archive_digest']} != host path's {a['archive_digest']}")
-    if not half_streams_ok:
-        faults.append("(b) the half archive's streams are not the host archive's first streams")
-    for label, r in (("(b) half", bh), ("(b) hybrid", b)):
-        # a healthy card is never benched beside the feed and the stealers
-        # (ROADMAP C4)
-        sched, on_device = r["scheduler_stats"], r["device_stats"].get("blocks", 0)
-        log(f"scale {label}: demotions {sched['demotions']}, blocks on the device {on_device} of {r['blocks']}, "
-            f"{r['mb_per_s_bed']:.3f} MB/s of BED, the feed's transform {r['transform_seconds']:.3f} s, graph "
-            f"captures {r['device_stats'].get('graph_captures', 0)} and replays "
-            f"{r['device_stats'].get('graph_replays', 0)}; on {smi}")
-        if sched["abandoned_batches"] or sched["demotions"]:
-            faults.append(f"{label} benched the device: {sched}")
-    if b["decode"]["digest"] != full["digest"] or b["decode"]["bytes"] != full["bytes"]:
-        faults.append(f"(e) decode {b['decode']} != the corpus {full['digest']} {full['bytes']}")
-    trace = dv["traced"]["trace"]
-    if (trace.get("batches") or 0) < 50:
-        faults.append(f"(d) the traced window holds {trace.get('batches')} batches, fewer than 50")
-    # the encode's own memory: the peak above the RSS its leg had before it
-    # (about 4.5 GB of ``import torch`` on the card's host)
-    own = {k: r["peak_rss_mb"] - r["rss_start_mb"] for k, r in (("half", bh), ("whole", b))}
-    rss, reserved = own["whole"] / own["half"], b["max_memory_reserved"] / bh["max_memory_reserved"]
-    if rss > 1.15 or reserved > 1.10:
-        faults.append(f"(f) memory grew with the corpus: the encode's peak RSS above its start x{rss:.4f} "
-                      f"(bound 1.15), max_memory_reserved x{reserved:.4f} (bound 1.10)")
-    st = b["device_stats"]
-    n = full["bytes"]
-    launches = sum(r["width_launches"]["16"] for r in (bh, b, dv, dv["traced"]))
-    log(f"scale summary, {n} bytes of BED ({full['seconds']:.3f} s to generate): "
-        f"(a) host {a['mb_per_s_bed']:.3f} MB/s of BED ({dv['text_bytes'] / a['seconds'] / 1e6:.3f} of text); "
-        f"(b) hybrid {b['mb_per_s_bed']:.3f} MB/s of BED, blocks on the device {st.get('blocks', 0)} "
-        f"({st.get('batches', 0)} batches) and on the stealers {b['blocks'] - st.get('blocks', 0)}, "
-        f"tie re-encodes {st.get('tie_reencodes', 0)}, scheduler {b['scheduler_stats']}; "
-        f"(c) cat | cli --jax {c['mb_per_s_bed']:.3f} MB/s of BED; "
-        f"(d) device only, timed {dv['mb_per_s_text']:.3f} MB/s of text ({dv['text_bytes']} bytes, "
-        f"{dv['blocks']} blocks, {dv['device_stats'].get('batches', 0)} batches in {dv['seconds']:.3f} s), "
-        f"busy share {dv['busy_share_derived']} derived for it; traced run {dv['traced']['mb_per_s_text']:.3f} "
-        f"MB/s of text, busy share {trace.get('busy_share')} over {trace.get('batches')} steady batches "
-        f"({trace.get('batches_per_s')} batches/s, {trace.get('device_ms_per_batch')} device ms a batch); "
-        f"(e) decode {b['decode']['mb_per_s_bed']:.3f} MB/s of BED; "
-        f"(f) the encode's own peak RSS, half -> whole, {own['half']:.1f} -> {own['whole']:.1f} MB (x{rss:.4f}; "
-        f"peak RSS {bh['peak_rss_mb']:.1f} -> {b['peak_rss_mb']:.1f}, at the start {bh['rss_start_mb']:.1f} and "
-        f"{b['rss_start_mb']:.1f}; the C heap's peak in use {bh.get('c_heap_in_use_peak_mb')} -> "
-        f"{b.get('c_heap_in_use_peak_mb')} and held {bh.get('c_heap_held_peak_mb')} -> "
-        f"{b.get('c_heap_held_peak_mb')}; ru_maxrss, which a child keeps from this process, "
-        f"{bh['ru_maxrss_mb']:.1f} -> {b['ru_maxrss_mb']:.1f}), "
-        f"max_memory_reserved {bh['max_memory_reserved']} -> {b['max_memory_reserved']} (x{reserved:.4f}), "
-        f"page-locked bytes held {bh.get('pinned_bytes')} -> {b.get('pinned_bytes')} "
-        f"(device only {dv.get('pinned_bytes')}); width-16 launches {launches}; on {smi}")
+    with tempfile.TemporaryDirectory(prefix="s3t-scale-") as d:
+        jobs = {(shape, part): (os.path.join(d, f"{shape}-{part}.bed"), t) for shape in shapes
+                for part, t in (("full", SCALE_RUNS[shape].target), ("half", SCALE_RUNS[shape].half)) if t}
+        need, free = sum(t for _, t in jobs.values()) + SCALE_ARCHIVE_ROOM, shutil.disk_usage(d).free
+        if free < need:
+            raise AssertionError(f"scale: {free} bytes free in {d}, the phase needs {need}")
+        with concurrent.futures.ThreadPoolExecutor(len(jobs)) as ex:
+            gens = {k: ex.submit(scale_child, f"{k[0]} corpus {t:.3g}", ["gen", path, t, "--shape", k[0]],
+                                 deadline, 240) for k, (path, t) in jobs.items()}
+            corpora = {k: g.result() for k, g in gens.items()}
+        for shape in shapes:
+            tier, bed = SCALE_RUNS[shape], jobs[shape, "full"][0]
+            legs = {"gen": corpora[shape, "full"]}
+            if legs["gen"]["bytes"] < tier.target:
+                raise AssertionError(f"scale {shape}: the corpus has {legs['gen']['bytes']} bytes")
+            arc = {k: os.path.join(d, f"{shape}-{k}.starch") for k in ("a", "b_half", "b", "c")}
+            # (a) the reference bytes: the host path
+            legs["a"] = scale_child(f"{shape} (a) host path", ["encode", bed, arc["a"]], deadline, 300)
+            # (b) the hybrid through the file entry, half then whole; (e) decode
+            half_prefix = True
+            if tier.half:
+                half, part = jobs[shape, "half"][0], corpora[shape, "half"]
+                with open(bed, "rb") as f:
+                    if hashlib.sha256(f.read(part["bytes"])).hexdigest() != part["digest"]:
+                        raise AssertionError(f"scale {shape}: the half corpus is not a prefix of the corpus")
+                legs["b_half"] = scale_child(f"{shape} (b) hybrid, half corpus",
+                                             ["encode", half, arc["b_half"], "--jax"], deadline, 200)
+                half_prefix = streams_are_a_prefix(arc["b_half"], arc["a"])
+            legs["b"] = scale_child(f"{shape} (b) hybrid + (e) decode",
+                                    ["encode", bed, arc["b"], "--jax", "--decode"], deadline, 300)
+            if tier.pipe:  # (c) the CLI through a real pipe
+                legs["c"] = scale_child(f"{shape} (c) cat | cli --jax", ["pipe", bed, arc["c"]], deadline, 300)
+            # (d) device only, every stream against (a)'s
+            legs["d"] = scale_child(f"{shape} (d) device only", ["device", bed, arc["a"], os.path.join(
+                d, f"trace-{shape}"), BUILD_DIR, "--shape", shape], deadline, 300,
+                env={"STARCH3_TPU_NO_HOST_FALLBACK": "1"})
+            faults += scale_faults(shape, legs, half_prefix)
+            for w, n in tier_launches(legs).items():
+                launches[w] += n
+            log_scale(shape, smi, legs)
+            for path in [p for k, (p, _) in jobs.items() if k[0] == shape] + list(arc.values()):
+                if os.path.exists(path):
+                    os.remove(path)
     if faults:
         raise AssertionError("scale: " + "; ".join(faults))
     return launches
+
+
+def _classes_run(per_class: dict) -> dict:
+    """``per_class`` without the classes that counted nothing."""
+    return {c: v for c, v in per_class.items() if any(v.values())}
+
+
+def log_scale(shape: str, smi: str, legs: dict) -> None:
+    """One tier's figures, each beside the card's name and power limit."""
+    full, a, b, dv = legs["gen"], legs["a"], legs["b"], legs["d"]
+    bh, text, trace = legs.get("b_half"), dv["text_bytes"], dv["traced"]["trace"]
+    for label, key in (("(b) half", "b_half"), ("(b) whole", "b")):
+        if key not in legs:
+            continue
+        r = legs[key]
+        st, sched = r["device_stats"], r["scheduler_stats"]
+        log(f"scale {shape} {label}: {r['mb_per_s_bed']:.3f} MB/s of BED, blocks on the device "
+            f"{st.get('blocks', 0)} ({st.get('batches', 0)} batches) of {r['blocks']}, scheduler {sched}, the "
+            f"feed's transform {r['transform_seconds']:.3f} s, per class {_classes_run(r['per_class'])}; on {smi}")
+    if bh:
+        rss, reserved = memory_growth(bh, b)
+        mem = (f"(f) the encode's own peak RSS, half -> whole, {bh['peak_rss_mb'] - bh['rss_start_mb']:.1f} -> "
+               f"{b['peak_rss_mb'] - b['rss_start_mb']:.1f} MB (x{rss:.4f}; peak RSS {bh['peak_rss_mb']:.1f} -> "
+               f"{b['peak_rss_mb']:.1f}, at the start {bh['rss_start_mb']:.1f} and {b['rss_start_mb']:.1f}; the C "
+               f"heap's peak in use {bh.get('c_heap_in_use_peak_mb')} -> {b.get('c_heap_in_use_peak_mb')} and "
+               f"held {bh.get('c_heap_held_peak_mb')} -> {b.get('c_heap_held_peak_mb')}; ru_maxrss, which a child "
+               f"keeps from this process, {bh['ru_maxrss_mb']:.1f} -> {b['ru_maxrss_mb']:.1f}), "
+               f"max_memory_reserved {bh['max_memory_reserved']} -> {b['max_memory_reserved']} (x{reserved:.4f}), "
+               f"page-locked bytes held {bh.get('pinned_bytes')} -> {b.get('pinned_bytes')}")
+    else:
+        mem = (f"the encode's own peak RSS {b['peak_rss_mb'] - b['rss_start_mb']:.1f} MB, max_memory_reserved "
+               f"{b['max_memory_reserved']}, page-locked bytes held {b.get('pinned_bytes')}")
+    pipe = f"(c) cat | cli --jax {legs['c']['mb_per_s_bed']:.3f} MB/s of BED; " if "c" in legs else ""
+    log(f"scale {shape} summary, {full['bytes']} bytes of BED, {text} of text ({full['seconds']:.3f} s to "
+        f"generate): (a) host {a['mb_per_s_bed']:.3f} MB/s of BED ({text / a['seconds'] / 1e6:.3f} of text), "
+        f"transform {a['transform_seconds']:.3f} s; (b) hybrid {b['mb_per_s_bed']:.3f} MB/s of BED "
+        f"({text / b['seconds'] / 1e6:.3f} of text), blocks on the device {b['device_stats'].get('blocks', 0)} of "
+        f"{b['blocks']}; {pipe}(d) device only, timed {dv['mb_per_s_text']:.3f} MB/s of text ({dv['blocks']} "
+        f"blocks, {dv['device_stats'].get('batches', 0)} batches in {dv['seconds']:.3f} s, per class "
+        f"{_classes_run(dv['per_class'])}), busy share {dv['busy_share_derived']} derived for it; traced run "
+        f"{dv['traced']['mb_per_s_text']:.3f} MB/s of text, busy share {trace.get('busy_share')} over "
+        f"{trace.get('batches')} steady batches ({trace.get('batches_per_s')} batches/s, "
+        f"{trace.get('device_ms_per_batch')} device ms a batch); (e) decode {b['decode']['mb_per_s_bed']:.3f} MB/s "
+        f"of BED; {mem}; device only: max_memory_reserved {dv['max_memory_reserved']}, page-locked bytes "
+        f"{dv.get('pinned_bytes')}; MTF launches by width {tier_launches(legs)}; on {smi}")
 
 
 def card_name() -> str:
@@ -1568,7 +1676,16 @@ def main() -> int:
     launches["mtf_narrow"] += helpers["narrow"]
     launches["mtf_wide"] += helpers["wide"]
     wide_by_width[256] += helpers["wide"]
-    launches["mtf_narrow"] += phase_scale(smi, t_start + 1140)
+    bits4 = phase_scale(smi, ("bed3",), t_start + 760)
+    bed6 = phase_scale(smi, ("config3", "bits6", "wide8"), t_start + 1140)
+    if not (bits4["16"] and all(bed6[w] for w in ("32", "64", "256"))):
+        raise AssertionError(f"scale: an MTF width of a tier did not launch: bits 4 {bits4}, BED6 {bed6}")
+    scale = {w: bits4[w] + bed6[w] for w in bits4}
+    launches["mtf_narrow"] += scale["16"]
+    launches["mtf_narrow_windowed"] += scale["32"] + scale["64"]
+    for w in mtf_wide.WIDTHS:
+        wide_by_width[w] += scale[str(w)]
+        launches["mtf_wide"] += scale[str(w)]
 
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")

@@ -154,6 +154,56 @@ def _decimal_columns(values: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     return digits, np.arange(width)[None, :] >= (width - ndig)[:, None]
 
 
+_LINES = 250_000  # lines formatted at a time: a bounded buffer
+
+
+def _tab_rows(fields) -> bytes:
+    """Lines of tab-separated fields, each ``(cols, keep)``: a uint8 row
+    of bytes per line, padded, and the mask of the bytes that print."""
+    m = fields[0][0].shape[0]
+    sep = (np.full((m, 1), 9, np.uint8), np.ones((m, 1), bool))
+    cols, keep = [], []
+    for i, (c, k) in enumerate(fields):
+        cols += [sep[0], c] if i else [c]
+        keep += [sep[1], k] if i else [k]
+    cols.append(np.full((m, 1), 10, np.uint8))
+    keep.append(np.ones((m, 1), bool))
+    return np.concatenate(cols, axis=1)[np.concatenate(keep, axis=1)].tobytes()
+
+
+def _const(m: int, text: bytes):
+    row = np.frombuffer(text, dtype=np.uint8)
+    return np.broadcast_to(row, (m, row.size)), np.ones((m, row.size), bool)
+
+
+def _joined(*fields):
+    """One field made of several, side by side (``peak_`` and a number)."""
+    return np.concatenate([c for c, _ in fields], axis=1), np.concatenate([k for _, k in fields], axis=1)
+
+
+def _strands(st: np.ndarray):
+    return np.where(st, 43, 45).astype(np.uint8)[:, None], np.ones((st.size, 1), bool)
+
+
+def _write_chromosomes(path, target: int, chromosome) -> tuple[str, int]:
+    """Write ``chr1``, ``chr2``, ... to ``path`` until at least ``target``
+    bytes are written, each chromosome's lines the ``bytes`` chunks of
+    ``chromosome(name)``; returns the SHA-256 hex digest and byte count."""
+    import hashlib
+
+    digest = hashlib.sha256()
+    written = 0
+    c = 0
+    with open(path, "wb") as f:
+        while written < target:
+            c += 1
+            for chunk in chromosome(f"chr{c}".encode()):
+                f.write(chunk)
+                digest.update(chunk)
+                written += len(chunk)
+    return digest.hexdigest(), written
+
+
 def gigabyte_bed(path, target: int, seed: int = 11, n_per: int = 2_000_000) -> tuple[str, int]:
     """Write the scale corpus to ``path`` in chunks and return its SHA-256
     hex digest and byte count.
@@ -167,32 +217,97 @@ def gigabyte_bed(path, target: int, seed: int = 11, n_per: int = 2_000_000) -> t
     at ``target = 1.1e9`` about 44M intervals in 20 chromosomes, the
     shape of BASELINE config 4 (a WGS BED of many blocks per
     chromosome).  A smaller ``target`` gives a prefix of a larger one."""
-    import hashlib
-
     gen = np.random.default_rng(seed)
-    digest = hashlib.sha256()
-    written = 0
-    c = 0
-    with open(path, "wb") as f:
-        while written < target:
-            c += 1
-            name = np.frombuffer(f"chr{c}".encode(), dtype=np.uint8)
-            starts = 10_000 + np.cumsum(gen.integers(1, 1500, n_per))
-            stops = starts + gen.integers(20, 400, n_per)
-            for lo in range(0, n_per, 250_000):  # GEN's chunks, a bounded buffer
-                s, e = starts[lo : lo + 250_000], stops[lo : lo + 250_000]
-                # the lines as rows of "name \t start \t stop \n", each
-                # number padded on the left; the mask drops the padding
-                cols, keep = [np.broadcast_to(name, (s.size, name.size))], [np.ones((s.size, name.size), bool)]
-                for v in (s, e):
-                    d, k = _decimal_columns(v)
-                    cols += [np.full((s.size, 1), 9, np.uint8), d]
-                    keep += [np.ones((s.size, 1), bool), k]
-                cols.append(np.full((s.size, 1), 10, np.uint8))
-                keep.append(np.ones((s.size, 1), bool))
-                out = np.concatenate(cols, axis=1)[np.concatenate(keep, axis=1)]
-                chunk = out.tobytes()
-                f.write(chunk)
-                digest.update(chunk)
-                written += len(chunk)
-    return digest.hexdigest(), written
+
+    def chromosome(name):
+        starts = 10_000 + np.cumsum(gen.integers(1, 1500, n_per))
+        stops = starts + gen.integers(20, 400, n_per)
+        for lo in range(0, n_per, _LINES):  # GEN's chunks
+            s, e = starts[lo : lo + _LINES], stops[lo : lo + _LINES]
+            yield _tab_rows([_const(s.size, name), _decimal_columns(s), _decimal_columns(e)])
+
+    return _write_chromosomes(path, target, chromosome)
+
+
+def _bed6_scale(path, target: int, seed: int, n_per: int, remainder) -> tuple[str, int]:
+    """The chunked writer of the BED6 scale shapes: ``chr1``, ``chr2``, ...
+    of ``n_per`` intervals each, whole chromosomes until at least
+    ``target`` bytes.  For each run of up to 250,000 lines of a
+    chromosome, ``np.random.default_rng(seed)`` draws the start gaps
+    (1..1999, after 10,000 and the run before), the lengths (20..499),
+    then ``remainder(gen, first, m)``'s columns of lines ``first`` to
+    ``first + m - 1``.  A smaller ``target`` gives a prefix of a larger
+    one."""
+    gen = np.random.default_rng(seed)
+
+    def chromosome(name):
+        last = 10_000
+        for lo in range(0, n_per, _LINES):
+            m = min(_LINES, n_per - lo)
+            starts = last + np.cumsum(gen.integers(1, 2000, m))
+            stops = starts + gen.integers(20, 500, m)
+            last = int(starts[-1])
+            yield _tab_rows([_const(m, name), _decimal_columns(starts), _decimal_columns(stops),
+                             *remainder(gen, lo, m)])
+
+    return _write_chromosomes(path, target, chromosome)
+
+
+def config3_scale_bed(path, target: int, seed: int = 7, n_per: int = 2_000_000) -> tuple[str, int]:
+    """``config3_bed``'s shape (BASELINE config 3: ``peak_<i>`` ids
+    numbered from 0 in each chromosome, scores 0..999, strands; bits 5)
+    at scale, written by ``_bed6_scale``: each run draws its scores, then
+    its strands."""
+
+    def remainder(gen, lo, m):
+        scores, strands = gen.integers(0, 1000, m), gen.integers(0, 2, m)
+        peak = _joined(_const(m, b"peak_"), _decimal_columns(np.arange(lo, lo + m)))
+        return [peak, _decimal_columns(scores), _strands(strands)]
+
+    return _bed6_scale(path, target, seed, n_per, remainder)
+
+
+_SYLLABLE_ROWS = np.array([list(s.ljust(3)) for s in _SYLLABLES], dtype=np.uint8)
+_SYLLABLE_LENS = np.array([len(s) for s in _SYLLABLES])
+
+
+def bits6_scale_bed(path, target: int, seed: int = 13, n_per: int = 2_000_000) -> tuple[str, int]:
+    """``bits6_bed``'s shape (gene ids of three syllables and
+    ``_<i % 97>.<score % 10>``, scores ``%d.%02d`` of 0..99,999, strands;
+    bits 6) at scale, written by ``_bed6_scale``: each run draws its
+    syllables (three a line), then its scores, then its strands."""
+
+    def remainder(gen, lo, m):
+        picks = gen.integers(0, len(_SYLLABLES), (m, 3))
+        scores, strands = gen.integers(0, 100_000, m), gen.integers(0, 2, m)
+        gene = _joined(*((_SYLLABLE_ROWS[picks[:, j]], np.arange(3)[None, :] < _SYLLABLE_LENS[picks[:, j], None])
+                         for j in range(3)),
+                       _const(m, b"_"), _decimal_columns(np.arange(lo, lo + m) % 97),
+                       _const(m, b"."), _decimal_columns(scores % 10))
+        hundredths = _DIGITS5[scores % 100][:, 3:], np.ones((m, 2), bool)
+        score = _joined(_decimal_columns(scores // 100), _const(m, b"."), hundredths)
+        return [gene, score, _strands(strands)]
+
+    return _bed6_scale(path, target, seed, n_per, remainder)
+
+
+def wide8_scale_bed(path, target: int, seed: int = 17, n_per: int = 2_000_000) -> tuple[str, int]:
+    """``wide8_bed``'s shape (names of 12-20 characters over
+    ``[A-Za-z0-9._]``, scores 0..999, strands; bits 8) at scale, written
+    by ``_bed6_scale``: each run draws its name lengths, then 20
+    characters a line, then its scores, then its strands."""
+
+    def remainder(gen, lo, m):
+        lens = gen.integers(12, 21, m)
+        chars = _NAME_CHARS[gen.integers(0, _NAME_CHARS.size, (m, 20))]
+        scores, strands = gen.integers(0, 1000, m), gen.integers(0, 2, m)
+        return [(chars, np.arange(20)[None, :] < lens[:, None]), _decimal_columns(scores), _strands(strands)]
+
+    return _bed6_scale(path, target, seed, n_per, remainder)
+
+
+# the scale corpora by shape, each ``(path, target, seed=..., n_per=...)``
+# -> (SHA-256 hex digest, bytes), and the tier of every block of each
+SCALE_SHAPES = {"bed3": gigabyte_bed, "config3": config3_scale_bed, "bits6": bits6_scale_bed,
+                "wide8": wide8_scale_bed}
+SCALE_TIERS = {"bed3": 4, "config3": 5, "bits6": 6, "wide8": 8}

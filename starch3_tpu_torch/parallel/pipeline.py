@@ -122,12 +122,15 @@ CLASSES = (4, 5, 6, 8)  # the alphabet classes of _bits_class
 # depend on them): batches and blocks dispatched, blocks re-encoded on the
 # host for ties and (fast_huff) for an emit overflow, and the bytes the
 # host reads back from the device; the decode batches and blocks; and the
-# fast step's CUDA graphs captured and replayed (``_StepGraph``)
+# fast step's CUDA graphs captured and replayed (``_StepGraph``); and, per
+# class, the driver's skips of a class-gated bucket (their total is
+# ``scheduler_stats["class_skips"]``)
 device_stats = {
     f"{k}{c}": 0
-    for k in ("batches", "blocks", "tie_reencodes", "huff_host_reencodes", "d2h_bytes")
+    for k in ("batches", "blocks", "tie_reencodes", "huff_host_reencodes", "d2h_bytes", "graph_captures",
+              "graph_replays")
     for c in ("",) + tuple(f"_bits{c}" for c in CLASSES)
-} | {"decode_batches": 0, "decode_blocks": 0, "graph_captures": 0, "graph_replays": 0}
+} | {"decode_batches": 0, "decode_blocks": 0} | {f"class_skips_bits{c}": 0 for c in CLASSES}
 _stats_lock = threading.Lock()
 
 
@@ -760,8 +763,9 @@ class _StepGraph:
     counts what the capture recorded.  A failed capture raises: there is
     no fallback to the eager step."""
 
-    def __init__(self, stream, step, inputs):
+    def __init__(self, stream, step, inputs, bits: int):
         dev = stream.device
+        self.bits = bits
         self.spans, end = [], 0  # each input's bytes in the static buffer, 16-byte aligned
         for t in inputs:
             self.spans.append((end, end + t.numel() * t.element_size()))
@@ -787,7 +791,7 @@ class _StepGraph:
             self.graph.capture_end()
         self.launches = tuple(tally)
         self.done = None  # the event after the latest replay's rows were copied out
-        _count(graph_captures=1)
+        _count(**{"graph_captures": 1, f"graph_captures_bits{bits}": 1})
 
     def stage(self, inputs) -> torch.Tensor:
         """A batch's inputs copied into one pinned buffer laid out as the
@@ -810,7 +814,7 @@ class _StepGraph:
     def counted(self) -> None:
         """Count one replay and the kernel launches its capture recorded."""
         mtf_wide.count_replayed(self.launches)
-        _count(graph_replays=1)
+        _count(**{"graph_replays": 1, f"graph_replays_bits{self.bits}": 1})
 
 
 def _step_graph(stream, graph_key, inputs, step):
@@ -835,7 +839,7 @@ def _step_graph(stream, graph_key, inputs, step):
         old = graphs.pop(next(iter(graphs)))
         if old.done is not None:
             old.done.synchronize()  # its pool's memory is reused once it is dropped
-    graphs[key] = _StepGraph(stream, step, inputs)
+    graphs[key] = _StepGraph(stream, step, inputs, bits)
     first = where + key not in _captured
     _captured.add(where + key)
     return graphs[key], first
@@ -1424,6 +1428,7 @@ def _device_driver(q: _BlockQueue, results, errors, device, batch_size, reserve,
                             continue
                         if q.class_gated(nm[1], time.monotonic()):
                             scheduler_stats["class_skips"] += 1
+                            _count(**{f"class_skips_bits{nm[1]}": 1})
                             continue
                         if q.active_feeding() and remaining < batch_size:
                             continue  # wait for a full batch while blocks arrive

@@ -1,13 +1,16 @@
-"""The main path at the scale its users run: one leg of a streaming
-encode or decode of the scale corpus (``corpus.gigabyte_bed``) per
-process, for ``chip_smoke.py`` phase 13 and ``tests/test_torch_scale.py``.
+"""The port at the scale its users run: one leg of a streaming encode or
+decode of a scale corpus (``corpus.SCALE_SHAPES``: 3-column BED, and the
+BED6 shapes of the bits 5, 6 and 8 tiers) per process, for
+``chip_smoke.py`` phases 13 and 14 and ``tests/test_torch_scale.py``.
 
-    python -m starch3_tpu_torch.scale_run gen OUT TARGET [--n-per N]
+    python -m starch3_tpu_torch.scale_run gen OUT TARGET [--shape S] [--n-per N]
     python -m starch3_tpu_torch.scale_run encode IN OUT [--jax] [--decode]
     python -m starch3_tpu_torch.scale_run pipe IN OUT
-    python -m starch3_tpu_torch.scale_run device IN REF TRACE_DIR MISMATCH_DIR
+    python -m starch3_tpu_torch.scale_run device IN REF TRACE_DIR MISMATCH_DIR [--shape S]
 
-``gen`` writes the corpus.  ``encode`` is ``api.compress_bed_file`` with
+``gen`` writes the corpus of shape S (``bed3``, the default, is
+``corpus.gigabyte_bed``; ``config3``, ``bits6`` and ``wide8`` the BED6
+tiers).  ``encode`` is ``api.compress_bed_file`` with
 ``EncodeConfig()`` (the host path) or, with ``--jax``, the device path
 beside the host stealers on ``--device``; ``--decode`` then decodes the
 archive with ``api.decompress_starch_file`` and hashes what comes out.
@@ -19,17 +22,21 @@ IN whole with the native transform, feeds the texts in order to
 ``pipeline.encode_streams_iter(host_assist=False)`` and holds every
 stream to the stream of the same chromosome in the archive REF, twice:
 first under ``observability.device_trace`` into TRACE_DIR, where it reads
-the card's busy share, then timed.  A stream that differs leaves its text
-and its first differing block in MISMATCH_DIR.
+the card's busy share, then timed; every block must be of the tier of
+shape S.  A stream that differs leaves its text and its first differing
+block in MISMATCH_DIR, with that block's MTF input and the kernel's and
+the plain version's ranks on it (``mismatch-*.pt``).
 
 Each leg prints one JSON line, its last: its seconds, digests, peak RSS
 (sampled: ``PeakRss``; ``ru_maxrss`` beside it) and the resident set
 before the encode, a series of the resident set and of the C heap's bytes
 in use and held over the leg, on a card the caching allocator's peaks and
 the page-locked bytes the process holds, and the counters it read
-(``pipeline.device_stats``, ``host.scheduler_stats``, the narrow MTF
-kernel's launches by width), each set to 0 just before the leg.  A leg
-that finds a mismatch exits non-zero.
+(``pipeline.device_stats``, ``host.scheduler_stats``, the MTF kernels'
+launches by width), each set to 0 just before the leg, with each class's
+share of them (``per_class``).  The ``encode --jax`` and ``device`` legs
+hold the launches by width to the device batches by class; a leg that
+finds a fault or a mismatch exits non-zero.
 """
 
 from __future__ import annotations
@@ -47,6 +54,8 @@ import sys
 import time
 
 import numpy as np
+
+from starch3_tpu_torch.corpus import SCALE_SHAPES, SCALE_TIERS
 
 
 class _Hasher:
@@ -184,24 +193,47 @@ class PeakRss:
 
 
 def _zero_counters() -> None:
-    from starch3_tpu_torch.ops import mtf_narrow
+    from starch3_tpu_torch.ops import mtf_narrow, mtf_wide
     from starch3_tpu_torch.parallel import host, pipeline
 
-    for counts in (pipeline.device_stats, host.scheduler_stats, mtf_narrow.width_launches):
+    for counts in (pipeline.device_stats, host.scheduler_stats, mtf_narrow.width_launches, mtf_wide.width_launches):
         for k in counts:
             counts[k] = 0
 
 
+# the MTF width of each class's fast-mode step (narrow 16/32/64, wide 256)
+WIDTH_OF_CLASS = {4: 16, 5: 32, 6: 64, 8: 256}
+PER_CLASS = ("blocks", "batches", "tie_reencodes", "graph_captures", "graph_replays", "class_skips")
+
+
 def _counters() -> dict:
-    from starch3_tpu_torch.ops import mtf_narrow
+    """The counters, with the MTF launches of both wrappers by width (the
+    narrow wrapper's 16/32/64, the wide one's 128/256) and each class's
+    share of ``PER_CLASS``."""
+    from starch3_tpu_torch.ops import mtf_narrow, mtf_wide
     from starch3_tpu_torch.parallel import host, pipeline
 
+    st = dict(pipeline.device_stats)
     return {
-        "device_stats": {k: v for k, v in pipeline.device_stats.items() if v},
+        "device_stats": {k: v for k, v in st.items() if v},
         "scheduler_stats": dict(host.scheduler_stats),
         "class_rate_cache": dict(host._class_rate_cache),
-        "width_launches": {str(w): n for w, n in mtf_narrow.width_launches.items()},
+        "width_launches": {str(w): n for w, n in (mtf_narrow.width_launches | mtf_wide.width_launches).items()},
+        "per_class": {str(c): {k: st[f"{k}_bits{c}"] for k in PER_CLASS} for c in WIDTH_OF_CLASS},
     }
+
+
+def launch_faults(counters: dict, device: str) -> list[str]:
+    """Fast mode launches one MTF kernel per device batch, at its class's
+    width (``WIDTH_OF_CLASS``); on the CPU the wrappers run their plain
+    versions and count nothing.  Returns what differs."""
+    st, on_card = counters["device_stats"], device.startswith("cuda")
+    want = {str(w): st.get(f"batches_bits{c}", 0) if on_card else 0 for c, w in WIDTH_OF_CLASS.items()}
+    want["128"] = 0
+    got = counters["width_launches"]
+    if got == want:
+        return []
+    return [f"MTF launches by width {got} != device batches by class, at their widths, {want} on {device}"]
 
 
 def _memory(device: str, peak: PeakRss) -> dict:
@@ -227,11 +259,10 @@ def _memory(device: str, peak: PeakRss) -> dict:
 
 
 def leg_gen(args, peak: PeakRss) -> dict:
-    from starch3_tpu_torch import corpus
-
     t0 = time.perf_counter()
-    digest, n = corpus.gigabyte_bed(args.out, args.target, n_per=args.n_per)
-    return {"leg": "gen", "digest": digest, "bytes": n, "seconds": time.perf_counter() - t0}
+    digest, n = SCALE_SHAPES[args.shape](args.out, args.target, n_per=args.n_per)
+    return {"leg": "gen", "shape": args.shape, "tier": SCALE_TIERS[args.shape], "digest": digest,
+            "bytes": n, "seconds": time.perf_counter() - t0}
 
 
 def leg_encode(args, peak: PeakRss) -> dict:
@@ -254,6 +285,7 @@ def leg_encode(args, peak: PeakRss) -> dict:
     }
     res.update(_memory(args.device if args.jax else "cpu", peak))
     res.update(_counters())
+    res["faults"] = launch_faults(res, args.device) if args.jax else []
     if args.decode:
         sink = _Hasher()
         t0 = time.perf_counter()
@@ -347,16 +379,23 @@ def first_differing_block(got: bytes, got_offs, want: bytes, want_offs) -> int:
     return min(len(got_offs), len(want_offs))
 
 
+# one kernel of each MTF launch, so one per fast-mode batch of any class:
+# the width-16 kernel, or the carry scan of the windowed kernel (widths
+# 32-256)
+_BATCH_MARK = ("mtf16_kernel", "carry_scan_kernel")
+
+
 def gpu_busy_share(trace_path: str, skip: int = 10) -> dict:
     """The card's busy share in a ``device_trace`` file, over the steady
-    state: from the ``skip``-th launch of the width-16 MTF kernel (one
-    per bits-4 batch) to the ``skip``-th from the last, the union of the
-    card's kernels, copies and sets over that span."""
+    state: from the ``skip``-th MTF launch (``_BATCH_MARK``, one per
+    batch) to the ``skip``-th from the last, the union of the card's
+    kernels, copies and sets over that span."""
     with open(trace_path) as f:
         events = json.load(f)["traceEvents"]
     gpu = sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in events
                  if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
-    marks = sorted(e["ts"] for e in events if e.get("cat") == "kernel" and "mtf16_kernel" in e.get("name", ""))
+    marks = sorted(e["ts"] for e in events if e.get("cat") == "kernel"
+                   and any(m in e.get("name", "") for m in _BATCH_MARK))
     marks = marks[skip : len(marks) - skip]
     if len(marks) < 2:
         return {"batches": 0, "busy_share": None, "gpu_events": len(gpu)}
@@ -379,11 +418,47 @@ def gpu_busy_share(trace_path: str, skip: int = 10) -> dict:
             "batches_per_s": n / (hi - lo) * 1e6, "device_ms_per_batch": busy / 1e3 / n, "gpu_events": len(gpu)}
 
 
+def save_block_case(text: bytes, k: int, level: int, device: str, path: str) -> dict:
+    """Block ``k`` of ``text`` at ``level`` through the device step's BWT
+    on ``device``, then the MTF kernel and its plain version on the same
+    input: the input and both outputs go to ``path`` (a ``.pt``, as
+    ``chip_smoke.check_equal`` saves a kernel's mismatch).  Returns the
+    block's class and width and whether the two agree, or, where ``text``
+    has no block ``k`` (the streams differ in their count of blocks),
+    says so and saves nothing."""
+    import torch
+
+    from starch3_tpu_torch.ops import mtf_narrow, mtf_wide
+    from starch3_tpu_torch.parallel import host, pipeline
+
+    blocks, classes = host._split_classify(text, level)
+    if k >= len(blocks):
+        return {"skipped": f"block {k} of {len(blocks)}"}
+    data, bits = blocks[k].data, classes[k]
+    n_max = host._bucket_for(len(data))
+    width = WIDTH_OF_CLASS[bits]
+    packed, lens, _, _ = pipeline.pack_batch([data], n_max, bits)
+    dev = torch.device(device)
+    last, _, _ = pipeline.bwt_of_batch(packed.to(dev), torch.from_numpy(lens).to(dev), bits, n_max,
+                                       wide=width >= 128)
+    seqs = last.contiguous()
+    if width >= 128:
+        got, want = mtf_wide.mtf_ranks_wide_batch(seqs, width), mtf_wide.mtf_ranks_wide_reference(seqs, width)
+    else:
+        got, want = mtf_narrow.mtf_ranks_narrow_batch(seqs, width), mtf_narrow.mtf_ranks_narrow_reference(seqs, width)
+    n = len(data)
+    torch.save({"block": data, "bits": bits, "width": width, "seqs": seqs.cpu(), "got": got.cpu(),
+                "want": want.cpu()}, path)
+    return {"bits": bits, "width": width, "n": n, "kernel_equals_plain": bool(torch.equal(got[:, :n], want[:, :n]))}
+
+
 def _device_run(texts, chroms, want, args) -> dict:
     """One device-only encode of ``texts``, counters set to 0 just before
     it and read just after, every stream held to ``want``, REF's
-    ``(metadata, stream)`` of the same chromosome; a differing stream's
-    text and first differing block go to ``args.mismatch_dir``."""
+    ``(metadata, stream)`` of the same chromosome.  A differing stream's
+    text and record (``.json``) go to ``args.mismatch_dir`` as it is
+    found; after the counters are read, its first differing block's MTF
+    case (``save_block_case``) joins the record."""
     from starch3_tpu_torch.parallel import pipeline
 
     _zero_counters()
@@ -408,19 +483,28 @@ def _device_run(texts, chroms, want, args) -> dict:
     run = {"seconds": dt, "mb_per_s_text": sum(map(len, texts)) / dt / 1e6, "streams": n, "blocks": blocks,
            "mismatches": bad}
     run.update(_counters())
+    for rec in bad:  # its launches come after the counters were read
+        i, k = rec["stream"], rec["first_block"]
+        try:
+            rec["mtf"] = save_block_case(texts[i], k, args.level, args.device, os.path.join(
+                args.mismatch_dir, f"mismatch-scale-{chroms[i]}-block{k}.pt"))
+        except Exception as e:  # the stream's mismatch fails the leg all the same
+            rec["mtf"] = {"error": repr(e)}
+        with open(os.path.join(args.mismatch_dir, f"scale-mismatch-{chroms[i]}.json"), "w") as f:
+            json.dump(rec, f)
     st, sched = run["device_stats"], run["scheduler_stats"]
     faults = []
     if bad or n != len(want):
         faults.append(f"{len(bad)} streams differ from REF's, {n} streams of {len(want)}")
     if st.get("blocks", 0) != blocks:
         faults.append(f"device blocks {st.get('blocks', 0)} != all blocks {blocks}")
+    tier = SCALE_TIERS[args.shape]
+    if st.get(f"blocks_bits{tier}", 0) != blocks:
+        faults.append(f"bits-{tier} blocks {st.get(f'blocks_bits{tier}', 0)} != all blocks {blocks}: "
+                      f"a block of the {args.shape} corpus is not of its tier")
     if sched["abandoned_batches"] or sched["demotions"]:
         faults.append(f"the device-only encode fell back: {sched}")
-    # on the CPU the wrapper runs its plain version and counts nothing
-    b4 = st.get("batches_bits4", 0) if args.device.startswith("cuda") else 0
-    if run["width_launches"]["16"] != b4:
-        faults.append(f"width-16 launches {run['width_launches']} != bits-4 batches {b4} on {args.device}")
-    run["faults"] = faults
+    run["faults"] = faults + launch_faults(run, args.device)
     return run
 
 
@@ -428,9 +512,9 @@ def leg_device(args, peak: PeakRss) -> dict:
     """Device only, twice: an encode traced by ``device_trace``, which
     also warms the process, then the timed one.
     In each, every stream equals REF's stream of its chromosome, every
-    block ran on the device, nothing was abandoned and the device was
-    never benched, and the width-16 kernel launched once per bits-4
-    batch."""
+    block ran on the device and is of the tier of ``args.shape``, nothing
+    was abandoned and the device was never benched, and the MTF kernels
+    launched once per batch at the width of its class."""
     from starch3_tpu_torch.format.archive import StarchReader
     from starch3_tpu_torch.observability import device_trace
     from starch3_tpu_torch.runtime import bed_transform_native
@@ -473,6 +557,7 @@ def main(argv=None) -> int:
     g.add_argument("out")
     g.add_argument("target", type=lambda s: int(float(s)))
     g.add_argument("--n-per", type=int, default=2_000_000)
+    g.add_argument("--shape", choices=sorted(SCALE_SHAPES), default="bed3")
     for name in ("encode", "pipe", "device"):
         p = sub.add_parser(name)
         p.add_argument("inp")
@@ -487,6 +572,7 @@ def main(argv=None) -> int:
     dev = sub.choices["device"]
     dev.add_argument("trace_dir")
     dev.add_argument("mismatch_dir")
+    dev.add_argument("--shape", choices=sorted(SCALE_SHAPES), default="bed3", help="the corpus's shape, for its tier")
     args = ap.parse_args(argv)
     # progress: the archive's bytes on disk, in the legs that write one
     out = getattr(args, "out", None)

@@ -320,3 +320,252 @@ def test_gpu_busy_share_over_the_steady_window(tmp_path):
     assert got["batches_per_s"] == pytest.approx(1000.0)
     assert got["device_ms_per_batch"] == pytest.approx(1.15 / 9)
     assert scale_run.gpu_busy_share(_trace(tmp_path, events[:3]), skip=1)["busy_share"] is None
+
+
+# the BED6 scale shapes: (seed, ``n_per`` in the tests)
+BED6 = {"config3": 7, "bits6": 13, "wide8": 17}
+
+
+def _bed6_lines(shape: str, target: int, seed: int, n_per: int, run: int = 250_000) -> bytes:
+    """The BED6 writers' draws (``corpus._bed6_scale``), formatted line by
+    line with ``%``, as the smoke generators format them."""
+    gen = np.random.default_rng(seed)
+    out, n, c = [], 0, 0
+    while n < target:
+        c += 1
+        last = 10_000
+        for lo in range(0, n_per, run):
+            m = min(run, n_per - lo)
+            starts = (last + np.cumsum(gen.integers(1, 2000, m))).tolist()
+            stops = (np.array(starts) + gen.integers(20, 500, m)).tolist()
+            last = starts[-1]
+            if shape == "config3":
+                sc, st = gen.integers(0, 1000, m).tolist(), gen.integers(0, 2, m).tolist()
+                rest = [b"peak_%d\t%d\t%s" % (lo + i, sc[i], b"+" if st[i] else b"-") for i in range(m)]
+            elif shape == "bits6":
+                pk = gen.integers(0, 16, (m, 3)).tolist()
+                sc, st = gen.integers(0, 100_000, m).tolist(), gen.integers(0, 2, m).tolist()
+                rest = []
+                for i in range(m):
+                    gene = b"".join(corpus._SYLLABLES[j] for j in pk[i]) + b"_%d.%d" % ((lo + i) % 97, sc[i] % 10)
+                    rest.append(b"%s\t%d.%02d\t%s" % (gene, sc[i] // 100, sc[i] % 100, b"+" if st[i] else b"-"))
+            else:
+                lens = gen.integers(12, 21, m)
+                chars = corpus._NAME_CHARS[gen.integers(0, 64, (m, 20))]
+                sc, st = gen.integers(0, 1000, m).tolist(), gen.integers(0, 2, m).tolist()
+                rest = [b"%s\t%d\t%s" % (chars[i, : lens[i]].tobytes(), sc[i], b"+" if st[i] else b"-")
+                        for i in range(m)]
+            chunk = b"".join(b"chr%d\t%d\t%d\t%s\n" % (c, starts[i], stops[i], rest[i]) for i in range(m))
+            out.append(chunk)
+            n += len(chunk)
+    return b"".join(out)
+
+
+@pytest.mark.parametrize("run", [250_000, 700], ids=["one_run", "runs_of_700"])
+@pytest.mark.parametrize("shape", sorted(BED6))
+def test_bed6_writer_equals_a_line_loop(tmp_path, monkeypatch, shape, run):
+    """Each BED6 writer's NumPy formatting against ``%`` line by line, on
+    the same draws, across chromosomes: each chromosome one run of lines,
+    or (``corpus._LINES`` set to 700) four, the last cut short, so that
+    each run carries the start, the ``peak_`` ids and the ``% 97``
+    suffixes from the run before it."""
+    monkeypatch.setattr(corpus, "_LINES", run)
+    digest, n = corpus.SCALE_SHAPES[shape](tmp_path / "w.bed", 250_000, n_per=2500)
+    got = (tmp_path / "w.bed").read_bytes()
+    assert got == _bed6_lines(shape, 250_000, BED6[shape], 2500, run=run)
+    assert (digest, n) == (hashlib.sha256(got).hexdigest(), len(got)) and n >= 250_000
+    assert got.count(b"\nchr3\t") >= 1
+    if run == 700:
+        first = got[: got.index(b"\nchr2\t") + 1].splitlines()
+        starts = [int(line.split(b"\t")[1]) for line in first]
+        assert len(first) == 2500 and starts == sorted(starts) and len(set(starts)) == 2500
+
+
+@pytest.mark.parametrize("shape", sorted(BED6))
+def test_bed6_smaller_target_is_a_prefix(tmp_path, shape):
+    small = corpus.SCALE_SHAPES[shape](tmp_path / "s.bed", 60_000, n_per=900)
+    big = corpus.SCALE_SHAPES[shape](tmp_path / "b.bed", 200_000, n_per=900)
+    assert big[1] > small[1] >= 60_000
+    assert (tmp_path / "b.bed").read_bytes()[: small[1]] == (tmp_path / "s.bed").read_bytes()
+
+
+@pytest.mark.parametrize("shape", sorted(BED6))
+def test_bed6_every_block_is_of_its_tier(tmp_path, shape):
+    """Every block of every chromosome, at level 1 and at level 9, is of
+    the shape's tier, its last (short) block too."""
+    from starch3_tpu_torch.parallel.host import _split_classify
+
+    corpus.SCALE_SHAPES[shape](tmp_path / "t.bed", 1_500_000, n_per=15_000)
+    transformed = api._parse_transform((tmp_path / "t.bed").read_bytes())
+    assert len(transformed) >= 2
+    for tf in transformed:
+        for level in (1, 9):
+            blocks, classes = _split_classify(tf.text, level)
+            assert set(classes) == {corpus.SCALE_TIERS[shape]}, (tf.chrom, level, classes)
+    assert len(_split_classify(transformed[0].text, 1)[0]) >= 3
+
+
+@pytest.mark.parametrize("shape", sorted(BED6))
+def test_bed6_file_entry_equals_jax_package(tmp_path, shape):
+    """One BED6 chromosome of 6,000 intervals (2-3 blocks at level 1) in
+    16 kB chunks, so that it is carried across many: the port's file
+    entry on the CPU against the JAX package's, byte for byte."""
+    corpus.SCALE_SHAPES[shape](tmp_path / "in.bed", 1, n_per=6_000)
+    src = str(tmp_path / "in.bed")
+    assert os.path.getsize(src) > 8 << 14
+    cfg = dict(use_jax=True, block_size_100k=1)
+    want = io.BytesIO()
+    jax_api.compress_bed_file(src, want, JaxEncodeConfig(**cfg), chunk_bytes=1 << 14)
+    got = io.BytesIO()
+    api.compress_bed_file(src, got, EncodeConfig(**cfg), chunk_bytes=1 << 14, device="cpu")
+    assert got.getvalue() == want.getvalue()
+    from starch3_tpu_torch.format.archive import StarchReader
+
+    meta = StarchReader.from_bytes(got.getvalue()).metadata
+    assert len(meta.streams) == 1 and len(meta.streams[0].block_bit_offsets) >= 2
+    assert api.decompress_starch_bytes(got.getvalue()) == (tmp_path / "in.bed").read_bytes()
+
+
+@pytest.mark.parametrize("shape", sorted(BED6))
+def test_bed6_gen_and_device_legs(tmp_path, shape):
+    """``gen --shape`` and the ``device`` leg on the CPU: the corpus is the
+    writer's, every stream equals the host archive's, every block is of
+    the tier, and the launch check by width passes (on the CPU the
+    wrappers count nothing)."""
+    r = _run(["-m", "starch3_tpu_torch.scale_run", "gen", tmp_path / "in.bed", 150_000, "--shape", shape,
+              "--n-per", 2_500])
+    assert r.returncode == 0, r.stderr.decode()[-2000:]
+    gen = json.loads(r.stdout.decode().splitlines()[-1])
+    assert gen["shape"] == shape and gen["tier"] == corpus.SCALE_TIERS[shape]
+    assert gen["digest"] == corpus.SCALE_SHAPES[shape](tmp_path / "w.bed", 150_000, n_per=2_500)[0]
+    out = io.BytesIO()
+    api.compress_bed_file(str(tmp_path / "in.bed"), out, EncodeConfig(block_size_100k=1))
+    (tmp_path / "host.starch").write_bytes(out.getvalue())
+    r = _run(["-m", "starch3_tpu_torch.scale_run", "device", tmp_path / "in.bed", tmp_path / "host.starch",
+              tmp_path / "trace", tmp_path / "mismatch", "--device", "cpu", "--level", 1, "--shape", shape],
+             env=dict(os.environ, STARCH3_TPU_NO_HOST_FALLBACK="1"))
+    assert r.returncode == 0, r.stderr.decode()[-2000:]
+    res = json.loads(r.stdout.decode().splitlines()[-1])
+    assert res["faults"] == [] and res["traced"]["faults"] == []
+    tier = str(corpus.SCALE_TIERS[shape])
+    assert res["per_class"][tier]["blocks"] == res["blocks"] == res["device_stats"]["blocks"] >= 2
+    assert res["per_class"][tier]["batches"] == res["device_stats"]["batches"]
+    assert set(res["width_launches"]) == {"16", "32", "64", "128", "256"}
+    assert not any(res["width_launches"].values())
+
+
+def test_device_leg_fails_a_block_off_its_tier(small, tmp_path):
+    """The bits-4 corpus run as ``--shape config3``: its blocks are not of
+    bits 5, and the leg fails."""
+    d, _gen, _ = small
+    r = _run(["-m", "starch3_tpu_torch.scale_run", "device", d / "in.bed", d / "host.starch", tmp_path / "trace",
+              tmp_path / "mismatch", "--device", "cpu", "--level", 1, "--shape", "config3"],
+             env=dict(os.environ, STARCH3_TPU_NO_HOST_FALLBACK="1"))
+    assert r.returncode == 1
+    res = json.loads(r.stdout.decode().splitlines()[-1])
+    assert any("bits-5 blocks 0 != all blocks 6" in f for f in res["faults"])
+
+
+def test_launch_faults_hold_widths_to_batches_by_class():
+    """One MTF launch per device batch, at its class's width, on a card;
+    nothing counted on the CPU."""
+    stats = {"batches": 9, "batches_bits4": 2, "batches_bits5": 3, "batches_bits6": 1, "batches_bits8": 3}
+    launches = {"16": 2, "32": 3, "64": 1, "128": 0, "256": 3}
+    assert scale_run.launch_faults({"device_stats": stats, "width_launches": launches}, "cuda") == []
+    off = dict(launches, **{"32": 2, "64": 2})
+    assert len(scale_run.launch_faults({"device_stats": stats, "width_launches": off}, "cuda")) == 1
+    zero = dict.fromkeys(launches, 0)
+    assert scale_run.launch_faults({"device_stats": stats, "width_launches": zero}, "cpu") == []
+    assert len(scale_run.launch_faults({"device_stats": stats, "width_launches": launches}, "cpu")) == 1
+
+
+def test_counters_split_by_class(monkeypatch):
+    """``per_class`` reads each class's share of the device counters and
+    of the driver's class skips; a graph's capture and replay count in
+    its class."""
+    from starch3_tpu_torch.parallel import pipeline
+
+    scale_run._zero_counters()
+    try:
+        pipeline._count(**{"blocks": 3, "blocks_bits8": 3, "graph_captures": 1, "graph_captures_bits8": 1,
+                           "class_skips_bits5": 4})
+        got = scale_run._counters()["per_class"]
+    finally:
+        scale_run._zero_counters()
+    assert got["8"] == {"blocks": 3, "batches": 0, "tie_reencodes": 0, "graph_captures": 1, "graph_replays": 0,
+                        "class_skips": 0}
+    assert got["5"]["class_skips"] == 4 and got["4"] == dict.fromkeys(scale_run.PER_CLASS, 0)
+
+
+def test_save_block_case_keeps_a_blocks_mtf_case(tmp_path):
+    """The case a differing stream leaves: its block's BWT (the MTF input),
+    the kernel's and the plain version's ranks (on the CPU the wrapper
+    runs the plain version, so they agree), for the block's class."""
+    import torch
+
+    corpus.wide8_scale_bed(tmp_path / "w.bed", 1, n_per=5_000)
+    text = api._parse_transform((tmp_path / "w.bed").read_bytes())[0].text
+    got = scale_run.save_block_case(text, 1, 1, "cpu", str(tmp_path / "mismatch-x.pt"))
+    case = torch.load(tmp_path / "mismatch-x.pt")
+    assert got["bits"] == case["bits"] == 8 and got["width"] == case["width"] == 256
+    assert got["kernel_equals_plain"] and torch.equal(case["got"], case["want"])
+    assert case["seqs"].shape == (1, 131_072) and len(case["block"]) == got["n"] > 0
+    assert int(case["seqs"][0, : got["n"]].max()) < 256
+    assert scale_run.save_block_case(text, 5, 1, "cpu", str(tmp_path / "mismatch-y.pt")) == {
+        "skipped": "block 5 of 2"}
+    assert not (tmp_path / "mismatch-y.pt").exists()
+
+
+def test_device_run_keeps_a_mismatch_record_before_its_case(small, tmp_path, monkeypatch):
+    """A stream that differs from REF's: its text and record are written
+    as it is found, the counters are read before its MTF case is made (the
+    case's own launches do not count), and a case that raises stays in the
+    record while the mismatch fails the run."""
+    from types import SimpleNamespace
+
+    from starch3_tpu_torch.format.archive import StarchReader
+    from starch3_tpu_torch.ops import mtf_narrow
+
+    d, _gen, _ = small
+    want = list(StarchReader.from_bytes((d / "host.starch").read_bytes()).iter_streams())
+    tfs = api._parse_transform((d / "in.bed").read_bytes())
+    texts, chroms = [t.text for t in tfs], [t.chrom for t in tfs]
+    meta, stream = want[1]
+    want[1] = (meta, stream[:-1] + bytes([stream[-1] ^ 1]))
+    record = tmp_path / f"scale-mismatch-{chroms[1]}.json"
+
+    def case(text, k, level, device, path):
+        assert json.loads(record.read_text()) == {"stream": 1, "chrom": chroms[1], "ref_chrom": chroms[1],
+                                                  "first_block": 1}
+        mtf_narrow.width_launches[16] += 1
+        raise RuntimeError("the case failed")
+
+    monkeypatch.setattr(scale_run, "save_block_case", case)
+    monkeypatch.setenv("STARCH3_TPU_NO_HOST_FALLBACK", "1")
+    args = SimpleNamespace(level=1, device="cpu", mismatch_dir=str(tmp_path), shape="bed3")
+    try:
+        run = scale_run._device_run(texts, chroms, want, args)
+    finally:
+        scale_run._zero_counters()
+    assert run["faults"] == ["1 streams differ from REF's, 3 streams of 3"]
+    assert run["width_launches"]["16"] == 0
+    assert json.loads(record.read_text())["mtf"] == {"error": "RuntimeError('the case failed')"}
+    assert (tmp_path / f"scale-mismatch-{chroms[1]}.text").read_bytes() == texts[1]
+
+
+def test_streams_are_a_prefix(small, tmp_path):
+    """Phase 13 and 14's half check: the archive of a corpus's first
+    chromosomes holds the whole archive's first streams; a corpus's
+    archive at another level does not."""
+    import chip_smoke
+
+    d, _gen, _ = small
+    bed = (d / "in.bed").read_bytes()
+    half = bed[: bed.index(b"\nchr3\t") + 1]
+    for path, data, level in (("half.starch", half, 1), ("other.starch", half, 9)):
+        (tmp_path / "h.bed").write_bytes(data)
+        out = io.BytesIO()
+        api.compress_bed_file(str(tmp_path / "h.bed"), out, EncodeConfig(block_size_100k=level))
+        (tmp_path / path).write_bytes(out.getvalue())
+    assert chip_smoke.streams_are_a_prefix(str(tmp_path / "half.starch"), str(d / "host.starch"))
+    assert not chip_smoke.streams_are_a_prefix(str(tmp_path / "other.starch"), str(d / "host.starch"))
