@@ -188,13 +188,37 @@ streams and archives.  It exits 0 only if every phase passes:
      device blocks of all blocks, blocks, batches, tie re-encodes, graph
      captures and replays and class skips per class, the busy share and
      the memory peaks, beside the card's name and power limit.
+  15. the other modes at scale, in the same phase (``ScaleTier.modes``
+     and ``decode``), on the corpus and the host archive (a) of their
+     tier, each leg with a deadline of its own: on the bits-4 corpus
+     ``device_huffman`` (``fast_huff``: (b) the hybrid on the half corpus
+     and the whole, with the memory bounds of (f), and (d) device only)
+     and the exact modes ``ranks`` and ``rle2`` ((b) on the half corpus,
+     (d) on the whole); on the bits-8 corpus ``fast_huff`` (d) and (g)
+     ``decompress_starch_bytes(use_jax=True)`` of (a)'s first stream (a
+     cut for the run's time, PERF.md §4), which must give back the
+     corpus's first chromosome with every block decoded on the card.
+     Each hybrid first warms the card with a few blocks
+     (``scale_run --warm-up``); each (d) runs untraced under
+     ``STARCH3_TPU_NO_HOST_FALLBACK=1`` and must give (a)'s streams, with
+     the MTF launches by width equal to the batches by class at the
+     mode's widths and, in the exact modes, no tie re-encode; where the
+     mode runs a hybrid, the host cores then encode the same texts
+     (``scale_run device --host-rate``).  Every archive equals (a)'s, no
+     leg abandons a batch, and a hybrid may bench the card only where
+     that mode's (d) is slower than those host cores ((a) is bounded by
+     its feed's one thread, PERF.md §6).  Each
+     mode prints its MB/s, device blocks, batches and re-encodes per
+     class, bytes read back a block and memory peaks; the decode its MB/s
+     beside (e)'s native decode, the host's ms a block of its walk,
+     ``rle1_decode`` and CRCs, and its peak RSS a GB of BED.
 
 The port imports nothing of JAX and nothing of the JAX package
 ``starch3_tpu``; the run fails if either is loaded.  The line before the
 card's name is one JSON object describing each kernel of the path (the
 narrow wrapper's two kernels apart, each with the launches it counted);
 the wide kernel's entry counts its launches by width too, phases 10,
-12 and 14 included; the last line
+12, 14 and 15 included; the last line
 is ``{"ok": true, "device": {...}}``.  Without
 a card, or without the rest of the repository, it fails before printing
 any result.
@@ -219,7 +243,7 @@ import typing
 import numpy as np
 import torch
 
-from starch3_tpu_torch import api, corpus, runtime
+from starch3_tpu_torch import api, corpus, runtime, scale_run
 from starch3_tpu_torch._build import BUILD_DIR, build
 from starch3_tpu_torch.bed.parser import parse_bed
 from starch3_tpu_torch.codec.crc32 import crc32_bytes
@@ -1085,12 +1109,11 @@ def mesh_launches_expected(stats: dict, n: int, mode: str) -> tuple[dict, dict]:
     """The launches by width that a device-only encode on a mesh of ``n``
     entries must count: each batch's kernel once per entry.  (narrow by
     width, wide by width)."""
-    b = {c: stats[f"batches_bits{c}"] for c in pipeline.CLASSES}
-    if mode == "fast":
-        return {16: n * b[4], 32: n * b[5], 64: n * b[6]}, {128: 0, 256: n * b[8]}
-    if mode == "fast_huff":
-        return {16: 0, 32: 0, 64: 0}, {128: n * b[4], 256: n * (stats["batches"] - b[4])}
-    return {16: 0, 32: 0, 64: 0}, {128: 0, 256: n * stats["batches"]}
+    narrow, wide = {16: 0, 32: 0, 64: 0}, {128: 0, 256: 0}
+    for c in pipeline.CLASSES:
+        w = scale_run.mode_width(mode, c)
+        (narrow if w <= 64 else wide)[w] += n * stats[f"batches_bits{c}"]
+    return narrow, wide
 
 
 def phase_mesh_encodes(device, runs, smi: str) -> dict:
@@ -1347,22 +1370,35 @@ def phase_host_helpers(device, texts2, texts8, smi: str) -> dict:
     return launches
 
 
+class ModeRun(typing.NamedTuple):
+    """Phase 15: one encode mode of ``scale_run.MODES`` on a tier's corpus."""
+    mode: str
+    hybrid: tuple[str, ...]  # the corpora of its hybrid (b) legs: "half", "whole"
+
+
 class ScaleTier(typing.NamedTuple):
     target: int  # BED bytes of its corpus
     half: int | None  # BED bytes of its half corpus, a prefix of it, or None
     pipe: bool  # whether it runs (c), ``cat | cli --jax``
-    keep_card: bool  # whether the hybrid must never bench the card, whatever (d)'s rate
+    keep_card: bool  # whether the fast-mode hybrid must never bench the card, whatever (d)'s rate
+    modes: tuple[ModeRun, ...] = ()  # phase 15: its other modes, each with (d) device only, untraced
+    decode: int = 0  # phase 15 (g): it decodes an archive of (a)'s first ``decode`` streams on the card, 0: none
 
 
 # the tiers at scale by ``corpus.SCALE_SHAPES``' shape: phase 13's bits 4
 # (``TestGigabyteScale``'s bytes) and phase 14's BED6 tiers, bits 5, 6 and
 # 8, cut to chip_smoke's time (PERF.md §4); each half corpus runs past the
-# point where the encode's memory levels off
+# point where the encode's memory levels off.  Phase 15 runs the other
+# modes on bits 4 (``fast_huff`` half and whole, for its memory gate) and
+# bits 8 (``fast_huff``'s ``step_fast2`` with the bits-8 remap), and
+# device decode at bits 8
 SCALE_RUNS = {
-    "bed3": ScaleTier(1_100_000_000, 550_000_000, pipe=True, keep_card=True),
+    "bed3": ScaleTier(1_100_000_000, 550_000_000, pipe=True, keep_card=True, modes=(
+        ModeRun("fast_huff", ("half", "whole")), ModeRun("ranks", ("half",)), ModeRun("rle2", ("half",)))),
     "config3": ScaleTier(1_100_000_000, 550_000_000, pipe=False, keep_card=False),
     "bits6": ScaleTier(550_000_000, None, pipe=False, keep_card=False),
-    "wide8": ScaleTier(275_000_000, None, pipe=False, keep_card=False),
+    "wide8": ScaleTier(275_000_000, None, pipe=False, keep_card=False, modes=(ModeRun("fast_huff", ()),),
+                       decode=1),
 }
 SCALE_ARCHIVE_ROOM = 1_350_000_000  # one tier's archives beside its phase's corpora, with room to spare
 
@@ -1417,65 +1453,107 @@ def memory_growth(half: dict, whole: dict) -> tuple[float, float]:
     return own, whole["max_memory_reserved"] / half["max_memory_reserved"]
 
 
-def scale_faults(shape: str, legs: dict, half_prefix: bool = True) -> list[str]:
-    """The gates of phases 13 and 14 on one tier's legs: ``gen`` (the
-    corpus), ``a``, ``b`` and ``d``, and ``b_half`` and ``c`` where the
-    tier runs them.  (b)'s and (c)'s archives equal (a)'s, the half
-    archive's streams are (a)'s first (``half_prefix``), (e) decodes to
-    the corpus, no hybrid abandons a batch, (d)'s traced window holds at
-    least 50 batches, and from half to whole the memory bounds of (f).
-    A hybrid must not bench the card where the tier says so
-    (``ScaleTier.keep_card``), nor where device only (d) encodes at least
-    the host path's (a) MB/s of text: there the card beats all the host
-    cores, and benching it is ROADMAP C4 again.  The children gate the
-    rest: each device leg its streams, tier, fallbacks and launches by
-    width, each hybrid its launches by width."""
-    full, a, b, dv = legs["gen"], legs["a"], legs["b"], legs["d"]
+def _hybrid_faults(pre: str, hybrids: dict, a: dict, dv: dict, host_text: float, keep_card: bool) -> list[str]:
+    """The gates of one mode's hybrids, ``b_half`` and ``b`` where it runs
+    them: the whole archive equals (a)'s, the half archive's streams are
+    (a)'s first (``prefix_of_a``), no batch abandoned, no demotion where
+    ``keep_card`` (the card alone, (d), against the host's ``host_text``
+    MB/s of text), and from half to whole the memory bounds of (f)."""
     faults = []
-    for label in ("b", "c"):
-        if label in legs and legs[label]["archive_digest"] != a["archive_digest"]:
-            faults.append(f"({label}) archive {legs[label]['archive_digest']} != host path's {a['archive_digest']}")
-    if not half_prefix:
-        faults.append("(b) the half archive's streams are not the host archive's first streams")
-    if b["decode"]["digest"] != full["digest"] or b["decode"]["bytes"] != full["bytes"]:
-        faults.append(f"(e) decode {b['decode']} != the corpus {full['digest']} {full['bytes']}")
-    host_text = dv["text_bytes"] / a["seconds"] / 1e6
-    keep_card = SCALE_RUNS[shape].keep_card or dv["mb_per_s_text"] >= host_text
+    if "b" in hybrids and hybrids["b"]["archive_digest"] != a["archive_digest"]:
+        faults.append(f"{pre}(b) archive {hybrids['b']['archive_digest']} != host path's {a['archive_digest']}")
+    if "b_half" in hybrids and not hybrids["b_half"]["prefix_of_a"]:
+        faults.append(f"{pre}(b) the half archive's streams are not the host archive's first streams")
     for label, key in (("(b) half", "b_half"), ("(b)", "b")):
-        sched = legs[key]["scheduler_stats"] if key in legs else {}
+        sched = hybrids[key]["scheduler_stats"] if key in hybrids else {}
         if sched.get("abandoned_batches"):
-            faults.append(f"{label} abandoned batches: {sched}")
+            faults.append(f"{pre}{label} abandoned batches: {sched}")
         if keep_card and sched.get("demotions"):
-            faults.append(f"{label} benched the device, which alone encodes {dv['mb_per_s_text']:.3f} MB/s of "
-                          f"text against the host path's {host_text:.3f}: {sched}")
-    batches = dv["traced"]["trace"].get("batches") or 0
-    if batches < 50:
-        faults.append(f"(d) the traced window holds {batches} batches, fewer than 50")
-    if "b_half" in legs:
-        rss, reserved = memory_growth(legs["b_half"], b)
+            faults.append(f"{pre}{label} benched the device, which alone encodes {dv['mb_per_s_text']:.3f} MB/s "
+                          f"of text against the host's {host_text:.3f}: {sched}")
+    if "b_half" in hybrids and "b" in hybrids:
+        rss, reserved = memory_growth(hybrids["b_half"], hybrids["b"])
         if rss > 1.15 or reserved > 1.10:
-            faults.append(f"(f) memory grew with the corpus: the encode's peak RSS above its start x{rss:.4f} "
-                          f"(bound 1.15), max_memory_reserved x{reserved:.4f} (bound 1.10)")
+            faults.append(f"{pre}(f) memory grew with the corpus: the encode's peak RSS above its start "
+                          f"x{rss:.4f} (bound 1.15), max_memory_reserved x{reserved:.4f} (bound 1.10)")
+    return faults
+
+
+def scale_faults(shape: str, legs: dict) -> list[str]:
+    """The gates of phases 13 to 15 on one tier's legs: ``gen`` (the
+    corpus) and ``a``; in fast mode ``b`` and ``d``, and ``b_half`` and
+    ``c`` where the tier runs them; each mode of ``legs["modes"]``, its
+    ``d`` and its hybrids; ``g``, the device decode of (a)'s first
+    streams.  Every hybrid's
+    archive equals (a)'s, a half archive's streams are (a)'s first, no
+    hybrid abandons a batch, and from a mode's half run to its whole one
+    the memory bounds of (f) (``_hybrid_faults``); (c)'s archive equals
+    (a)'s, (e) decodes to the corpus, fast mode's (d) holds at least 50
+    batches in its traced window; (g) gives back the corpus's first
+    chromosomes and decodes every block of their archive on the card.  A hybrid must not bench a
+    card that beats the host cores: in fast mode where the tier says so
+    (``ScaleTier.keep_card``) or (d) encodes at least (a)'s MB/s of text;
+    in another mode where its (d) encodes at least the host cores' MB/s
+    on the same texts (``scale_run.host_run``): (a) is bounded by its
+    feed's one thread, far below the cores at bits 4 (PERF.md §6).  The
+    children gate the rest: each device leg its streams, tier, fallbacks,
+    launches by width and (exact modes) ties, each hybrid its launches by
+    width, the decode its output and blocks."""
+    full, a = legs["gen"], legs["a"]
+    faults = []
+    if "b" in legs:  # fast mode, phases 13 and 14
+        b, dv = legs["b"], legs["d"]
+        host_text = dv["text_bytes"] / a["seconds"] / 1e6
+        keep = SCALE_RUNS[shape].keep_card or dv["mb_per_s_text"] >= host_text
+        faults += _hybrid_faults("", legs, a, dv, host_text, keep)
+        if "c" in legs and legs["c"]["archive_digest"] != a["archive_digest"]:
+            faults.append(f"(c) archive {legs['c']['archive_digest']} != host path's {a['archive_digest']}")
+        if b["decode"]["digest"] != full["digest"] or b["decode"]["bytes"] != full["bytes"]:
+            faults.append(f"(e) decode {b['decode']} != the corpus {full['digest']} {full['bytes']}")
+        batches = dv["traced"]["trace"].get("batches") or 0
+        if batches < 50:
+            faults.append(f"(d) the traced window holds {batches} batches, fewer than 50")
+    for mode, run in legs.get("modes", {}).items():  # phase 15
+        if "b" in run or "b_half" in run:
+            dv, host_text = run["d"], run["d"]["host"]["mb_per_s_text"]
+            faults += _hybrid_faults(f"{mode} ", run, a, dv, host_text, dv["mb_per_s_text"] >= host_text)
+    if "g" in legs:  # held to the corpus's first chromosomes, which the leg reads
+        g, want = legs["g"], legs["g"]["corpus"]
+        if (g["digest"], g["bytes"], g["streams"]) != (want["digest"], want["bytes"], SCALE_RUNS[shape].decode):
+            faults.append(f"(g) device decode {g['digest']} {g['bytes']} of {g['streams']} streams != the corpus's "
+                          f"{want['digest']} {want['bytes']} of {SCALE_RUNS[shape].decode}")
+        if g["device_stats"].get("decode_blocks", 0) != g["archive_blocks"]:
+            faults.append(f"(g) device decode of {g['device_stats'].get('decode_blocks', 0)} blocks != the "
+                          f"archive's {g['archive_blocks']}")
     return [f"{shape} {f}" for f in faults]
 
 
 def tier_launches(legs: dict) -> dict:
     """The MTF launches by width of a tier's hybrids (b) and of both
-    device-only runs (d), each counted in its child process."""
-    runs = [legs[k] for k in ("b_half", "b") if k in legs] + [legs["d"], legs["d"]["traced"]]
+    device-only runs (d) in fast mode, and of each mode's hybrids and
+    (d), each counted in its child process."""
+    runs = [legs[k] for k in ("b_half", "b") if k in legs]
+    if "d" in legs:
+        runs += [legs["d"], legs["d"]["traced"]]
+    for run in legs.get("modes", {}).values():
+        runs += run.values()
     return {w: sum(r["width_launches"][w] for r in runs) for w in ("16", "32", "64", "128", "256")}
 
 
-def phase_scale(smi: str, shapes, deadline: float) -> dict:
-    """Phases 13 and 14: the tiers ``shapes`` of ``SCALE_RUNS`` at the
+def phase_scale(smi: str, shapes, deadline: float, mode_deadline: float, fast: bool = True) -> dict:
+    """Phases 13 to 15: the tiers ``shapes`` of ``SCALE_RUNS`` at the
     scale their users run, their corpora written together in a temporary
     directory (the disk's room checked first), then tier by tier each leg
-    in a child process (``scale_child``); every gate of ``scale_faults``.
-    Returns the MTF launches of (b) and (d) by width."""
+    in a child process (``scale_child``): (a), the fast-mode legs of
+    phases 13 and 14 by ``deadline`` (none without ``fast``), then the
+    tier's phase-15 legs by ``mode_deadline`` on the same corpus, held to
+    the same (a); every gate of ``scale_faults``.  Returns the MTF
+    launches of (b) and (d) by width."""
     import shutil
 
     torch.cuda.empty_cache()
     launches = dict.fromkeys(("16", "32", "64", "128", "256"), 0)
+    no_fallback = {"STARCH3_TPU_NO_HOST_FALLBACK": "1"}
     faults = []
     with tempfile.TemporaryDirectory(prefix="s3t-scale-") as d:
         jobs = {(shape, part): (os.path.join(d, f"{shape}-{part}.bed"), t) for shape in shapes
@@ -1493,27 +1571,45 @@ def phase_scale(smi: str, shapes, deadline: float) -> dict:
             if legs["gen"]["bytes"] < tier.target:
                 raise AssertionError(f"scale {shape}: the corpus has {legs['gen']['bytes']} bytes")
             arc = {k: os.path.join(d, f"{shape}-{k}.starch") for k in ("a", "b_half", "b", "c")}
-            # (a) the reference bytes: the host path
-            legs["a"] = scale_child(f"{shape} (a) host path", ["encode", bed, arc["a"]], deadline, 300)
-            # (b) the hybrid through the file entry, half then whole; (e) decode
-            half_prefix = True
             if tier.half:
-                half, part = jobs[shape, "half"][0], corpora[shape, "half"]
+                part = corpora[shape, "half"]
                 with open(bed, "rb") as f:
                     if hashlib.sha256(f.read(part["bytes"])).hexdigest() != part["digest"]:
                         raise AssertionError(f"scale {shape}: the half corpus is not a prefix of the corpus")
-                legs["b_half"] = scale_child(f"{shape} (b) hybrid, half corpus",
-                                             ["encode", half, arc["b_half"], "--jax"], deadline, 200)
-                half_prefix = streams_are_a_prefix(arc["b_half"], arc["a"])
-            legs["b"] = scale_child(f"{shape} (b) hybrid + (e) decode",
-                                    ["encode", bed, arc["b"], "--jax", "--decode"], deadline, 300)
-            if tier.pipe:  # (c) the CLI through a real pipe
-                legs["c"] = scale_child(f"{shape} (c) cat | cli --jax", ["pipe", bed, arc["c"]], deadline, 300)
-            # (d) device only, every stream against (a)'s
-            legs["d"] = scale_child(f"{shape} (d) device only", ["device", bed, arc["a"], os.path.join(
-                d, f"trace-{shape}"), BUILD_DIR, "--shape", shape], deadline, 300,
-                env={"STARCH3_TPU_NO_HOST_FALLBACK": "1"})
-            faults += scale_faults(shape, legs, half_prefix)
+            src = {"half": tier.half and jobs[shape, "half"][0], "whole": bed}
+            # (a) the reference bytes: the host path
+            legs["a"] = scale_child(f"{shape} (a) host path", ["encode", bed, arc["a"]], deadline, 300)
+            if fast:
+                # (b) the hybrid through the file entry, half then whole; (e) decode
+                if tier.half:
+                    legs["b_half"] = scale_child(f"{shape} (b) hybrid, half corpus",
+                                                 ["encode", src["half"], arc["b_half"], "--jax"], deadline, 200)
+                    legs["b_half"]["prefix_of_a"] = streams_are_a_prefix(arc["b_half"], arc["a"])
+                legs["b"] = scale_child(f"{shape} (b) hybrid + (e) decode",
+                                        ["encode", bed, arc["b"], "--jax", "--decode"], deadline, 300)
+                if tier.pipe:  # (c) the CLI through a real pipe
+                    legs["c"] = scale_child(f"{shape} (c) cat | cli --jax", ["pipe", bed, arc["c"]], deadline, 300)
+                # (d) device only, every stream against (a)'s
+                legs["d"] = scale_child(f"{shape} (d) device only", ["device", bed, arc["a"], os.path.join(
+                    d, f"trace-{shape}"), BUILD_DIR, "--shape", shape], deadline, 300, env=no_fallback)
+            # phase 15: the other modes, each held to (a), and device decode
+            for run in tier.modes:
+                legs.setdefault("modes", {})[run.mode] = mode_legs = {}
+                for part in run.hybrid:
+                    key, out = "b" if part == "whole" else "b_half", os.path.join(d, f"{shape}-{run.mode}.starch")
+                    mode_legs[key] = scale_child(f"{shape} {run.mode} (b) hybrid, {part} corpus", [
+                        "encode", src[part], out, "--jax", "--mode", run.mode, "--warm-up"], mode_deadline, 200)
+                    if key == "b_half":
+                        mode_legs[key]["prefix_of_a"] = streams_are_a_prefix(out, arc["a"])
+                    os.remove(out)
+                host_rate = ["--host-rate"] if run.hybrid else []  # the cores a hybrid's card is held to
+                mode_legs["d"] = scale_child(f"{shape} {run.mode} (d) device only", [
+                    "device", bed, arc["a"], os.path.join(d, f"trace-{shape}"), BUILD_DIR, "--shape", shape,
+                    "--mode", run.mode, "--untraced", *host_rate], mode_deadline, 300, env=no_fallback)
+            if tier.decode:  # (g) device decode of (a)'s first streams, a cut for the run's time
+                legs["g"] = scale_child(f"{shape} (g) device decode", [
+                    "decode", arc["a"], bed, "--streams", tier.decode], mode_deadline, 300)
+            faults += scale_faults(shape, legs)
             for w, n in tier_launches(legs).items():
                 launches[w] += n
             log_scale(shape, smi, legs)
@@ -1530,31 +1626,78 @@ def _classes_run(per_class: dict) -> dict:
     return {c: v for c, v in per_class.items() if any(v.values())}
 
 
+def _memory_line(bh: dict | None, b: dict) -> str:
+    """(f)'s figures from a mode's half hybrid to its whole one, or the
+    whole one's alone."""
+    if not bh:
+        return (f"the encode's own peak RSS {b['peak_rss_mb'] - b['rss_start_mb']:.1f} MB, max_memory_reserved "
+                f"{b['max_memory_reserved']}, page-locked bytes held {b.get('pinned_bytes')}")
+    rss, reserved = memory_growth(bh, b)
+    return (f"(f) the encode's own peak RSS, half -> whole, {bh['peak_rss_mb'] - bh['rss_start_mb']:.1f} -> "
+            f"{b['peak_rss_mb'] - b['rss_start_mb']:.1f} MB (x{rss:.4f}; peak RSS {bh['peak_rss_mb']:.1f} -> "
+            f"{b['peak_rss_mb']:.1f}, at the start {bh['rss_start_mb']:.1f} and {b['rss_start_mb']:.1f}; the C "
+            f"heap's peak in use {bh.get('c_heap_in_use_peak_mb')} -> {b.get('c_heap_in_use_peak_mb')} and "
+            f"held {bh.get('c_heap_held_peak_mb')} -> {b.get('c_heap_held_peak_mb')}; ru_maxrss, which a child "
+            f"keeps from this process, {bh['ru_maxrss_mb']:.1f} -> {b['ru_maxrss_mb']:.1f}), "
+            f"max_memory_reserved {bh['max_memory_reserved']} -> {b['max_memory_reserved']} (x{reserved:.4f}), "
+            f"page-locked bytes held {bh.get('pinned_bytes')} -> {b.get('pinned_bytes')}")
+
+
+def _log_hybrids(shape: str, mode: str, smi: str, hybrids: dict) -> None:
+    for label, key in (("(b) half", "b_half"), ("(b) whole", "b")):
+        if key not in hybrids:
+            continue
+        r = hybrids[key]
+        st, sched = r["device_stats"], r["scheduler_stats"]
+        log(f"scale {shape} {mode} {label}: {r['mb_per_s_bed']:.3f} MB/s of BED, blocks on the device "
+            f"{st.get('blocks', 0)} ({st.get('batches', 0)} batches) of {r['blocks']}, scheduler {sched}, the "
+            f"feed's transform {r['transform_seconds']:.3f} s, per class {_classes_run(r['per_class'])}, bytes "
+            f"read back a block {r['d2h_bytes_per_block']}; on {smi}")
+
+
 def log_scale(shape: str, smi: str, legs: dict) -> None:
     """One tier's figures, each beside the card's name and power limit."""
+    full, a = legs["gen"], legs["a"]
+    log(f"scale {shape}, {full['bytes']} bytes of BED ({full['seconds']:.3f} s to generate): (a) host "
+        f"{a['mb_per_s_bed']:.3f} MB/s of BED, transform {a['transform_seconds']:.3f} s; MTF launches by width "
+        f"{tier_launches(legs)}; on {smi}")
+    if "b" in legs:
+        log_fast(shape, smi, legs)
+    for mode, run in legs.get("modes", {}).items():
+        _log_hybrids(shape, mode, smi, run)
+        dv = run["d"]
+        b = run.get("b")
+        hybrid = (f"(b) hybrid {b['mb_per_s_bed']:.3f} MB/s of BED, blocks on the device "
+                  f"{b['device_stats'].get('blocks', 0)} of {b['blocks']}" if b else "(b) on the whole corpus not run")
+        half = run.get("b_half")
+        if half:
+            hybrid += (f"; half {half['mb_per_s_bed']:.3f} MB/s of BED, blocks on the device "
+                       f"{half['device_stats'].get('blocks', 0)} of {half['blocks']}")
+        cores = f", the host cores' {dv['host']['mb_per_s_text']:.3f} on the same texts" if "host" in dv else ""
+        log(f"scale {shape} {mode} summary: {hybrid}; (d) device only, untraced, {dv['mb_per_s_text']:.3f} MB/s of "
+            f"text against the host path's {dv['text_bytes'] / a['seconds'] / 1e6:.3f}{cores} ({dv['blocks']} blocks, "
+            f"{dv['device_stats'].get('batches', 0)} batches in {dv['seconds']:.3f} s; per class "
+            f"{_classes_run(dv['per_class'])}; bytes read back a block {dv['d2h_bytes_per_block']}; "
+            f"max_memory_reserved {dv['max_memory_reserved']}, peak RSS {dv['peak_rss_mb']:.1f} MB); "
+            f"{_memory_line(half if b else None, b or half) if b or half else 'no hybrid'}; on {smi}")
+    if "g" in legs:
+        g = legs["g"]
+        native = f"{legs['b']['decode']['mb_per_s_bed']:.3f}" if "b" in legs else "not run"
+        gb = g["bytes"] / 1e9
+        log(f"scale {shape} (g) device decode of (a)'s archive, {g['streams']} streams: "
+            f"{g['mb_per_s_bed']:.3f} MB/s of BED "
+            f"({g['seconds']:.3f} s for {g['bytes']} bytes, {g['archive_blocks']} blocks in "
+            f"{g['device_stats'].get('decode_batches', 0)} batches) against (e)'s native decode {native}; host "
+            f"ms a block {g['host_ms_per_block']}; peak RSS {g['peak_rss_mb']:.1f} MB ({g['peak_rss_mb'] / gb:.1f} "
+            f"a GB of BED; the decode's own {(g['peak_rss_mb'] - g['rss_start_mb']) / gb:.1f} a GB), "
+            f"max_memory_reserved {g['max_memory_reserved']}; on {smi}")
+
+
+def log_fast(shape: str, smi: str, legs: dict) -> None:
+    """Fast mode's figures, phases 13 and 14."""
     full, a, b, dv = legs["gen"], legs["a"], legs["b"], legs["d"]
     bh, text, trace = legs.get("b_half"), dv["text_bytes"], dv["traced"]["trace"]
-    for label, key in (("(b) half", "b_half"), ("(b) whole", "b")):
-        if key not in legs:
-            continue
-        r = legs[key]
-        st, sched = r["device_stats"], r["scheduler_stats"]
-        log(f"scale {shape} {label}: {r['mb_per_s_bed']:.3f} MB/s of BED, blocks on the device "
-            f"{st.get('blocks', 0)} ({st.get('batches', 0)} batches) of {r['blocks']}, scheduler {sched}, the "
-            f"feed's transform {r['transform_seconds']:.3f} s, per class {_classes_run(r['per_class'])}; on {smi}")
-    if bh:
-        rss, reserved = memory_growth(bh, b)
-        mem = (f"(f) the encode's own peak RSS, half -> whole, {bh['peak_rss_mb'] - bh['rss_start_mb']:.1f} -> "
-               f"{b['peak_rss_mb'] - b['rss_start_mb']:.1f} MB (x{rss:.4f}; peak RSS {bh['peak_rss_mb']:.1f} -> "
-               f"{b['peak_rss_mb']:.1f}, at the start {bh['rss_start_mb']:.1f} and {b['rss_start_mb']:.1f}; the C "
-               f"heap's peak in use {bh.get('c_heap_in_use_peak_mb')} -> {b.get('c_heap_in_use_peak_mb')} and "
-               f"held {bh.get('c_heap_held_peak_mb')} -> {b.get('c_heap_held_peak_mb')}; ru_maxrss, which a child "
-               f"keeps from this process, {bh['ru_maxrss_mb']:.1f} -> {b['ru_maxrss_mb']:.1f}), "
-               f"max_memory_reserved {bh['max_memory_reserved']} -> {b['max_memory_reserved']} (x{reserved:.4f}), "
-               f"page-locked bytes held {bh.get('pinned_bytes')} -> {b.get('pinned_bytes')}")
-    else:
-        mem = (f"the encode's own peak RSS {b['peak_rss_mb'] - b['rss_start_mb']:.1f} MB, max_memory_reserved "
-               f"{b['max_memory_reserved']}, page-locked bytes held {b.get('pinned_bytes')}")
+    _log_hybrids(shape, "fast", smi, legs)
     pipe = f"(c) cat | cli --jax {legs['c']['mb_per_s_bed']:.3f} MB/s of BED; " if "c" in legs else ""
     log(f"scale {shape} summary, {full['bytes']} bytes of BED, {text} of text ({full['seconds']:.3f} s to "
         f"generate): (a) host {a['mb_per_s_bed']:.3f} MB/s of BED ({text / a['seconds'] / 1e6:.3f} of text), "
@@ -1566,8 +1709,8 @@ def log_scale(shape: str, smi: str, legs: dict) -> None:
         f"{dv['traced']['mb_per_s_text']:.3f} MB/s of text, busy share {trace.get('busy_share')} over "
         f"{trace.get('batches')} steady batches ({trace.get('batches_per_s')} batches/s, "
         f"{trace.get('device_ms_per_batch')} device ms a batch); (e) decode {b['decode']['mb_per_s_bed']:.3f} MB/s "
-        f"of BED; {mem}; device only: max_memory_reserved {dv['max_memory_reserved']}, page-locked bytes "
-        f"{dv.get('pinned_bytes')}; MTF launches by width {tier_launches(legs)}; on {smi}")
+        f"of BED; {_memory_line(bh, b)}; device only: max_memory_reserved {dv['max_memory_reserved']}, page-locked "
+        f"bytes {dv.get('pinned_bytes')}; on {smi}")
 
 
 def card_name() -> str:
@@ -1676,10 +1819,12 @@ def main() -> int:
     launches["mtf_narrow"] += helpers["narrow"]
     launches["mtf_wide"] += helpers["wide"]
     wide_by_width[256] += helpers["wide"]
-    bits4 = phase_scale(smi, ("bed3",), t_start + 760)
-    bed6 = phase_scale(smi, ("config3", "bits6", "wide8"), t_start + 1140)
-    if not (bits4["16"] and all(bed6[w] for w in ("32", "64", "256"))):
-        raise AssertionError(f"scale: an MTF width of a tier did not launch: bits 4 {bits4}, BED6 {bed6}")
+    # phases 13 and 15 on bits 4, then 14 and 15 on the BED6 tiers; phase
+    # 15's legs (the other modes, device decode) have deadlines of their own
+    bits4 = phase_scale(smi, ("bed3",), t_start + 760, t_start + 950)
+    bed6 = phase_scale(smi, ("config3", "bits6", "wide8"), t_start + 1140, t_start + 1180)
+    if not (all(bits4[w] for w in ("16", "128", "256")) and all(bed6[w] for w in ("32", "64", "256"))):
+        raise AssertionError(f"scale: an MTF width of a tier or mode did not launch: bits 4 {bits4}, BED6 {bed6}")
     scale = {w: bits4[w] + bed6[w] for w in bits4}
     launches["mtf_narrow"] += scale["16"]
     launches["mtf_narrow_windowed"] += scale["32"] + scale["64"]

@@ -1042,6 +1042,26 @@ def _download(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy()
 
 
+# device index -> the finishers' idle CUDA streams.  A finisher takes one
+# and gives it back, so the finishers of a process reuse as many streams as
+# run at once: the caching allocator keeps the blocks freed on a stream for
+# that stream, and a fresh stream a batch (torch's pool has 32 a device)
+# held up to 32 batches' blocks
+_finisher_streams: dict = {}
+_finisher_lock = threading.Lock()
+
+
+def _take_finisher_stream(dev: torch.device):
+    with _finisher_lock:
+        idle = _finisher_streams.setdefault(dev.index, [])
+        return idle.pop() if idle else torch.cuda.Stream(dev)
+
+
+def _give_finisher_stream(dev: torch.device, stream) -> None:
+    with _finisher_lock:
+        _finisher_streams[dev.index].append(stream)
+
+
 def _drain_fast_huff(results, per_stream_blocks, chunk, handle, aux) -> None:
     """Finish a ``fast_huff`` batch, the counterpart of the reference's
     ``_drain_fast_huff``: 4 device cost/select rounds, each followed by
@@ -1051,9 +1071,10 @@ def _drain_fast_huff(results, per_stream_blocks, chunk, handle, aux) -> None:
     emit's capacity, is re-encoded on the host (the reference's rule).
 
     On a CUDA device the finisher waits for its batch's event only, and
-    runs its device work on a stream of its own, so its round trips do
-    not queue behind the driver's next dispatch; every read-back is a
-    blocking copy on that stream, never a device-wide synchronize."""
+    runs its device work on a stream of its own while it runs
+    (``_take_finisher_stream``), so its round trips do not queue behind
+    the driver's next dispatch; every read-back is a blocking copy on that
+    stream, never a device-wide synchronize."""
     from starch3_tpu_torch.codec import huffman
     from starch3_tpu_torch.codec.encoder import encode_block_fragment, write_block_header
     from starch3_tpu_torch.runtime import (
@@ -1065,11 +1086,8 @@ def _drain_fast_huff(results, per_stream_blocks, chunk, handle, aux) -> None:
     small_h, event, syms, m_d, hist = _landed(handle)
     n_max, bits = aux["n_max"], aux["bits"]
     dev = syms.device
-    stream = None
     if event is not None:
         event.synchronize()
-        stream = torch.cuda.Stream(dev)
-        stream.wait_event(event)
     small = small_h.numpy()
     d2h = small.nbytes
     b = len(chunk)
@@ -1093,7 +1111,10 @@ def _drain_fast_huff(results, per_stream_blocks, chunk, handle, aux) -> None:
         alphas[i] = alpha
     masks[b:, 0] = True  # padding rows: keep the selection well-defined
 
+    stream = None if event is None else _take_finisher_stream(dev)
     try:
+        if stream is not None:
+            stream.wait_event(event)
         with torch.cuda.stream(stream):
             masks_d = torch.from_numpy(masks).to(dev)
             sel_d = None
@@ -1134,6 +1155,7 @@ def _drain_fast_huff(results, per_stream_blocks, chunk, handle, aux) -> None:
     finally:
         if stream is not None:
             stream.synchronize()  # nothing of this batch may be freed in flight
+            _give_finisher_stream(dev, stream)
 
     overflows = ties_n = 0
     for i, (si, bi) in enumerate(chunk):

@@ -4,10 +4,11 @@ parts, each batch's pack, and how long a thread that slept 1 ms waits to
 run Python again (the GIL's hand-over) while the encode runs.
 
     python -m starch3_tpu_torch.profile_lane BED [--feed file|texts|paced]
-        [--rate MB_PER_S] [--device cuda] [--level 9]
+        [--rate MB_PER_S] [--device cuda] [--level 9] [--mode M]
 
 ``file`` encodes BED through ``api.compress_bed_file(use_jax=True)``, the
-streaming feed of ``scale_run encode --jax`` (without its RSS sampler).
+streaming feed of ``scale_run encode --jax`` (without its RSS sampler), in
+the encode mode M (``scale_run.MODES``; ``fast`` by default).
 ``texts`` transforms each chromosome before the encode and feeds the texts
 to ``pipeline.encode_streams_iter`` as fast as it takes them; ``paced``
 feeds them at ``--rate`` MB/s of text.  The two leave out the file entry's
@@ -255,12 +256,14 @@ def launcher_ops(path: str, device: str = "cuda", level: int = 9) -> dict:
     return {"eager": eager, "replay": [counted(graph_key=(bits, n_max)) for _ in range(3)][-1]}
 
 
-def run(path: str, feed: str = "file", rate_mb_s: float = 35.0, device: str = "cuda", level: int = 9) -> dict:
-    """One hybrid encode of ``path`` under ``feed``, with the driver's rate
-    samples, the packs and the GIL probe recorded; the patched names are
-    restored and the probe thread joined before it returns."""
+def run(path: str, feed: str = "file", rate_mb_s: float = 35.0, device: str = "cuda", level: int = 9,
+        mode: str = "fast") -> dict:
+    """One hybrid encode of ``path`` under ``feed`` in the encode ``mode``
+    (``scale_run.MODES``), with the driver's rate samples, the packs and
+    the GIL probe recorded; the patched names are restored and the probe
+    thread joined before it returns."""
     from starch3_tpu_torch.parallel import host, pipeline
-    from starch3_tpu_torch.scale_run import _zero_counters
+    from starch3_tpu_torch.scale_run import MODES, _zero_counters
 
     texts = _chromosome_texts(path) if feed != "file" else None
     samples, packs, probe, queues = [], [], [], []
@@ -335,11 +338,12 @@ def run(path: str, feed: str = "file", rate_mb_s: float = 35.0, device: str = "c
             from starch3_tpu_torch.config import EncodeConfig
 
             with open(os.devnull, "wb") as out:
-                api.compress_bed_file(path, out, EncodeConfig(use_jax=True, block_size_100k=level), device=device)
+                api.compress_bed_file(path, out, EncodeConfig(use_jax=True, block_size_100k=level, **MODES[mode]),
+                                      device=device)
             n = os.path.getsize(path)
         else:
             rate = rate_mb_s * 1e6 if feed == "paced" else None
-            for _ in pipeline.encode_streams_iter(_paced(texts, rate), level=level, device=device):
+            for _ in pipeline.encode_streams_iter(_paced(texts, rate), level=level, device=device, **MODES[mode]):
                 pass
             n = sum(map(len, texts))
         seconds = time.perf_counter() - t0
@@ -350,7 +354,8 @@ def run(path: str, feed: str = "file", rate_mb_s: float = 35.0, device: str = "c
         pipeline._start_host_stealers = real_stealers
         pipeline._dispatch_chunk, pipeline._launcher = real_dispatch, real_launcher
         pipeline._launch = real_launch
-    res = {"feed": feed, "device": device, "level": level, "seconds": seconds, "mb_per_s": n / seconds / 1e6,
+    res = {"feed": feed, "mode": mode, "device": device, "level": level, "seconds": seconds,
+           "mb_per_s": n / seconds / 1e6,
            "rate_mb_s": rate_mb_s if feed == "paced" else None,
            "scheduler_stats": dict(host.scheduler_stats),
            "device_blocks": pipeline.device_stats["blocks"], "device_batches": pipeline.device_stats["batches"],
@@ -379,8 +384,9 @@ def main(argv=None) -> int:
     ap.add_argument("--rate", type=float, default=35.0, help="MB/s of text for --feed paced")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--level", type=int, default=9)
+    ap.add_argument("--mode", default="fast", help="the encode mode: fast, fast_huff, ranks or rle2")
     args = ap.parse_args(argv)
-    print(json.dumps(run(args.bed, args.feed, args.rate, args.device, args.level)), flush=True)
+    print(json.dumps(run(args.bed, args.feed, args.rate, args.device, args.level, args.mode)), flush=True)
     return 0
 
 

@@ -1,31 +1,43 @@
 """The port at the scale its users run: one leg of a streaming encode or
 decode of a scale corpus (``corpus.SCALE_SHAPES``: 3-column BED, and the
 BED6 shapes of the bits 5, 6 and 8 tiers) per process, for
-``chip_smoke.py`` phases 13 and 14 and ``tests/test_torch_scale.py``.
+``chip_smoke.py`` phases 13 to 15 and ``tests/test_torch_scale.py``.
 
     python -m starch3_tpu_torch.scale_run gen OUT TARGET [--shape S] [--n-per N]
-    python -m starch3_tpu_torch.scale_run encode IN OUT [--jax] [--decode]
+    python -m starch3_tpu_torch.scale_run encode IN OUT [--jax [--mode M] [--warm-up]] [--decode]
     python -m starch3_tpu_torch.scale_run pipe IN OUT
-    python -m starch3_tpu_torch.scale_run device IN REF TRACE_DIR MISMATCH_DIR [--shape S]
+    python -m starch3_tpu_torch.scale_run device IN REF TRACE_DIR MISMATCH_DIR [--shape S] [--mode M]
+        [--untraced] [--host-rate]
+    python -m starch3_tpu_torch.scale_run decode ARCHIVE CORPUS [--streams K]
 
 ``gen`` writes the corpus of shape S (``bed3``, the default, is
 ``corpus.gigabyte_bed``; ``config3``, ``bits6`` and ``wide8`` the BED6
 tiers).  ``encode`` is ``api.compress_bed_file`` with
 ``EncodeConfig()`` (the host path) or, with ``--jax``, the device path
-beside the host stealers on ``--device``; ``--decode`` then decodes the
-archive with ``api.decompress_starch_file`` and hashes what comes out.
-It also gives the archive's blocks and the feed's transform seconds
-(``timed_transform``).
+beside the host stealers on ``--device``, in the encode mode M
+(``MODES``: ``fast``, the default, ``fast_huff``, ``ranks`` or
+``rle2``), after a warm-up on the card with ``--warm-up``
+(``warm_up``); ``--decode`` then decodes the archive with
+``api.decompress_starch_file`` and hashes what comes out.  It also gives
+the archive's blocks and the feed's transform seconds.
 ``pipe`` runs ``cat IN | python -m starch3_tpu_torch.cli --jax > OUT``, a
 real pipe into the CLI's stdin.  ``device`` transforms each chromosome of
 IN whole with the native transform, feeds the texts in order to
 ``pipeline.encode_streams_iter(host_assist=False)`` and holds every
-stream to the stream of the same chromosome in the archive REF, twice:
-first under ``observability.device_trace`` into TRACE_DIR, where it reads
-the card's busy share, then timed; every block must be of the tier of
-shape S.  A stream that differs leaves its text and its first differing
-block in MISMATCH_DIR, with that block's MTF input and the kernel's and
-the plain version's ranks on it (``mismatch-*.pt``).
+stream to the stream of the same chromosome in the archive REF, in mode
+M, twice: first under ``observability.device_trace`` into TRACE_DIR,
+where it reads the card's busy share, then timed (``--untraced``: the
+timed run alone); every block must be of the tier of shape S.  With
+``--host-rate`` the host cores then encode the same texts, without the
+feed (``host_run``).  A stream that differs leaves its text and its
+first differing block in MISMATCH_DIR, with that block's MTF input and
+the kernel's and the plain version's ranks on it (``mismatch-*.pt``).
+``decode`` is ``api.decompress_starch_bytes(use_jax=True)`` of ARCHIVE
+(or of an archive of its first K streams) on ``--device``, whose output
+must be the bytes of CORPUS (of its first K chromosomes), with
+``decode_blocks`` equal to the decoded archive's blocks; it times the
+host's share per block (the Huffman walk, ``rle1_decode``, the CRCs)
+around the functions ``decode_streams`` calls.
 
 Each leg prints one JSON line, its last: its seconds, digests, peak RSS
 (sampled: ``PeakRss``; ``ru_maxrss`` beside it) and the resident set
@@ -34,9 +46,11 @@ in use and held over the leg, on a card the caching allocator's peaks and
 the page-locked bytes the process holds, and the counters it read
 (``pipeline.device_stats``, ``host.scheduler_stats``, the MTF kernels'
 launches by width), each set to 0 just before the leg, with each class's
-share of them (``per_class``).  The ``encode --jax`` and ``device`` legs
-hold the launches by width to the device batches by class; a leg that
-finds a fault or a mismatch exits non-zero.
+share of them (``per_class``) and each class's bytes read back a block.
+The ``encode --jax`` and ``device`` legs hold the launches by width to
+the device batches by class at the mode's widths, and in the exact modes
+want no tie re-encode (``counter_faults``); a leg that finds a fault or
+a mismatch exits non-zero.
 """
 
 from __future__ import annotations
@@ -87,27 +101,34 @@ def archive_blocks(path: str) -> int:
 
 
 @contextlib.contextmanager
-def timed_transform():
-    """Sums, into the list it yields, the wall time of every call of
-    ``runtime.bed_transform_native`` made inside it: the file entry's feed
-    (which imports the function when it is called), whose one thread's
-    transform bounds a streaming encode."""
-    from starch3_tpu_torch import runtime
+def timed_calls(module, *names):
+    """Sums, into the dict it yields, the wall time of every call of each
+    function ``module.<name>`` made inside it by code that looks the name
+    up in ``module`` when it calls it: the file entry's feed
+    (``runtime.bed_transform_native``, whose one thread bounds a
+    streaming encode), or the host's share of ``pipeline.decode_streams``.
+    ``<name>_calls`` counts the calls."""
+    real = {n: getattr(module, n) for n in names}
+    spent = dict.fromkeys(names, 0.0) | {f"{n}_calls": 0 for n in names}
 
-    real, spent = runtime.bed_transform_native, [0.0]
+    def timed(name):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return real[name](*args, **kw)
+            finally:
+                spent[name] += time.perf_counter() - t0
+                spent[f"{name}_calls"] += 1
 
-    def timed(data):
-        t0 = time.perf_counter()
-        try:
-            return real(data)
-        finally:
-            spent[0] += time.perf_counter() - t0
+        return call
 
-    runtime.bed_transform_native = timed
+    for n in names:
+        setattr(module, n, timed(n))
     try:
         yield spent
     finally:
-        runtime.bed_transform_native = real
+        for n in names:
+            setattr(module, n, real[n])
 
 
 def file_digest(path: str) -> str:
@@ -162,6 +183,7 @@ class PeakRss:
 
         self.every_s, self.series_s, self.progress = every_s, series_s, progress
         self.mb, self.series = rss_mb(), []
+        self._lock = threading.Lock()
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._run, name="peak-rss", daemon=True)
 
@@ -173,7 +195,9 @@ class PeakRss:
     def _run(self) -> None:
         t0 = next_point = time.perf_counter()
         while not self._stop.wait(self.every_s):
-            self.mb = max(self.mb, rss_mb())
+            rss = rss_mb()
+            with self._lock:
+                self.mb = max(self.mb, rss)
             if time.perf_counter() >= next_point:
                 self._point(t0)
                 next_point += self.series_s
@@ -188,8 +212,16 @@ class PeakRss:
         self._thread.join()
 
     def peak_mb(self) -> float:
-        self.mb = max(self.mb, rss_mb())
-        return self.mb
+        rss = rss_mb()
+        with self._lock:
+            self.mb = max(self.mb, rss)
+            return self.mb
+
+    def reset(self) -> None:
+        """Forget the peak so far: the peak from here on (the series goes on)."""
+        rss = rss_mb()
+        with self._lock:
+            self.mb = rss
 
 
 def _zero_counters() -> None:
@@ -203,13 +235,34 @@ def _zero_counters() -> None:
 
 # the MTF width of each class's fast-mode step (narrow 16/32/64, wide 256)
 WIDTH_OF_CLASS = {4: 16, 5: 32, 6: 64, 8: 256}
-PER_CLASS = ("blocks", "batches", "tie_reencodes", "graph_captures", "graph_replays", "class_skips")
+# each encode mode's ``EncodeConfig`` fields and ``encode_streams_iter``
+# arguments, as ``pipeline.encode_mode`` reads them
+MODES = {
+    "fast": {},
+    "fast_huff": {"device_huffman": True},
+    "ranks": {"fast_bwt": False},
+    "rle2": {"fast_bwt": False, "device_rle2": True},
+}
+PER_CLASS = ("blocks", "batches", "tie_reencodes", "huff_host_reencodes", "d2h_bytes", "graph_captures",
+             "graph_replays", "class_skips")
+
+
+def mode_width(mode: str, bits: int) -> int:
+    """The MTF width a batch of class ``bits`` runs at in ``mode``: fast
+    mode's ``WIDTH_OF_CLASS``; in ``fast_huff`` the wide kernel, 128 at
+    bits 4 and 256 otherwise; in the exact modes 256 for every class."""
+    if mode == "fast":
+        return WIDTH_OF_CLASS[bits]
+    if mode == "fast_huff":
+        return 128 if bits == 4 else 256
+    return 256
 
 
 def _counters() -> dict:
     """The counters, with the MTF launches of both wrappers by width (the
-    narrow wrapper's 16/32/64, the wide one's 128/256) and each class's
-    share of ``PER_CLASS``."""
+    narrow wrapper's 16/32/64, the wide one's 128/256), each class's share
+    of ``PER_CLASS`` and the bytes read back a block of each class that
+    ran on the device."""
     from starch3_tpu_torch.ops import mtf_narrow, mtf_wide
     from starch3_tpu_torch.parallel import host, pipeline
 
@@ -220,20 +273,33 @@ def _counters() -> dict:
         "class_rate_cache": dict(host._class_rate_cache),
         "width_launches": {str(w): n for w, n in (mtf_narrow.width_launches | mtf_wide.width_launches).items()},
         "per_class": {str(c): {k: st[f"{k}_bits{c}"] for k in PER_CLASS} for c in WIDTH_OF_CLASS},
+        "d2h_bytes_per_block": {str(c): st[f"d2h_bytes_bits{c}"] / st[f"blocks_bits{c}"]
+                                for c in WIDTH_OF_CLASS if st[f"blocks_bits{c}"]},
     }
 
 
-def launch_faults(counters: dict, device: str) -> list[str]:
-    """Fast mode launches one MTF kernel per device batch, at its class's
-    width (``WIDTH_OF_CLASS``); on the CPU the wrappers run their plain
+def launch_faults(counters: dict, device: str, mode: str = "fast") -> list[str]:
+    """Each device batch launches one MTF kernel, at its class's width in
+    ``mode`` (``mode_width``); on the CPU the wrappers run their plain
     versions and count nothing.  Returns what differs."""
     st, on_card = counters["device_stats"], device.startswith("cuda")
-    want = {str(w): st.get(f"batches_bits{c}", 0) if on_card else 0 for c, w in WIDTH_OF_CLASS.items()}
-    want["128"] = 0
+    want = dict.fromkeys(("16", "32", "64", "128", "256"), 0)
+    for c in WIDTH_OF_CLASS:
+        want[str(mode_width(mode, c))] += st.get(f"batches_bits{c}", 0) if on_card else 0
     got = counters["width_launches"]
     if got == want:
         return []
-    return [f"MTF launches by width {got} != device batches by class, at their widths, {want} on {device}"]
+    return [f"{mode}: MTF launches by width {got} != device batches by class, at their widths, {want} on {device}"]
+
+
+def counter_faults(counters: dict, device: str, mode: str) -> list[str]:
+    """``launch_faults``, and in the exact modes no tie re-encode: their
+    prefix-doubling BWT sorts every rotation whole, so no row ties."""
+    faults = launch_faults(counters, device, mode)
+    ties = counters["device_stats"].get("tie_reencodes", 0)
+    if mode in ("ranks", "rle2") and ties:
+        faults.append(f"{mode}: {ties} tie re-encodes, where the exact BWT has none")
+    return faults
 
 
 def _memory(device: str, peak: PeakRss) -> dict:
@@ -265,27 +331,54 @@ def leg_gen(args, peak: PeakRss) -> dict:
             "bytes": n, "seconds": time.perf_counter() - t0}
 
 
+def warm_up(args, bed_bytes: int = 8 << 20) -> dict:
+    """A device-only encode in ``args.mode`` of the text of the first
+    ``bed_bytes`` of the input's lines (a few blocks of its first
+    chromosome), so that what follows runs on a warm card: its context,
+    kernels and libraries loaded, as in a process that has encoded before
+    (the card's start is ROADMAP E1).  The class rates it leaves are
+    dropped, so the scheduler starts as in a fresh process."""
+    import torch
+
+    from starch3_tpu_torch.parallel import host, pipeline
+    from starch3_tpu_torch.runtime import bed_transform_native
+
+    with open(args.inp, "rb") as f:
+        head = f.read(bed_bytes)
+    text = bed_transform_native(head[: head.rfind(b"\n") + 1])[0][1]
+    t0 = time.perf_counter()
+    pipeline.encode_streams([text], level=args.level, device=args.device, host_assist=False, **MODES[args.mode])
+    if args.device.startswith("cuda"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    host._class_rate_cache.clear()
+    return {"text_bytes": len(text), "seconds": time.perf_counter() - t0}
+
+
 def leg_encode(args, peak: PeakRss) -> dict:
-    from starch3_tpu_torch import api
+    from starch3_tpu_torch import api, runtime
     from starch3_tpu_torch.config import EncodeConfig
 
-    cfg = EncodeConfig(use_jax=args.jax, block_size_100k=args.level)
+    cfg = EncodeConfig(use_jax=args.jax, block_size_100k=args.level, **MODES[args.mode])
+    warm = warm_up(args) if args.warm_up else None
+    peak.reset()
     _zero_counters()
     n_in = os.path.getsize(args.inp)
     rss0 = rss_mb()
     t0 = time.perf_counter()
-    with open(args.out, "wb") as fh, timed_transform() as transform_s:
+    with open(args.out, "wb") as fh, timed_calls(runtime, "bed_transform_native") as spent:
         api.compress_bed_file(args.inp, fh, cfg, chunk_bytes=args.chunk_bytes, device=args.device)
     dt = time.perf_counter() - t0
     res = {
-        "leg": "encode", "jax": args.jax, "device": args.device if args.jax else None, "bytes_in": n_in,
-        "seconds": dt, "mb_per_s_bed": n_in / dt / 1e6, "transform_seconds": transform_s[0],
+        "leg": "encode", "jax": args.jax, "mode": args.mode, "device": args.device if args.jax else None,
+        "bytes_in": n_in, "seconds": dt, "mb_per_s_bed": n_in / dt / 1e6,
+        "transform_seconds": spent["bed_transform_native"],
         "archive_digest": file_digest(args.out), "archive_bytes": os.path.getsize(args.out),
-        "blocks": archive_blocks(args.out), "rss_start_mb": rss0,
+        "blocks": archive_blocks(args.out), "rss_start_mb": rss0, "warm_up": warm,
     }
     res.update(_memory(args.device if args.jax else "cpu", peak))
     res.update(_counters())
-    res["faults"] = launch_faults(res, args.device) if args.jax else []
+    res["faults"] = counter_faults(res, args.device, args.mode) if args.jax else []
     if args.decode:
         sink = _Hasher()
         t0 = time.perf_counter()
@@ -418,10 +511,12 @@ def gpu_busy_share(trace_path: str, skip: int = 10) -> dict:
             "batches_per_s": n / (hi - lo) * 1e6, "device_ms_per_batch": busy / 1e3 / n, "gpu_events": len(gpu)}
 
 
-def save_block_case(text: bytes, k: int, level: int, device: str, path: str) -> dict:
-    """Block ``k`` of ``text`` at ``level`` through the device step's BWT
-    on ``device``, then the MTF kernel and its plain version on the same
-    input: the input and both outputs go to ``path`` (a ``.pt``, as
+def save_block_case(text: bytes, k: int, level: int, device: str, path: str, mode: str = "fast") -> dict:
+    """Block ``k`` of ``text`` at ``level`` through the BWT of ``mode``'s
+    device step on ``device`` (the exact modes' ``bwt_remap``, or the fast
+    sort of the class ``mode`` packs the block as), then the MTF kernel at
+    the mode's width and its plain version on the same input: the input
+    and both outputs go to ``path`` (a ``.pt``, as
     ``chip_smoke.check_equal`` saves a kernel's mismatch).  Returns the
     block's class and width and whether the two agree, or, where ``text``
     has no block ``k`` (the streams differ in their count of blocks),
@@ -436,36 +531,43 @@ def save_block_case(text: bytes, k: int, level: int, device: str, path: str) -> 
         return {"skipped": f"block {k} of {len(blocks)}"}
     data, bits = blocks[k].data, classes[k]
     n_max = host._bucket_for(len(data))
-    width = WIDTH_OF_CLASS[bits]
-    packed, lens, _, _ = pipeline.pack_batch([data], n_max, bits)
+    width = mode_width(mode, bits)
     dev = torch.device(device)
-    last, _, _ = pipeline.bwt_of_batch(packed.to(dev), torch.from_numpy(lens).to(dev), bits, n_max,
-                                       wide=width >= 128)
-    seqs = last.contiguous()
+    if mode in ("ranks", "rle2"):
+        raw, lens = pipeline.raw_batch([data], n_max)
+        _, _, seqs = pipeline.bwt_remap(raw.to(dev), torch.from_numpy(lens).to(dev))
+    else:  # fast_huff packs bits 4 as nibbles and every other class as bytes
+        step_bits = bits if mode == "fast" else (4 if bits == 4 else 8)
+        packed, lens, _, _ = pipeline.pack_batch([data], n_max, step_bits)
+        seqs, _, _ = pipeline.bwt_of_batch(packed.to(dev), torch.from_numpy(lens).to(dev), step_bits, n_max,
+                                           wide=width >= 128)
+    seqs = seqs.contiguous()
     if width >= 128:
         got, want = mtf_wide.mtf_ranks_wide_batch(seqs, width), mtf_wide.mtf_ranks_wide_reference(seqs, width)
     else:
         got, want = mtf_narrow.mtf_ranks_narrow_batch(seqs, width), mtf_narrow.mtf_ranks_narrow_reference(seqs, width)
     n = len(data)
-    torch.save({"block": data, "bits": bits, "width": width, "seqs": seqs.cpu(), "got": got.cpu(),
+    torch.save({"block": data, "bits": bits, "mode": mode, "width": width, "seqs": seqs.cpu(), "got": got.cpu(),
                 "want": want.cpu()}, path)
-    return {"bits": bits, "width": width, "n": n, "kernel_equals_plain": bool(torch.equal(got[:, :n], want[:, :n]))}
+    return {"bits": bits, "mode": mode, "width": width, "n": n,
+            "kernel_equals_plain": bool(torch.equal(got[:, :n], want[:, :n]))}
 
 
 def _device_run(texts, chroms, want, args) -> dict:
-    """One device-only encode of ``texts``, counters set to 0 just before
-    it and read just after, every stream held to ``want``, REF's
-    ``(metadata, stream)`` of the same chromosome.  A differing stream's
-    text and record (``.json``) go to ``args.mismatch_dir`` as it is
-    found; after the counters are read, its first differing block's MTF
-    case (``save_block_case``) joins the record."""
+    """One device-only encode of ``texts`` in ``args.mode``, counters set
+    to 0 just before it and read just after, every stream held to
+    ``want``, REF's ``(metadata, stream)`` of the same chromosome.  A
+    differing stream's text and record (``.json``) go to
+    ``args.mismatch_dir`` as it is found; after the counters are read, its
+    first differing block's MTF case (``save_block_case``) joins the
+    record."""
     from starch3_tpu_torch.parallel import pipeline
 
     _zero_counters()
     bad, blocks, n = [], 0, 0
     t0 = time.perf_counter()
     for i, enc in enumerate(pipeline.encode_streams_iter(
-            iter(texts), level=args.level, device=args.device, host_assist=False)):
+            iter(texts), level=args.level, device=args.device, host_assist=False, **MODES[args.mode])):
         meta, stream = want[i]
         n, blocks = i + 1, blocks + len(enc.block_bit_offsets)
         if meta.chromosome == chroms[i] and enc.data == stream and list(enc.block_bit_offsets) == list(
@@ -480,14 +582,14 @@ def _device_run(texts, chroms, want, args) -> dict:
         with open(base + ".json", "w") as f:
             json.dump(bad[-1], f)
     dt = time.perf_counter() - t0
-    run = {"seconds": dt, "mb_per_s_text": sum(map(len, texts)) / dt / 1e6, "streams": n, "blocks": blocks,
-           "mismatches": bad}
+    run = {"mode": args.mode, "seconds": dt, "mb_per_s_text": sum(map(len, texts)) / dt / 1e6, "streams": n,
+           "blocks": blocks, "mismatches": bad}
     run.update(_counters())
     for rec in bad:  # its launches come after the counters were read
         i, k = rec["stream"], rec["first_block"]
         try:
             rec["mtf"] = save_block_case(texts[i], k, args.level, args.device, os.path.join(
-                args.mismatch_dir, f"mismatch-scale-{chroms[i]}-block{k}.pt"))
+                args.mismatch_dir, f"mismatch-scale-{args.mode}-{chroms[i]}-block{k}.pt"), args.mode)
         except Exception as e:  # the stream's mismatch fails the leg all the same
             rec["mtf"] = {"error": repr(e)}
         with open(os.path.join(args.mismatch_dir, f"scale-mismatch-{chroms[i]}.json"), "w") as f:
@@ -504,17 +606,36 @@ def _device_run(texts, chroms, want, args) -> dict:
                       f"a block of the {args.shape} corpus is not of its tier")
     if sched["abandoned_batches"] or sched["demotions"]:
         faults.append(f"the device-only encode fell back: {sched}")
-    run["faults"] = faults + launch_faults(run, args.device)
+    run["faults"] = faults + counter_faults(run, args.device, args.mode)
     return run
 
 
+def host_run(texts, want, level: int) -> dict:
+    """The host path's encode of the same texts, every core on the blocks
+    of one stream after another (``bz2_compress_ex``), without the feed
+    that bounds ``encode``'s host path: the rate of the host cores that a
+    device-only run is held to.  Every stream must equal REF's."""
+    from starch3_tpu_torch.codec.encoder import bz2_compress_ex
+
+    differ = 0
+    t0 = time.perf_counter()
+    for text, (_meta, stream) in zip(texts, want):
+        differ += bz2_compress_ex(text, level, workers=os.cpu_count()).data != stream
+    dt = time.perf_counter() - t0
+    return {"seconds": dt, "mb_per_s_text": sum(map(len, texts)) / dt / 1e6, "streams_differ": differ,
+            "workers": os.cpu_count()}
+
+
 def leg_device(args, peak: PeakRss) -> dict:
-    """Device only, twice: an encode traced by ``device_trace``, which
-    also warms the process, then the timed one.
+    """Device only in ``args.mode``, twice: an encode traced by
+    ``device_trace``, which also warms the process, then the timed one
+    (with ``args.untraced`` the timed one alone).
     In each, every stream equals REF's stream of its chromosome, every
     block ran on the device and is of the tier of ``args.shape``, nothing
     was abandoned and the device was never benched, and the MTF kernels
-    launched once per batch at the width of its class."""
+    launched once per batch at the width of its class in the mode.  With
+    ``args.host_rate`` the host cores then encode the same texts
+    (``host_run``)."""
     from starch3_tpu_torch.format.archive import StarchReader
     from starch3_tpu_torch.observability import device_trace
     from starch3_tpu_torch.runtime import bed_transform_native
@@ -533,20 +654,107 @@ def leg_device(args, peak: PeakRss) -> dict:
             texts.append(groups[0][1])
     res = {"leg": "device", "device": args.device, "streams": len(texts), "ref_streams": len(want),
            "text_bytes": sum(map(len, texts)), "transform_seconds": time.perf_counter() - t0}
-    t0 = time.perf_counter()
-    with device_trace(args.trace_dir, args.device):
-        trace_start_s = time.perf_counter() - t0  # the profiler's own start
-        traced = _device_run(texts, chroms, want, args)
-    traced["trace_start_seconds"] = trace_start_s
-    traced["trace"] = gpu_busy_share(os.path.join(args.trace_dir, sorted(os.listdir(args.trace_dir))[0]))
-    res["traced"] = traced
+    traced = None
+    if not args.untraced:
+        t0 = time.perf_counter()
+        with device_trace(args.trace_dir, args.device):
+            trace_start_s = time.perf_counter() - t0  # the profiler's own start
+            traced = _device_run(texts, chroms, want, args)
+        traced["trace_start_seconds"] = trace_start_s
+        traced["trace"] = gpu_busy_share(os.path.join(args.trace_dir, sorted(os.listdir(args.trace_dir))[0]))
+        res["traced"] = traced
     res.update(_device_run(texts, chroms, want, args))
-    # the timed run is not traced (the profiler slows it): its busy share is
-    # the traced device time a batch times its batches, over its seconds
-    ms = traced["trace"].get("device_ms_per_batch")
-    res["busy_share_derived"] = ms and ms * res["device_stats"].get("batches", 0) / (res["seconds"] * 1e3)
+    if traced is not None:
+        # the timed run is not traced (the profiler slows it): its busy share
+        # is the traced device time a batch times its batches, over its seconds
+        ms = traced["trace"].get("device_ms_per_batch")
+        res["busy_share_derived"] = ms and ms * res["device_stats"].get("batches", 0) / (res["seconds"] * 1e3)
+        res["faults"] = res["faults"] + [f"traced: {f}" for f in traced["faults"]]
     res.update(_memory(args.device, peak))
-    res["faults"] = res["faults"] + [f"traced: {f}" for f in traced["faults"]]
+    if args.host_rate:
+        res["host"] = host_run(texts, want, args.level)
+        if res["host"]["streams_differ"]:
+            res["faults"] = res["faults"] + [f"host path: {res['host']['streams_differ']} streams differ from REF's"]
+    return res
+
+
+def prefix_archive(data: bytes, k: int) -> bytes:
+    """An archive of the first ``k`` streams of the archive ``data``, its
+    streams and their metadata as they are, written by the port's
+    ``StarchWriter``: the archive of the corpus's first ``k`` chromosomes."""
+    from starch3_tpu_torch.format.archive import StarchReader, StarchWriter
+
+    reader = StarchReader.from_bytes(data)
+    meta = reader.metadata
+    writer = StarchWriter(note=meta.note, compression=meta.compression_format)
+    for sm, stream in list(reader.iter_streams())[:k]:
+        writer.add_stream(sm.chromosome, stream, uncompressed_size=sm.uncompressed_size, line_count=sm.line_count,
+                          base_count_nonunique=sm.base_count_nonunique, base_count_unique=sm.base_count_unique,
+                          block_bit_offsets=sm.block_bit_offsets)
+    return writer.finish()
+
+
+def corpus_prefix(path: str, k: int | None, chunk_bytes: int = 64 << 20) -> dict:
+    """The SHA-256 and length of the corpus's first ``k`` chromosomes
+    (``iter_chromosome_raw``; every chromosome with None), and how many
+    there are."""
+    h, n, streams = hashlib.sha256(), 0, 0
+    with open(path, "rb") as f:
+        for _chrom, raw in iter_chromosome_raw(f, chunk_bytes):
+            if k is not None and streams == k:
+                break
+            h.update(raw)
+            n, streams = n + len(raw), streams + 1
+    return {"digest": h.hexdigest(), "bytes": n, "streams": streams}
+
+
+def leg_decode(args, peak: PeakRss) -> dict:
+    """``api.decompress_starch_bytes(use_jax=True)`` of the archive (with
+    ``args.streams``, of ``prefix_archive`` of its first streams) on
+    ``args.device``: the output must be the bytes of the corpus's same
+    chromosomes (``corpus_prefix``) and ``decode_blocks`` the decoded
+    archive's blocks.  The host's share, the Huffman walk
+    (``read_stream_blocks``), ``rle1_decode`` and the CRCs, is timed
+    around the functions ``decode_streams`` calls; the device decode holds
+    the whole archive, every block and the whole output, so its memory
+    grows with the archive."""
+    from starch3_tpu_torch import api
+    from starch3_tpu_torch.format.archive import StarchReader
+    from starch3_tpu_torch.parallel import pipeline
+
+    with open(args.archive, "rb") as f:
+        data = f.read()
+    if args.streams is not None:
+        data = prefix_archive(data, args.streams)
+    metas = StarchReader.from_bytes(data).metadata.streams
+    blocks = sum(len(m.block_bit_offsets) for m in metas)
+    want = corpus_prefix(args.corpus, args.streams)
+    _zero_counters()
+    rss0 = rss_mb()
+    t0 = time.perf_counter()
+    with timed_calls(pipeline, "read_stream_blocks", "rle1_decode", "crc32_bytes") as host_s:
+        out = api.decompress_starch_bytes(data, use_jax=True, device=args.device)
+    dt = time.perf_counter() - t0
+    res = {
+        "leg": "decode", "device": args.device, "streams": len(metas), "archive_bytes": len(data),
+        "archive_blocks": blocks, "seconds": dt, "bytes": len(out), "digest": hashlib.sha256(out).hexdigest(),
+        "mb_per_s_bed": len(out) / dt / 1e6, "corpus": want, "rss_start_mb": rss0,
+        "host_ms_per_block": {k: host_s[k] / blocks * 1e3 for k in ("read_stream_blocks", "rle1_decode",
+                                                                     "crc32_bytes")},
+        "host_calls": {k: host_s[f"{k}_calls"] for k in ("read_stream_blocks", "rle1_decode", "crc32_bytes")},
+    }
+    del out
+    res.update(_memory(args.device, peak))
+    res.update(_counters())
+    st = res["device_stats"]
+    faults = []
+    if (res["digest"], res["bytes"], res["streams"]) != (want["digest"], want["bytes"], want["streams"]):
+        faults.append(f"the output {res['digest']} {res['bytes']} of {res['streams']} streams != the corpus's "
+                      f"{want}")
+    if st.get("decode_blocks", 0) != blocks or not st.get("decode_batches"):
+        faults.append(f"decode blocks {st.get('decode_blocks', 0)} in {st.get('decode_batches', 0)} batches "
+                      f"!= the archive's {blocks} blocks")
+    res["faults"] = faults
     return res
 
 
@@ -563,22 +771,35 @@ def main(argv=None) -> int:
         p.add_argument("inp")
         p.add_argument("ref" if name == "device" else "out")
         p.add_argument("--device", default="cuda")
-        if name != "pipe":  # the CLI encodes at level 9 in 64 MB chunks
+        if name != "pipe":  # the CLI encodes at level 9 in 64 MB chunks, in fast mode
             p.add_argument("--level", type=int, default=9)
             p.add_argument("--chunk-bytes", type=int, default=64 << 20)
+            p.add_argument("--mode", choices=sorted(MODES), default="fast", help="the device path's encode mode")
     enc = sub.choices["encode"]
     enc.add_argument("--jax", action="store_true")
     enc.add_argument("--decode", action="store_true")
+    enc.add_argument("--warm-up", action="store_true", help="warm the card first with a device-only encode of a "
+                     "few blocks of the input (warm_up)")
     dev = sub.choices["device"]
     dev.add_argument("trace_dir")
     dev.add_argument("mismatch_dir")
     dev.add_argument("--shape", choices=sorted(SCALE_SHAPES), default="bed3", help="the corpus's shape, for its tier")
+    dev.add_argument("--untraced", action="store_true", help="the timed encode alone, without the traced one")
+    dev.add_argument("--host-rate", action="store_true", help="then the host cores on the same texts (host_run)")
+    dec = sub.add_parser("decode")
+    dec.add_argument("archive")
+    dec.add_argument("corpus")
+    dec.add_argument("--device", default="cuda")
+    dec.add_argument("--streams", type=int, help="decode an archive of the first STREAMS streams only")
     args = ap.parse_args(argv)
+    if args.leg == "encode" and (args.mode != "fast" or args.warm_up) and not args.jax:
+        ap.error("--mode and --warm-up are for the device path: give --jax")
     # progress: the archive's bytes on disk, in the legs that write one
     out = getattr(args, "out", None)
     peak = PeakRss(progress=lambda: os.path.getsize(out) if out and os.path.exists(out) else 0).start()
+    legs = {"gen": leg_gen, "encode": leg_encode, "pipe": leg_pipe, "device": leg_device, "decode": leg_decode}
     try:
-        res = {"gen": leg_gen, "encode": leg_encode, "pipe": leg_pipe, "device": leg_device}[args.leg](args, peak)
+        res = legs[args.leg](args, peak)
     finally:
         peak.stop()
     res["memory_series"] = peak.series

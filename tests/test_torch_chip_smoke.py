@@ -6,6 +6,7 @@ import pytest
 import torch
 
 import chip_smoke
+from starch3_tpu_torch import scale_run
 from starch3_tpu_torch.ops.mtf_narrow import mtf_ranks_narrow_reference
 
 
@@ -68,13 +69,19 @@ def test_mesh_launches_expected(n):
 
 
 def _scale_legs(shape: str, demotions: int = 0, device_mb_s: float = 100.0) -> dict:
-    """One tier's legs as phases 13 and 14 read them: 700 MB of text, the
+    """One tier's legs as phases 13 to 15 read them: 700 MB of text, the
     host path 10 s (70 MB/s of text), hybrids whose card took 9 batches
     of bits 5, the device-only runs 60 batches each, 55 in the traced
-    window; a half run and a pipe leg where the tier has them."""
-    def counters(batches, sched=None):
+    window; a half run and a pipe leg where the tier has them; and the
+    tier's phase-15 legs: each mode's hybrids (as fast mode's) and its
+    untraced device-only run at 50 MB/s of text (with the host cores' 140
+    MB/s on the same texts where the mode runs a hybrid), and the device
+    decode."""
+    def counters(batches, sched=None, mode="fast"):
+        launches = dict.fromkeys(("16", "32", "64", "128", "256"), 0)
+        launches[str(scale_run.mode_width(mode, 5))] = batches
         return {"device_stats": {"batches": batches, "batches_bits5": batches, "blocks": 3 * batches},
-                "width_launches": {"16": 0, "32": batches, "64": 0, "128": 0, "256": 0},
+                "width_launches": launches,
                 "scheduler_stats": dict({"demotions": 0, "repromotions": 0, "abandoned_batches": 0,
                                          "class_skips": 0}, **(sched or {}))}
 
@@ -82,13 +89,26 @@ def _scale_legs(shape: str, demotions: int = 0, device_mb_s: float = 100.0) -> d
     hybrid = dict(counters(9, {"demotions": demotions}), archive_digest="x",
                   decode={"digest": "c", "bytes": 1_100}, peak_rss_mb=5000.0, rss_start_mb=4500.0,
                   max_memory_reserved=1_000)
+    half = dict(hybrid, peak_rss_mb=4990.0, prefix_of_a=True)
     legs = {"gen": {"digest": "c", "bytes": 1_100}, "a": {"archive_digest": "x", "seconds": 10.0}, "b": hybrid,
             "d": dict(counters(60), text_bytes=700_000_000, mb_per_s_text=device_mb_s,
                       traced=dict(counters(60), trace={"batches": 55}))}
     if tier.half:
-        legs["b_half"] = dict(hybrid, peak_rss_mb=4990.0)
+        legs["b_half"] = half
     if tier.pipe:
         legs["c"] = {"archive_digest": "x"}
+    for run in tier.modes:
+        mode = legs.setdefault("modes", {})[run.mode] = {
+            "d": dict(counters(60, mode=run.mode), text_bytes=700_000_000, mb_per_s_text=50.0)}
+        if run.hybrid:
+            mode["d"]["host"] = {"mb_per_s_text": 140.0, "streams_differ": 0}
+        for part in run.hybrid:
+            mode["b" if part == "whole" else "b_half"] = dict(hybrid if part == "whole" else half,
+                                                              **counters(9, {"demotions": demotions}, run.mode))
+    if tier.decode:
+        legs["g"] = {"digest": "p", "bytes": 400, "streams": tier.decode, "archive_blocks": 72,
+                     "corpus": {"digest": "p", "bytes": 400, "streams": tier.decode},
+                     "device_stats": {"decode_blocks": 72, "decode_batches": 9}}
     return legs
 
 
@@ -121,16 +141,71 @@ def test_scale_gates_hold_archives_decode_abandons_trace_and_memory():
                      max_memory_reserved=1_200, scheduler_stats=dict(legs["b"]["scheduler_stats"], abandoned_batches=1))
     legs["c"] = {"archive_digest": "w"}
     legs["d"]["traced"]["trace"] = {"batches": 49}
-    faults = chip_smoke.scale_faults("bed3", legs, half_prefix=False)
-    assert [f.split(" ", 2)[1] for f in faults] == ["(b)", "(c)", "(b)", "(e)", "(b)", "(d)", "(f)"]
-    assert "abandoned batches" in faults[4] and "49 batches, fewer than 50" in faults[5]
-    assert "max_memory_reserved x1.2000" in faults[6]
+    legs["b_half"] = dict(legs["b_half"], prefix_of_a=False)
+    faults = chip_smoke.scale_faults("bed3", legs)
+    assert [f.split(" ", 2)[1] for f in faults] == ["(b)", "(b)", "(b)", "(f)", "(c)", "(e)", "(d)"]
+    assert "not the host archive's first streams" in faults[1] and "abandoned batches" in faults[2]
+    assert "max_memory_reserved x1.2000" in faults[3] and "49 batches, fewer than 50" in faults[6]
 
 
 def test_tier_launches_add_the_hybrids_and_both_device_runs():
     """The kernels line's share of a tier: the MTF launches by width of (b)
-    half and whole and of (d)'s traced and timed runs."""
+    half and whole and of (d)'s traced and timed runs, and of each
+    phase-15 mode's hybrids and (d)."""
     legs = _scale_legs("config3")
     legs["d"]["traced"]["width_launches"] = dict(legs["d"]["traced"]["width_launches"], **{"256": 4})
     assert chip_smoke.tier_launches(legs) == {"16": 0, "32": 9 + 9 + 60 + 60, "64": 0, "128": 0, "256": 4}
-    assert chip_smoke.tier_launches(_scale_legs("wide8"))["32"] == 9 + 60 + 60
+    assert chip_smoke.tier_launches(_scale_legs("wide8")) == {"16": 0, "32": 9 + 60 + 60, "64": 0, "128": 0,
+                                                              "256": 60}
+    # bed3's fast_huff half and whole and ranks and rle2 half, 9 batches each, and three (d) runs of 60
+    assert chip_smoke.tier_launches(_scale_legs("bed3"))["256"] == 4 * 9 + 3 * 60
+
+
+def _mode_leg(legs, mode, key):
+    return legs["modes"][mode][key]
+
+
+@pytest.mark.parametrize("shape, change, fault", [
+    ("bed3", lambda l: _mode_leg(l, "fast_huff", "b").update(archive_digest="y"),
+     "bed3 fast_huff (b) archive y != host path's x"),
+    ("bed3", lambda l: _mode_leg(l, "ranks", "b_half").update(prefix_of_a=False),
+     "bed3 ranks (b) the half archive's streams are not the host archive's first streams"),
+    ("bed3", lambda l: _mode_leg(l, "rle2", "b_half")["scheduler_stats"].update(abandoned_batches=2),
+     "bed3 rle2 (b) half abandoned batches"),
+    ("bed3", lambda l: _mode_leg(l, "fast_huff", "b").update(max_memory_reserved=1_101),
+     "bed3 fast_huff (f) memory grew with the corpus: the encode's peak RSS above its start x1.0204 (bound 1.15), "
+     "max_memory_reserved x1.1010"),
+    ("bed3", lambda l: _mode_leg(l, "fast_huff", "b").update(peak_rss_mb=5064.0),
+     "bed3 fast_huff (f) memory grew with the corpus: the encode's peak RSS above its start x1.1510"),
+    ("wide8", lambda l: l["g"].update(digest="q"), "wide8 (g) device decode q 400 of 1 streams != the corpus's p 400"),
+    ("wide8", lambda l: l["g"].update(streams=2),
+     "wide8 (g) device decode p 400 of 2 streams != the corpus's p 400 of 1"),
+    ("wide8", lambda l: l["g"]["device_stats"].update(decode_blocks=71),
+     "wide8 (g) device decode of 71 blocks != the archive's 72"),
+], ids=["archive", "half_prefix", "abandoned", "reserved", "rss", "decode_output", "decode_streams",
+        "decode_blocks"])
+def test_scale_gates_of_the_other_modes_and_decode(shape, change, fault):
+    """Phase 15: each gate on a mode's legs or on the device decode fails
+    the tier with one message that names the tier, the mode and the leg."""
+    legs = _scale_legs(shape)
+    assert chip_smoke.scale_faults(shape, legs) == []
+    change(legs)
+    faults = chip_smoke.scale_faults(shape, legs)
+    assert len(faults) == 1 and faults[0].startswith(fault), faults
+
+
+@pytest.mark.parametrize("device_mb_s, fails", [(140.0, True), (139.9, False), (100.0, False)])
+def test_scale_mode_demotion_fails_where_that_modes_card_outruns_the_host_cores(device_mb_s, fails):
+    """Gate 7 per mode: a ``fast_huff`` hybrid that benched the card fails
+    only where ``fast_huff``'s own (d) encodes at least the host cores'
+    140 MB/s on the same texts, not where it only beats the host path's
+    70 MB/s of text, which its feed bounds; ``ranks``' (d) at 50 MB/s may
+    be benched."""
+    legs = _scale_legs("bed3")
+    for key in ("b_half", "b"):
+        _mode_leg(legs, "fast_huff", key)["scheduler_stats"].update(demotions=1)
+    _mode_leg(legs, "fast_huff", "d").update(mb_per_s_text=device_mb_s)
+    _mode_leg(legs, "ranks", "b_half")["scheduler_stats"].update(demotions=3)
+    faults = chip_smoke.scale_faults("bed3", legs)
+    assert len(faults) == (2 if fails else 0)
+    assert all(f.startswith("bed3 fast_huff (b") and "against the host's 140.000" in f for f in faults)

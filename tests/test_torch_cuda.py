@@ -369,6 +369,31 @@ def test_device_huffman_encode_every_class(cuda):
     assert mtf_wide.width_launches[256] - by_width[256] == stats["batches"] - stats["batches_bits4"]
 
 
+def test_device_huffman_finishers_reuse_their_streams(cuda, monkeypatch):
+    """Twelve ``device_huffman`` batches, twice: each finisher takes a CUDA
+    stream from the idle ones and gives it back, so no more streams are
+    made than finishers run at once (the pool's 2), and the second encode
+    reserves no more device memory than the first.  A fresh stream a batch
+    kept each stream's freed blocks in the caching allocator: at 1.1e9
+    bytes of BED ``max_memory_reserved`` grew x9.6 from half the corpus to
+    all of it."""
+    import numpy as np
+
+    rng = np.random.default_rng(9)
+    texts = [bytes(rng.integers(0, 16, 100_000, dtype=np.uint8)) for _ in range(36)]
+    want = [bz2.compress(t, 9) for t in texts]
+    monkeypatch.setattr(pipeline, "_finisher_streams", {})
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reserved = []
+    for _ in range(2):
+        got = pipeline.encode_streams(texts, device=cuda, host_assist=False, device_huffman=True)
+        assert [g.data for g in got] == want
+        reserved.append(torch.cuda.max_memory_reserved())
+    assert 1 <= len(pipeline._finisher_streams[torch.cuda.current_device()]) <= 2
+    assert reserved[1] == reserved[0]
+
+
 def _decode_metas(texts, level: int):
     """The host walk's blocks of ``texts`` compressed at ``level``."""
     return [m for t in texts for m in pipeline.read_stream_blocks(bz2.compress(t, level))[0]]

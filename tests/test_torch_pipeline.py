@@ -349,3 +349,32 @@ def test_torch_bz2_compress_exact_mode(rng, monkeypatch):
     cfg = EncodeConfig(use_jax=True, fast_bwt=False, device_rle2=True)
     assert pipeline.torch_bz2_compress(text, cfg, device="cpu") == bz2.compress(text, 9)
     assert modes == ["rle2"]
+
+
+def test_finisher_streams_are_taken_and_given_back(monkeypatch):
+    """``device_huffman``'s finishers take a CUDA stream from the idle ones
+    of their card and give it back: batches finished one after another
+    share one stream, two at once make a second, and each card keeps its
+    own (a fresh stream a batch made the caching allocator keep a pool of
+    freed blocks per stream).  ``torch.cuda.Stream`` is stood in for, as
+    this runs without a card."""
+    made = []
+
+    class Stream:
+        def __init__(self, dev):
+            self.dev = dev
+            made.append(self)
+
+    monkeypatch.setattr(torch.cuda, "Stream", Stream)
+    monkeypatch.setattr(pipeline, "_finisher_streams", {})
+    card0, card1 = torch.device("cuda", 0), torch.device("cuda", 1)
+    for _ in range(40):
+        pipeline._give_finisher_stream(card0, pipeline._take_finisher_stream(card0))
+    assert len(made) == 1
+    first, second = pipeline._take_finisher_stream(card0), pipeline._take_finisher_stream(card0)
+    assert first is made[0] and second is made[1]
+    pipeline._give_finisher_stream(card0, first)
+    pipeline._give_finisher_stream(card0, second)
+    assert {pipeline._take_finisher_stream(card0), pipeline._take_finisher_stream(card0)} == {first, second}
+    other = pipeline._take_finisher_stream(card1)
+    assert other.dev == card1 and len(made) == 3

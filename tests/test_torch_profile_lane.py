@@ -84,3 +84,16 @@ def test_gil_holders_are_the_threads_that_ran():
     assert holders.long_waits == 1 and holders.long_wait_ms == 12.0
     assert [h["thread"] for h in top] == ["busy"]
     assert top[0]["ms"] == 12.0 and "test_torch_profile_lane.py" in top[0]["where"]
+
+
+@pytest.mark.parametrize("mode", ["fast_huff", "rle2"])
+def test_samples_in_another_mode(bed, mode):
+    """``--mode``: the encode runs in that mode (the exact modes pack
+    nothing on the driver: ``raw_batch``), with one rate sample for each
+    drained batch, each with the line below which the rule benches the
+    card once the stealers have a rate."""
+    res = profile_lane.run(bed, "file", device="cpu", level=1, mode=mode)
+    assert res["mode"] == mode and res["scheduler_stats"]["abandoned_batches"] == 0
+    assert len(res["samples"]) == res["device_batches"] >= 1
+    assert all(s["kind"] in ("first", "dry", "queued") for s in res["samples"])
+    assert (res["pack_ms"] == []) == (mode == "rle2")

@@ -1,8 +1,9 @@
 """The main path at scale, on the CPU at a small size: the scale corpus
 (``corpus.gigabyte_bed``) against ``TestGigabyteScale.GEN`` of
 ``tests/test_archive.py``, the legs of ``starch3_tpu_torch.scale_run``
-(the child processes of ``chip_smoke.py`` phase 13) on ``device="cpu"``,
-and the streaming file entry against the JAX package's with chromosomes
+(the child processes of ``chip_smoke.py`` phases 13 to 15) on
+``device="cpu"``, in every encode mode, and the device decode leg, and
+the streaming file entry against the JAX package's with chromosomes
 that span chunks and blocks.  Every child process is waited for."""
 
 import ast
@@ -136,7 +137,7 @@ def test_encode_leg_hybrid_puts_a_batch_on_the_device(small, tmp_path, monkeypat
     d, _gen, host_digest = small
     before = set(threading.enumerate())
     args = SimpleNamespace(inp=str(d / "in.bed"), out=str(tmp_path / "b.starch"), jax=True, device="cpu",
-                           level=1, chunk_bytes=4096, decode=False)
+                           level=1, chunk_bytes=4096, decode=False, mode="fast", warm_up=False)
     peak = scale_run.PeakRss().start()
     try:
         res = scale_run.leg_encode(args, peak)
@@ -271,6 +272,23 @@ def test_peak_rss_sees_a_transient_allocation():
         peak.stop()
     assert peak.peak_mb() > before + 150
     assert not peak._thread.is_alive()
+
+
+def test_peak_rss_reset_forgets_the_peak_so_far():
+    """After ``reset`` the peak is the resident set from there on."""
+    import time
+
+    peak = scale_run.PeakRss(every_s=0.005).start()
+    try:
+        block = np.ones(200 << 17)  # 200 MB, touched
+        time.sleep(0.05)
+        high = peak.peak_mb()
+        del block
+        peak.reset()
+        time.sleep(0.05)
+        assert peak.peak_mb() < high - 150
+    finally:
+        peak.stop()
 
 
 def test_peak_rss_keeps_a_series_with_the_c_heap_and_progress():
@@ -492,8 +510,8 @@ def test_counters_split_by_class(monkeypatch):
         got = scale_run._counters()["per_class"]
     finally:
         scale_run._zero_counters()
-    assert got["8"] == {"blocks": 3, "batches": 0, "tie_reencodes": 0, "graph_captures": 1, "graph_replays": 0,
-                        "class_skips": 0}
+    assert got["8"] == {"blocks": 3, "batches": 0, "tie_reencodes": 0, "huff_host_reencodes": 0, "d2h_bytes": 0,
+                        "graph_captures": 1, "graph_replays": 0, "class_skips": 0}
     assert got["5"]["class_skips"] == 4 and got["4"] == dict.fromkeys(scale_run.PER_CLASS, 0)
 
 
@@ -534,7 +552,8 @@ def test_device_run_keeps_a_mismatch_record_before_its_case(small, tmp_path, mon
     want[1] = (meta, stream[:-1] + bytes([stream[-1] ^ 1]))
     record = tmp_path / f"scale-mismatch-{chroms[1]}.json"
 
-    def case(text, k, level, device, path):
+    def case(text, k, level, device, path, mode):
+        assert mode == "fast"
         assert json.loads(record.read_text()) == {"stream": 1, "chrom": chroms[1], "ref_chrom": chroms[1],
                                                   "first_block": 1}
         mtf_narrow.width_launches[16] += 1
@@ -542,7 +561,7 @@ def test_device_run_keeps_a_mismatch_record_before_its_case(small, tmp_path, mon
 
     monkeypatch.setattr(scale_run, "save_block_case", case)
     monkeypatch.setenv("STARCH3_TPU_NO_HOST_FALLBACK", "1")
-    args = SimpleNamespace(level=1, device="cpu", mismatch_dir=str(tmp_path), shape="bed3")
+    args = SimpleNamespace(level=1, device="cpu", mismatch_dir=str(tmp_path), shape="bed3", mode="fast")
     try:
         run = scale_run._device_run(texts, chroms, want, args)
     finally:
@@ -569,3 +588,173 @@ def test_streams_are_a_prefix(small, tmp_path):
         (tmp_path / path).write_bytes(out.getvalue())
     assert chip_smoke.streams_are_a_prefix(str(tmp_path / "half.starch"), str(d / "host.starch"))
     assert not chip_smoke.streams_are_a_prefix(str(tmp_path / "other.starch"), str(d / "host.starch"))
+
+
+# the encode modes past fast mode (phase 15)
+OTHER_MODES = ("fast_huff", "ranks", "rle2")
+
+
+def test_modes_are_the_pipelines():
+    """``scale_run.MODES`` gives each mode the flags that
+    ``pipeline.encode_mode`` reads as that mode."""
+    from starch3_tpu_torch.parallel import pipeline
+
+    assert {m: pipeline.encode_mode(**flags) for m, flags in scale_run.MODES.items()} == {
+        m: m for m in scale_run.MODES}
+
+
+@pytest.mark.parametrize("chunk_bytes", [1 << 14, 1 << 16], ids=["chunks_16k", "chunks_64k"])
+@pytest.mark.parametrize("mode", OTHER_MODES)
+def test_file_entry_in_each_mode_equals_jax_package(tmp_path, mode, chunk_bytes):
+    """Two chromosomes of 15,000 intervals (about 320 kB of BED each, two
+    blocks at level 1) through the file entry in ``mode``, in chunks that
+    each chromosome spans: the port on the CPU against the JAX package's
+    ``compress_bed_file`` with the same ``EncodeConfig``, byte for byte."""
+    corpus.gigabyte_bed(tmp_path / "in.bed", 400_000, n_per=15_000)
+    src = str(tmp_path / "in.bed")
+    cfg = dict(use_jax=True, block_size_100k=1, **scale_run.MODES[mode])
+    want = io.BytesIO()
+    jax_api.compress_bed_file(src, want, JaxEncodeConfig(**cfg), chunk_bytes=chunk_bytes)
+    got = io.BytesIO()
+    api.compress_bed_file(src, got, EncodeConfig(**cfg), chunk_bytes=chunk_bytes, device="cpu")
+    assert got.getvalue() == want.getvalue()
+    from starch3_tpu_torch.format.archive import StarchReader
+
+    meta = StarchReader.from_bytes(got.getvalue()).metadata
+    assert len(meta.streams) == 2 and all(len(m.block_bit_offsets) == 2 for m in meta.streams)
+    assert api.decompress_starch_bytes(got.getvalue()) == (tmp_path / "in.bed").read_bytes()
+
+
+@pytest.mark.parametrize("mode", OTHER_MODES)
+def test_mode_legs_pass_their_checks(small, tmp_path, mode):
+    """Phase 15's (b) and (d) on the CPU: ``encode --jax --mode M
+    --warm-up`` writes the host archive, and ``device --mode M --untraced
+    --host-rate`` (its one timed encode, then the host cores on the same
+    texts) gives every stream of it; both name their mode, abandon
+    nothing and pass the launch check (on the CPU nothing is counted), and
+    the exact modes re-encode no tied block."""
+    d, _gen, host_digest = small
+    r = _run(["-m", "starch3_tpu_torch.scale_run", "encode", d / "in.bed", tmp_path / "b.starch", "--jax",
+              "--mode", mode, "--warm-up", "--device", "cpu", "--level", 1, "--chunk-bytes", 4096])
+    assert r.returncode == 0, r.stderr.decode()[-2000:]
+    hybrid = json.loads(r.stdout.decode().splitlines()[-1])
+    assert hybrid["mode"] == mode and hybrid["archive_digest"] == host_digest and hybrid["faults"] == []
+    assert hybrid["scheduler_stats"]["abandoned_batches"] == 0
+    # the warm-up encoded the first chromosome's text (two blocks), before the counters were set to 0
+    assert hybrid["warm_up"]["text_bytes"] > 100_000 and hybrid["device_stats"].get("blocks", 0) <= 6
+    r = _run(["-m", "starch3_tpu_torch.scale_run", "device", d / "in.bed", d / "host.starch", tmp_path / "trace",
+              tmp_path / "mismatch", "--device", "cpu", "--level", 1, "--mode", mode, "--untraced", "--host-rate"],
+             env=dict(os.environ, STARCH3_TPU_NO_HOST_FALLBACK="1"))
+    assert r.returncode == 0, r.stderr.decode()[-2000:]
+    res = json.loads(r.stdout.decode().splitlines()[-1])
+    assert res["mode"] == mode and res["faults"] == [] and res["mismatches"] == []
+    assert res["host"]["streams_differ"] == 0 and res["host"]["mb_per_s_text"] > 0
+    assert "traced" not in res and not (tmp_path / "trace").exists()
+    assert res["device_stats"]["blocks"] == res["blocks"] == res["per_class"]["4"]["blocks"] == 6
+    assert res["per_class"]["4"]["tie_reencodes"] == 0
+    # the bytes read back a block: the exact modes' rows are their width
+    d2h = res["d2h_bytes_per_block"]["4"]
+    rows = {"ranks": 257 + 131_072 // 4, "rle2": 518 + (131_072 + 3) // 2}
+    assert d2h == rows[mode] * 4 if mode in rows else 0 < d2h < 131_072
+    assert not any(res["width_launches"].values())
+
+
+def test_encode_leg_wants_jax_for_a_mode(small, tmp_path):
+    d, _gen, _ = small
+    r = _run(["-m", "starch3_tpu_torch.scale_run", "encode", d / "in.bed", tmp_path / "a.starch", "--mode", "ranks"])
+    assert r.returncode == 2 and b"give --jax" in r.stderr
+
+
+# a device-only run's batches by class: 2 of bits 4, 3 of bits 5, 1 of bits 6, 3 of bits 8
+MODE_STATS = {"batches": 9, "batches_bits4": 2, "batches_bits5": 3, "batches_bits6": 1, "batches_bits8": 3}
+
+
+@pytest.mark.parametrize("mode, launches", [
+    ("fast", {"16": 2, "32": 3, "64": 1, "128": 0, "256": 3}),
+    ("fast_huff", {"16": 0, "32": 0, "64": 0, "128": 2, "256": 7}),
+    ("ranks", {"16": 0, "32": 0, "64": 0, "128": 0, "256": 9}),
+    ("rle2", {"16": 0, "32": 0, "64": 0, "128": 0, "256": 9}),
+])
+def test_launch_faults_per_mode(mode, launches):
+    """Each mode's widths: the right launches pass, one batch counted at
+    another width fails, and on the CPU nothing may be counted."""
+    ok = {"device_stats": MODE_STATS, "width_launches": launches}
+    assert scale_run.launch_faults(ok, "cuda", mode) == []
+    for src, dst in (("256", "128"), ("16", "256"), ("128", "256")):
+        if launches[src]:
+            moved = dict(launches, **{src: launches[src] - 1, dst: launches[dst] + 1})
+            faults = scale_run.launch_faults({"device_stats": MODE_STATS, "width_launches": moved}, "cuda", mode)
+            assert len(faults) == 1 and faults[0].startswith(f"{mode}: MTF launches by width")
+    zero = {"device_stats": MODE_STATS, "width_launches": dict.fromkeys(launches, 0)}
+    assert scale_run.launch_faults(zero, "cpu", mode) == []
+    assert len(scale_run.launch_faults(ok, "cpu", mode)) == 1
+
+
+@pytest.mark.parametrize("mode", sorted(scale_run.MODES))
+def test_counter_faults_want_no_ties_in_the_exact_modes(mode):
+    zero = dict.fromkeys(("16", "32", "64", "128", "256"), 0)
+    tied = {"device_stats": dict(MODE_STATS, tie_reencodes=1), "width_launches": zero}
+    faults = scale_run.counter_faults(tied, "cpu", mode)
+    assert faults == ([f"{mode}: 1 tie re-encodes, where the exact BWT has none"] if mode in ("ranks", "rle2") else [])
+
+
+@pytest.mark.parametrize("mode, shape, bits, width", [
+    ("fast_huff", "bed3", 4, 128), ("fast_huff", "wide8", 8, 256), ("ranks", "bed3", 4, 256),
+    ("rle2", "wide8", 8, 256)])
+def test_save_block_case_uses_the_modes_input_and_width(tmp_path, mode, shape, bits, width):
+    """A mode's case: the block through that mode's BWT, at its width; in
+    the exact modes the plain ranks of the saved input are the ranks
+    ``step_exact`` puts in the block's row."""
+    import torch
+
+    from starch3_tpu_torch.parallel import host, pipeline
+
+    corpus.SCALE_SHAPES[shape](tmp_path / "c.bed", 1, n_per=5_000)
+    text = api._parse_transform((tmp_path / "c.bed").read_bytes())[0].text
+    got = scale_run.save_block_case(text, 0, 1, "cpu", str(tmp_path / "mismatch-m.pt"), mode)
+    case = torch.load(tmp_path / "mismatch-m.pt")
+    assert (got["bits"], got["width"], got["mode"]) == (bits, width, mode) == (case["bits"], case["width"],
+                                                                                case["mode"])
+    assert got["kernel_equals_plain"] and int(case["seqs"][0, : got["n"]].max()) < width
+    if mode in ("ranks", "rle2"):
+        block = host._split_classify(text, 1)[0][0].data
+        raw, lens = pipeline.raw_batch([block], case["seqs"].shape[1])
+        rows = pipeline.step_exact(raw, torch.from_numpy(lens))
+        ranks = pipeline._unpack_results(rows.numpy(), lens, 1, case["seqs"].shape[1])[0][2]
+        assert np.array_equal(case["want"][0, : got["n"]].numpy(), ranks)
+
+
+def test_decode_leg_gives_back_the_corpus_as_the_jax_package(small, tmp_path):
+    """Phase 15 (g) on the CPU: ``decode`` of the host archive gives back
+    the corpus, decodes its 6 blocks on the device path and times the
+    host's walk of its 3 streams and its RLE1 and CRC of the 6 blocks; the
+    JAX package's ``decompress_starch_bytes(use_jax=True)`` gives the
+    same bytes.  Cut to the archive of the first stream (``--streams 1``)
+    it gives the first chromosome.  Against another corpus the leg
+    fails."""
+    d, gen, _ = small
+    r = _run(["-m", "starch3_tpu_torch.scale_run", "decode", d / "host.starch", d / "in.bed", "--device", "cpu"])
+    assert r.returncode == 0, r.stderr.decode()[-2000:]
+    res = json.loads(r.stdout.decode().splitlines()[-1])
+    assert (res["digest"], res["bytes"]) == (gen["digest"], gen["bytes"]) and res["faults"] == []
+    assert res["archive_blocks"] == res["device_stats"]["decode_blocks"] == 6
+    assert res["device_stats"]["decode_batches"] >= 1
+    assert res["host_calls"] == {"read_stream_blocks": 3, "rle1_decode": 6, "crc32_bytes": 6}
+    assert all(v > 0 for v in res["host_ms_per_block"].values()) and res["peak_rss_mb"] > 0
+    want = jax_api.decompress_starch_bytes((d / "host.starch").read_bytes(), use_jax=True)
+    assert hashlib.sha256(want).hexdigest() == res["digest"]
+    # cut to the archive of the first stream: the corpus's first chromosome, its 2 blocks
+    r = _run(["-m", "starch3_tpu_torch.scale_run", "decode", d / "host.starch", d / "in.bed", "--device", "cpu",
+              "--streams", 1])
+    assert r.returncode == 0, r.stderr.decode()[-2000:]
+    cut = json.loads(r.stdout.decode().splitlines()[-1])
+    bed = (d / "in.bed").read_bytes()
+    first = bed[: bed.index(b"\nchr2\t") + 1]
+    assert cut["corpus"] == {"digest": hashlib.sha256(first).hexdigest(), "bytes": len(first), "streams": 1}
+    assert (cut["digest"], cut["bytes"], cut["streams"]) == (cut["corpus"]["digest"], len(first), 1)
+    assert cut["archive_blocks"] == cut["device_stats"]["decode_blocks"] == 2 and cut["faults"] == []
+    (tmp_path / "other.bed").write_bytes((d / "in.bed").read_bytes()[:-1] + b"\t")
+    r = _run(["-m", "starch3_tpu_torch.scale_run", "decode", d / "host.starch", tmp_path / "other.bed",
+              "--device", "cpu"])
+    assert r.returncode == 1
+    assert json.loads(r.stdout.decode().splitlines()[-1])["faults"][0].startswith("the output")
