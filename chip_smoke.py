@@ -173,13 +173,28 @@ streams and archives.  It exits 0 only if every phase passes:
      most 15% and ``max_memory_reserved`` by at most 10%.  The encode's
      memory climbs until its first streams are out, about 4-5 s in, then
      stays level; both corpora run past that point (the quarter corpus
-     does not), so growth between them is a leak, not the climb.  Each
-     leg prints its times, digests, memory peaks and series, and
-     counters.
+     does not), so growth between them is a leak, not the climb; (h)
+     BASELINE config 5, cut to this corpus and one card: ``scale_run
+     multihost``, two host processes of ``python -m
+     starch3_tpu_torch.cli --jax --num-hosts=2`` (through ``scale_run
+     host``, which prints each host's counters) on the card, once over a
+     gloo process group and once through a manifest directory: host 0's
+     archive equals (a)'s and host 1 writes nothing, both exit 0 within
+     their limit, and each host abandons no batch, puts blocks on the
+     card and launches its MTF kernel once per device batch at its
+     class's width; the wall time and MB/s of both, and each host's
+     device blocks, demotions and class skips, own peak RSS a GB of BED,
+     ``max_memory_reserved`` and stage seconds are printed.  Each leg
+     prints its start, CUDA initialisation and work seconds, times,
+     digests, memory peaks and series, and counters.  The legs are
+     forked from one server that imported torch once
+     (``starch3_tpu_torch.leg_fork``), each in a session of its own with
+     its own CUDA context; the pipe's and (h)'s processes start anew, as
+     a user's commands do.
   14. the BED6 tiers at scale, the same phase over the tiers of
      ``SCALE_RUNS`` with their corpora written together:
      ``corpus.config3_scale_bed`` (bits 5) at 1.1e9 bytes of BED and its
-     5.5e8-byte prefix, ``bits6_scale_bed`` (bits 6) at 5.5e8 and
+     5.5e8-byte prefix, ``bits6_scale_bed`` (bits 6) at 2.75e8 and
      ``wide8_scale_bed`` (bits 8) at 2.75e8.  Each runs (a), (b) (config3
      on its half corpus too), (d), (e) and, on config3, (f), with the
      gates of phase 13 (``scale_faults``), but no pipe leg, and a
@@ -193,8 +208,8 @@ streams and archives.  It exits 0 only if every phase passes:
      tier, each leg with a deadline of its own: on the bits-4 corpus
      ``device_huffman`` (``fast_huff``: (b) the hybrid on the half corpus
      and the whole, with the memory bounds of (f), and (d) device only)
-     and the exact modes ``ranks`` and ``rle2`` ((b) on the half corpus,
-     (d) on the whole); on the bits-8 corpus ``fast_huff`` (d) and (g)
+     and the exact modes ``ranks`` and ``rle2`` ((d) on the whole; their
+     hybrids are cut for the run's time, PERF.md §4); on the bits-8 corpus ``fast_huff`` (d) and (g)
      ``decompress_starch_bytes(use_jax=True)`` of (a)'s first stream (a
      cut for the run's time, PERF.md §4), which must give back the
      corpus's first chromosome with every block decoded on the card.
@@ -243,7 +258,7 @@ import typing
 import numpy as np
 import torch
 
-from starch3_tpu_torch import api, corpus, runtime, scale_run
+from starch3_tpu_torch import api, corpus, leg_fork, runtime, scale_run
 from starch3_tpu_torch._build import BUILD_DIR, build
 from starch3_tpu_torch.bed.parser import parse_bed
 from starch3_tpu_torch.codec.crc32 import crc32_bytes
@@ -1383,50 +1398,53 @@ class ScaleTier(typing.NamedTuple):
     keep_card: bool  # whether the fast-mode hybrid must never bench the card, whatever (d)'s rate
     modes: tuple[ModeRun, ...] = ()  # phase 15: its other modes, each with (d) device only, untraced
     decode: int = 0  # phase 15 (g): it decodes an archive of (a)'s first ``decode`` streams on the card, 0: none
+    multihost: tuple[str, ...] = ()  # (h) BASELINE config 5: the transports of its two-host encodes on the card
 
 
 # the tiers at scale by ``corpus.SCALE_SHAPES``' shape: phase 13's bits 4
 # (``TestGigabyteScale``'s bytes) and phase 14's BED6 tiers, bits 5, 6 and
 # 8, cut to chip_smoke's time (PERF.md §4); each half corpus runs past the
-# point where the encode's memory levels off.  Phase 15 runs the other
-# modes on bits 4 (``fast_huff`` half and whole, for its memory gate) and
-# bits 8 (``fast_huff``'s ``step_fast2`` with the bits-8 remap), and
-# device decode at bits 8
+# point where the encode's memory levels off; bits6 and wide8 hold 3
+# chromosomes each, the fewest whose (d) traces 50 batches.  Phase 15
+# runs the other modes on bits 4 (``fast_huff`` half and whole, for its
+# memory gate; the exact modes device only, their hybrids cut for the
+# run's time) and bits 8 (``fast_huff``'s ``step_fast2`` with the bits-8
+# remap), and device decode at bits 8; (h), BASELINE config 5, runs on
+# bits 4
 SCALE_RUNS = {
     "bed3": ScaleTier(1_100_000_000, 550_000_000, pipe=True, keep_card=True, modes=(
-        ModeRun("fast_huff", ("half", "whole")), ModeRun("ranks", ("half",)), ModeRun("rle2", ("half",)))),
+        ModeRun("fast_huff", ("half", "whole")), ModeRun("ranks", ()), ModeRun("rle2", ())),
+        multihost=("gloo", "manifest")),
     "config3": ScaleTier(1_100_000_000, 550_000_000, pipe=False, keep_card=False),
-    "bits6": ScaleTier(550_000_000, None, pipe=False, keep_card=False),
+    "bits6": ScaleTier(275_000_000, None, pipe=False, keep_card=False),
     "wide8": ScaleTier(275_000_000, None, pipe=False, keep_card=False, modes=(ModeRun("fast_huff", ()),),
                        decode=1),
 }
-SCALE_ARCHIVE_ROOM = 1_350_000_000  # one tier's archives beside its phase's corpora, with room to spare
+SCALE_ARCHIVE_ROOM = 1_350_000_000  # one tier's archives and texts beside its phase's corpora, with room to spare
 
 
-def scale_child(label: str, args, deadline: float, limit_s: float, env=None) -> dict:
-    """One leg of ``starch3_tpu_torch.scale_run`` in a child process of its
-    own session, killed with everything it started when it fails or is
-    still running after ``limit_s`` seconds or at ``deadline``.  Returns
-    its JSON line; a non-zero exit fails the phase."""
+def scale_child(label: str, args, deadline: float, limit_s: float, forker, env=None) -> dict:
+    """One leg of ``starch3_tpu_torch.scale_run`` in a process and session
+    of its own, forked by ``forker`` (``leg_fork.LegForker``, which has
+    imported torch once); killed with everything it started when it fails
+    or is still running after ``limit_s`` seconds or at ``deadline``.
+    Returns its JSON line, with its start, CUDA initialisation and work
+    seconds under ``times`` (``leg_fork.leg_times``); a non-zero exit fails
+    the phase."""
     timeout_s = min(limit_s, deadline - time.monotonic())
     if timeout_s <= 0:
         raise AssertionError(f"scale {label}: no time left in the phase")
-    proc = subprocess.Popen([sys.executable, "-m", "starch3_tpu_torch.scale_run", *map(str, args)], cwd=ROOT,
-                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, start_new_session=True,
-                            env=dict(os.environ, **(env or {})))
     try:
-        out, err = proc.communicate(timeout=timeout_s)
-    except subprocess.TimeoutExpired:
-        raise AssertionError(f"scale {label}: still running after {timeout_s:.0f} s") from None
-    finally:
-        if proc.poll() is None:
-            os.killpg(proc.pid, 9)
-            proc.wait()
-    lines = out.decode().splitlines()
-    if proc.returncode != 0:
-        raise AssertionError(f"scale {label}: exit {proc.returncode}: {lines[-1:]} {err.decode()[-3000:]}")
+        run = forker.run(args, timeout_s, env)
+    except leg_fork.LegTimeout as e:
+        raise AssertionError(f"scale {label}: {e}") from None
+    lines = run.stdout.decode().splitlines()
+    if run.returncode != 0:
+        raise AssertionError(f"scale {label}: exit {run.returncode}: {lines[-1:]} {run.stderr.decode()[-3000:]}")
     res = json.loads(lines[-1])
-    log(f"scale {label}: {json.dumps(res)}")
+    res["times"] = t = leg_fork.leg_times(res, run.launched_at)
+    log(f"scale {label}: start {t['start_s']:.3f} s, CUDA init {t['cuda_init_s']:.3f} s, work {t['work_s']:.3f} s; "
+        f"{json.dumps(res)}")
     return res
 
 
@@ -1484,7 +1502,8 @@ def scale_faults(shape: str, legs: dict) -> list[str]:
     corpus) and ``a``; in fast mode ``b`` and ``d``, and ``b_half`` and
     ``c`` where the tier runs them; each mode of ``legs["modes"]``, its
     ``d`` and its hybrids; ``g``, the device decode of (a)'s first
-    streams.  Every hybrid's
+    streams; ``h``, BASELINE config 5's two-host encode of each transport
+    (``multihost_faults``).  Every hybrid's
     archive equals (a)'s, a half archive's streams are (a)'s first, no
     hybrid abandons a batch, and from a mode's half run to its whole one
     the memory bounds of (f) (``_hybrid_faults``); (c)'s archive equals
@@ -1517,6 +1536,8 @@ def scale_faults(shape: str, legs: dict) -> list[str]:
         if "b" in run or "b_half" in run:
             dv, host_text = run["d"], run["d"]["host"]["mb_per_s_text"]
             faults += _hybrid_faults(f"{mode} ", run, a, dv, host_text, dv["mb_per_s_text"] >= host_text)
+    for transport, h in legs.get("h", {}).items():  # BASELINE config 5
+        faults += multihost_faults(transport, h, a)
     if "g" in legs:  # held to the corpus's first chromosomes, which the leg reads
         g, want = legs["g"], legs["g"]["corpus"]
         if (g["digest"], g["bytes"], g["streams"]) != (want["digest"], want["bytes"], SCALE_RUNS[shape].decode):
@@ -1528,44 +1549,80 @@ def scale_faults(shape: str, legs: dict) -> list[str]:
     return [f"{shape} {f}" for f in faults]
 
 
+def multihost_faults(transport: str, h: dict, a: dict) -> list[str]:
+    """(h)'s gates on one transport's two-host encode, one message each,
+    naming the transport and the host: host 0's archive is (a)'s bytes and
+    the other hosts write nothing; each host exits 0 within its limit,
+    abandons no batch, puts blocks on the card and launches its MTF kernel
+    once per device batch at its class's width."""
+    pre = f"(h) multihost {transport}"
+    faults = []
+    if (h["archive_digest"], h["archive_bytes"]) != (a["archive_digest"], a["archive_bytes"]):
+        faults.append(f"{pre} host 0 archive {h['archive_digest']} of {h['archive_bytes']} bytes != the host path's "
+                      f"{a['archive_digest']} of {a['archive_bytes']}")
+    for i, host in enumerate(h["host_lines"]):
+        st = host.get("device_stats", {})
+        if i and host["wrote_bytes"]:
+            faults.append(f"{pre} host {i} wrote {host['wrote_bytes']} bytes, where only host 0 writes")
+        if host["exit"] != 0:
+            faults.append(f"{pre} host {i} exit {host['exit']}{' at its limit' if host.get('killed') else ''}")
+        if host.get("scheduler_stats", {}).get("abandoned_batches"):
+            faults.append(f"{pre} host {i} abandoned batches: {host['scheduler_stats']}")
+        if not st.get("blocks"):
+            faults.append(f"{pre} host {i} put no block on the card, of its {host.get('blocks')}")
+        if "width_launches" in host:
+            faults += [f"{pre} host {i} {f}" for f in scale_run.launch_faults(host, h["device"])]
+    return faults
+
+
 def tier_launches(legs: dict) -> dict:
     """The MTF launches by width of a tier's hybrids (b) and of both
-    device-only runs (d) in fast mode, and of each mode's hybrids and
-    (d), each counted in its child process."""
+    device-only runs (d) in fast mode, of each mode's hybrids and (d), and
+    of (h)'s host processes, each counted in its own process."""
     runs = [legs[k] for k in ("b_half", "b") if k in legs]
     if "d" in legs:
         runs += [legs["d"], legs["d"]["traced"]]
     for run in legs.get("modes", {}).values():
         runs += run.values()
+    for h in legs.get("h", {}).values():
+        runs += h["host_lines"]
     return {w: sum(r["width_launches"][w] for r in runs) for w in ("16", "32", "64", "128", "256")}
 
 
-def phase_scale(smi: str, shapes, deadline: float, mode_deadline: float, fast: bool = True) -> dict:
-    """Phases 13 to 15: the tiers ``shapes`` of ``SCALE_RUNS`` at the
-    scale their users run, their corpora written together in a temporary
-    directory (the disk's room checked first), then tier by tier each leg
-    in a child process (``scale_child``): (a), the fast-mode legs of
-    phases 13 and 14 by ``deadline`` (none without ``fast``), then the
-    tier's phase-15 legs by ``mode_deadline`` on the same corpus, held to
-    the same (a); every gate of ``scale_faults``.  Returns the MTF
-    launches of (b) and (d) by width."""
+def phase_scale(smi: str, deadlines: dict, fast: bool = True, forker=None) -> dict:
+    """Phases 13 to 15: the tiers of ``SCALE_RUNS`` that ``deadlines``
+    names, at the scale their users run, their corpora written together in
+    a temporary directory (the disk's room checked first), then tier by
+    tier each leg in a child process (``scale_child``, forked by
+    ``forker``, or by a fork server of the phase's own without one): (a),
+    the fast-mode legs of phases 13 and 14 and (h), BASELINE config 5, by
+    the tier's first deadline (none without ``fast``), then the tier's
+    phase-15 legs by its second on the same corpus, held to the same (a);
+    every gate of ``scale_faults``.  Returns each tier's MTF launches by
+    width (``tier_launches``)."""
+    if forker is None:
+        with leg_fork.LegForker(ROOT) as own:
+            return phase_scale(smi, deadlines, fast, own)
     import shutil
 
+    ready = forker.wait_ready()
+    log(f"scale: fork server ready, imports {ready['import_s']:.3f} s, {ready['threads']} threads after them")
     torch.cuda.empty_cache()
-    launches = dict.fromkeys(("16", "32", "64", "128", "256"), 0)
+    launches = {}
     no_fallback = {"STARCH3_TPU_NO_HOST_FALLBACK": "1"}
     faults = []
     with tempfile.TemporaryDirectory(prefix="s3t-scale-") as d:
-        jobs = {(shape, part): (os.path.join(d, f"{shape}-{part}.bed"), t) for shape in shapes
+        jobs = {(shape, part): (os.path.join(d, f"{shape}-{part}.bed"), t) for shape in deadlines
                 for part, t in (("full", SCALE_RUNS[shape].target), ("half", SCALE_RUNS[shape].half)) if t}
         need, free = sum(t for _, t in jobs.values()) + SCALE_ARCHIVE_ROOM, shutil.disk_usage(d).free
         if free < need:
             raise AssertionError(f"scale: {free} bytes free in {d}, the phase needs {need}")
         with concurrent.futures.ThreadPoolExecutor(len(jobs)) as ex:
             gens = {k: ex.submit(scale_child, f"{k[0]} corpus {t:.3g}", ["gen", path, t, "--shape", k[0]],
-                                 deadline, 240) for k, (path, t) in jobs.items()}
+                                 min(fd for fd, _ in deadlines.values()), 240, forker)
+                    for k, (path, t) in jobs.items()}
             corpora = {k: g.result() for k, g in gens.items()}
-        for shape in shapes:
+        for shape, (deadline, mode_deadline) in deadlines.items():
             tier, bed = SCALE_RUNS[shape], jobs[shape, "full"][0]
             legs = {"gen": corpora[shape, "full"]}
             if legs["gen"]["bytes"] < tier.target:
@@ -1577,43 +1634,54 @@ def phase_scale(smi: str, shapes, deadline: float, mode_deadline: float, fast: b
                     if hashlib.sha256(f.read(part["bytes"])).hexdigest() != part["digest"]:
                         raise AssertionError(f"scale {shape}: the half corpus is not a prefix of the corpus")
             src = {"half": tier.half and jobs[shape, "half"][0], "whole": bed}
+            texts = ["--texts", os.path.join(d, f"{shape}.texts")] if tier.modes else []
             # (a) the reference bytes: the host path
-            legs["a"] = scale_child(f"{shape} (a) host path", ["encode", bed, arc["a"]], deadline, 300)
+            legs["a"] = scale_child(f"{shape} (a) host path", ["encode", bed, arc["a"]], deadline, 300, forker)
             if fast:
                 # (b) the hybrid through the file entry, half then whole; (e) decode
                 if tier.half:
                     legs["b_half"] = scale_child(f"{shape} (b) hybrid, half corpus",
-                                                 ["encode", src["half"], arc["b_half"], "--jax"], deadline, 200)
+                                                 ["encode", src["half"], arc["b_half"], "--jax"], deadline, 200, forker)
                     legs["b_half"]["prefix_of_a"] = streams_are_a_prefix(arc["b_half"], arc["a"])
                 legs["b"] = scale_child(f"{shape} (b) hybrid + (e) decode",
-                                        ["encode", bed, arc["b"], "--jax", "--decode"], deadline, 300)
-                if tier.pipe:  # (c) the CLI through a real pipe
-                    legs["c"] = scale_child(f"{shape} (c) cat | cli --jax", ["pipe", bed, arc["c"]], deadline, 300)
-                # (d) device only, every stream against (a)'s
+                                        ["encode", bed, arc["b"], "--jax", "--decode"], deadline, 300, forker)
+                if tier.pipe:  # (c) the CLI through a real pipe, its processes started anew
+                    legs["c"] = scale_child(f"{shape} (c) cat | cli --jax", ["pipe", bed, arc["c"]], deadline, 300,
+                                            forker)
+                # (d) device only, every stream against (a)'s; it leaves its
+                # texts to the tier's phase-15 (d) legs
                 legs["d"] = scale_child(f"{shape} (d) device only", ["device", bed, arc["a"], os.path.join(
-                    d, f"trace-{shape}"), BUILD_DIR, "--shape", shape], deadline, 300, env=no_fallback)
+                    d, f"trace-{shape}"), BUILD_DIR, "--shape", shape, *texts], deadline, 300, forker,
+                    no_fallback)
+                # (h) BASELINE config 5: two host processes of the CLI, started
+                # anew as a user starts them, on the one card
+                for transport in tier.multihost:
+                    legs.setdefault("h", {})[transport] = scale_child(
+                        f"{shape} (h) multihost {transport}", ["multihost", bed, arc["a"], "--transport", transport,
+                                                               "--host-limit-s", 240], deadline, 300, forker)
             # phase 15: the other modes, each held to (a), and device decode
             for run in tier.modes:
                 legs.setdefault("modes", {})[run.mode] = mode_legs = {}
                 for part in run.hybrid:
                     key, out = "b" if part == "whole" else "b_half", os.path.join(d, f"{shape}-{run.mode}.starch")
                     mode_legs[key] = scale_child(f"{shape} {run.mode} (b) hybrid, {part} corpus", [
-                        "encode", src[part], out, "--jax", "--mode", run.mode, "--warm-up"], mode_deadline, 200)
+                        "encode", src[part], out, "--jax", "--mode", run.mode, "--warm-up"], mode_deadline, 200,
+                        forker)
                     if key == "b_half":
                         mode_legs[key]["prefix_of_a"] = streams_are_a_prefix(out, arc["a"])
                     os.remove(out)
                 host_rate = ["--host-rate"] if run.hybrid else []  # the cores a hybrid's card is held to
                 mode_legs["d"] = scale_child(f"{shape} {run.mode} (d) device only", [
                     "device", bed, arc["a"], os.path.join(d, f"trace-{shape}"), BUILD_DIR, "--shape", shape,
-                    "--mode", run.mode, "--untraced", *host_rate], mode_deadline, 300, env=no_fallback)
+                    "--mode", run.mode, "--untraced", *host_rate, *texts], mode_deadline, 300, forker,
+                    no_fallback)
             if tier.decode:  # (g) device decode of (a)'s first streams, a cut for the run's time
                 legs["g"] = scale_child(f"{shape} (g) device decode", [
-                    "decode", arc["a"], bed, "--streams", tier.decode], mode_deadline, 300)
+                    "decode", arc["a"], bed, "--streams", tier.decode], mode_deadline, 300, forker)
             faults += scale_faults(shape, legs)
-            for w, n in tier_launches(legs).items():
-                launches[w] += n
+            launches[shape] = tier_launches(legs)
             log_scale(shape, smi, legs)
-            for path in [p for k, (p, _) in jobs.items() if k[0] == shape] + list(arc.values()):
+            for path in [p for k, (p, _) in jobs.items() if k[0] == shape] + list(arc.values()) + texts[1:]:
                 if os.path.exists(path):
                     os.remove(path)
     if faults:
@@ -1680,6 +1748,8 @@ def log_scale(shape: str, smi: str, legs: dict) -> None:
             f"{_classes_run(dv['per_class'])}; bytes read back a block {dv['d2h_bytes_per_block']}; "
             f"max_memory_reserved {dv['max_memory_reserved']}, peak RSS {dv['peak_rss_mb']:.1f} MB); "
             f"{_memory_line(half if b else None, b or half) if b or half else 'no hybrid'}; on {smi}")
+    for transport, h in legs.get("h", {}).items():
+        log_multihost(shape, transport, smi, h, legs)
     if "g" in legs:
         g = legs["g"]
         native = f"{legs['b']['decode']['mb_per_s_bed']:.3f}" if "b" in legs else "not run"
@@ -1691,6 +1761,28 @@ def log_scale(shape: str, smi: str, legs: dict) -> None:
             f"ms a block {g['host_ms_per_block']}; peak RSS {g['peak_rss_mb']:.1f} MB ({g['peak_rss_mb'] / gb:.1f} "
             f"a GB of BED; the decode's own {(g['peak_rss_mb'] - g['rss_start_mb']) / gb:.1f} a GB), "
             f"max_memory_reserved {g['max_memory_reserved']}; on {smi}")
+
+
+def log_multihost(shape: str, transport: str, smi: str, h: dict, legs: dict) -> None:
+    """(h)'s figures: the wall time and MB/s of BED for both hosts beside
+    (a)'s and (b)'s single process, and each host's share, device blocks,
+    demotions and class skips (printed, not gated), memory and stages."""
+    a, b = legs["a"], legs.get("b")
+    hybrid = f"(b)'s single-process hybrid {b['mb_per_s_bed']:.3f}" if b else "(b) not run"
+    hosts = []
+    for i, x in enumerate(h["host_lines"]):
+        st, sched, t = x["device_stats"], x["scheduler_stats"], leg_fork.leg_times(x, x["launched_at"])
+        hosts.append(
+            f"host {i}: {x['chromosomes']} chromosomes, blocks on the card {st.get('blocks', 0)} of {x['blocks']} "
+            f"({st.get('batches', 0)} batches, per class {_classes_run(x['per_class'])}), demotions "
+            f"{sched['demotions']}, class skips {sched['class_skips']}, own peak RSS {x['own_peak_rss_mb']:.1f} MB "
+            f"({x['own_peak_rss_mb_per_gb']:.1f} a GB of BED; {x['rss_start_mb']:.1f} at its start), "
+            f"max_memory_reserved {x['max_memory_reserved']}, seconds {json.dumps(x['stage_seconds'])}, start "
+            f"{t['start_s']:.3f} s, CUDA init {t['cuda_init_s']:.3f} s, work {t['work_s']:.3f} s")
+    log(f"scale {shape} (h) multihost {transport}, {h['hosts']} processes on one card: {h['seconds']:.3f} s wall for "
+        f"both, process starts included, {h['mb_per_s_bed']:.3f} MB/s of BED against (a)'s {a['mb_per_s_bed']:.3f} "
+        f"and {hybrid}; host 0's archive == (a)'s ({h['archive_bytes']} bytes), the other hosts wrote "
+        f"{h['other_hosts_bytes']} bytes, gloo ports retried {len(h['port_retries'])}; {'; '.join(hosts)}; on {smi}")
 
 
 def log_fast(shape: str, smi: str, legs: dict) -> None:
@@ -1730,6 +1822,10 @@ def main() -> int:
         raise RuntimeError("torch.cuda.is_available() is false: chip_smoke needs a CUDA card")
     device = torch.device("cuda")
     t_start = time.monotonic()
+    # the scale legs' fork server imports torch while phases 1-12 run; it
+    # ends at the end of its input, also when this process fails before
+    # the ``with`` below
+    forker = leg_fork.LegForker(ROOT)
     smi = card_name()
     kind = torch.cuda.get_device_name(0)
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; device {kind}")
@@ -1819,10 +1915,20 @@ def main() -> int:
     launches["mtf_narrow"] += helpers["narrow"]
     launches["mtf_wide"] += helpers["wide"]
     wide_by_width[256] += helpers["wide"]
-    # phases 13 and 15 on bits 4, then 14 and 15 on the BED6 tiers; phase
-    # 15's legs (the other modes, device decode) have deadlines of their own
-    bits4 = phase_scale(smi, ("bed3",), t_start + 760, t_start + 950)
-    bed6 = phase_scale(smi, ("config3", "bits6", "wide8"), t_start + 1140, t_start + 1180)
+    # phases 13, (h) and 15 on bits 4, then 14 and 15 on the BED6 tiers,
+    # every corpus written at once; each tier's phase-15 legs (the other
+    # modes, device decode) have a deadline of their own.  On an H100
+    # phases 1-12 took 347-466 s, the legs of bits 4 about 200 and 320 s
+    # more, those of the BED6 tiers about 240 and 290 s more again
+    # (PERF.md §5; the slowest run, before the cuts of §4).  Each deadline
+    # is 70-100 s past where that run reached it, and the last ends the
+    # phase by 1,150 s, inside the 1,200 s.
+    with forker:
+        by_tier = phase_scale(smi, {"bed3": (t_start + 760, t_start + 880), "config3": (t_start + 1100,) * 2,
+                                    "bits6": (t_start + 1100,) * 2, "wide8": (t_start + 1100, t_start + 1150)},
+                              forker=forker)
+    bits4 = by_tier["bed3"]
+    bed6 = {w: sum(by_tier[t][w] for t in ("config3", "bits6", "wide8")) for w in bits4}
     if not (all(bits4[w] for w in ("16", "128", "256")) and all(bed6[w] for w in ("32", "64", "256"))):
         raise AssertionError(f"scale: an MTF width of a tier or mode did not launch: bits 4 {bits4}, BED6 {bed6}")
     scale = {w: bits4[w] + bed6[w] for w in bits4}

@@ -44,150 +44,163 @@ def _flags() -> tuple[str, ...]:
 
 
 def get_lib():
-    """The loaded native library, or None (fallback mode)."""
+    """The loaded native library, or None (fallback mode).  Safe to call
+    from several threads at once: ``_tried`` is set only after ``_lib``,
+    so a thread that finds the load under way waits for it on the lock
+    rather than taking None."""
     global _lib, _gil_lib, _tried, lib_path
     if _lib is not None or _tried:
         return _lib
     with _lock:
         if _lib is not None or _tried:
             return _lib
-        _tried = True
-        if os.environ.get("STARCH3_TPU_NO_NATIVE"):
-            return None
-        from starch3_tpu_torch._build import build_host
-
         try:
-            path = build_host("runtime", _SRC, _flags())
-            lib = ctypes.CDLL(str(path))
-        except (OSError, RuntimeError):
-            return None
-        lib.s3_make_code_lengths.restype = ctypes.c_int
-        lib.s3_make_code_lengths.argtypes = [
-            ctypes.c_void_p, ctypes.c_int32, ctypes.c_int32, ctypes.c_void_p,
-        ]
-        lib.s3_pack_bits.restype = ctypes.c_int64
-        lib.s3_pack_bits.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-            ctypes.c_uint64, ctypes.c_int32, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p,
-        ]
-        lib.s3_mtf_ranks.restype = None
-        lib.s3_mtf_ranks.argtypes = [
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32, ctypes.c_void_p,
-        ]
-        lib.s3_rle1_encode.restype = ctypes.c_int64
-        lib.s3_rle1_encode.argtypes = [
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-        ]
-        lib.s3_rle1_decode.restype = ctypes.c_int64
-        lib.s3_rle1_decode.argtypes = [
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
-        ]
-        lib.s3_rle1_split.restype = ctypes.c_int64
-        lib.s3_rle1_split.argtypes = [
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32,
-            ctypes.c_void_p, ctypes.c_int64,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int32,
-        ]
-        lib.s3_bz2_decompress.restype = ctypes.c_int64
-        lib.s3_bz2_decompress.argtypes = [
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
-        ]
-        lib.s3_bz2_decode_block.restype = ctypes.c_int64
-        lib.s3_bz2_decode_block.argtypes = [
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-        ]
-        lib.s3_refine_lengths_batch.restype = ctypes.c_int32
-        lib.s3_refine_lengths_batch.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int32, ctypes.c_int32, ctypes.c_void_p,
-        ]
-        lib.s3_selector_mtf.restype = None
-        lib.s3_selector_mtf.argtypes = [
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-        ]
-        lib.s3_read_block_symbols.restype = ctypes.c_int64
-        lib.s3_read_block_symbols.argtypes = [
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p,
-        ]
-        lib.s3_bwt.restype = ctypes.c_int64
-        lib.s3_bwt.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p]
-        lib.s3_rle2_from_ranks.restype = ctypes.c_int64
-        lib.s3_rle2_from_ranks.argtypes = [
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32,
-            ctypes.c_void_p, ctypes.c_void_p,
-        ]
-        lib.s3_bed_transform.restype = ctypes.c_int64
-        lib.s3_bed_transform.argtypes = [
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-            ctypes.c_int64, ctypes.c_int64,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ]
-        lib.s3_untransform_bed.restype = ctypes.c_int64
-        lib.s3_untransform_bed.argtypes = [
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-        ]
-        lib.s3_encode_block.restype = ctypes.c_int64
-        lib.s3_encode_block.argtypes = [
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint32,
-            ctypes.c_void_p, ctypes.c_int64,
-            ctypes.c_void_p, ctypes.c_void_p,
-        ]
-        lib.s3_encode_tail.restype = ctypes.c_int64
-        lib.s3_encode_tail.argtypes = [
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-            ctypes.c_int32, ctypes.c_void_p, ctypes.c_int64,
-            ctypes.c_uint32, ctypes.c_void_p, ctypes.c_int64,
-            ctypes.c_void_p, ctypes.c_void_p,
-        ]
-        lib.s3_write_block_header.restype = ctypes.c_int64
-        lib.s3_write_block_header.argtypes = [
-            ctypes.c_uint32, ctypes.c_int64, ctypes.c_void_p,
-            ctypes.c_int32, ctypes.c_int32, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_int64,
-            ctypes.c_void_p, ctypes.c_int64,
-            ctypes.c_void_p, ctypes.c_void_p,
-        ]
-        lib.s3_crc32.restype = ctypes.c_uint32
-        lib.s3_crc32.argtypes = [ctypes.c_void_p, ctypes.c_int64]
-        lib.s3_append_shifted.restype = ctypes.c_int64
-        lib.s3_append_shifted.argtypes = [
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32,
-            ctypes.c_uint64, ctypes.c_void_p,
-        ]
-        lib.s3_count_distinct.restype = ctypes.c_int32
-        lib.s3_count_distinct.argtypes = [ctypes.c_void_p, ctypes.c_int64]
-        lib.s3_parse_ints.restype = ctypes.c_int64
-        lib.s3_parse_ints.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int64, ctypes.c_void_p,
-        ]
-        lib.s3_emit_decimals.restype = None
-        lib.s3_emit_decimals.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_int64,
-        ]
-        # the device lane's packs take about a millisecond a block: letting
-        # the GIL go around each and winning it back beside a busy feed and
-        # the host stealers cost the lane tens of ms a batch (ROADMAP C4)
-        gil = ctypes.PyDLL(str(path))
-        gil.s3_dense_pack4.restype = ctypes.c_int32
-        gil.s3_dense_pack4.argtypes = [
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
-        ]
-        gil.s3_dense_pack_words.restype = ctypes.c_int32
-        gil.s3_dense_pack_words.argtypes = [
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32,
-            ctypes.c_void_p, ctypes.c_void_p,
-        ]
-        _lib, _gil_lib, lib_path = lib, gil, path
+            loaded = _load()
+            if loaded is not None:
+                _lib, _gil_lib, lib_path = loaded
+        finally:
+            _tried = True
         return _lib
+
+
+def _load():
+    """Build (into ``build/``) and load the library: ``(CDLL, PyDLL,
+    path)``, or None."""
+    if os.environ.get("STARCH3_TPU_NO_NATIVE"):
+        return None
+    from starch3_tpu_torch._build import build_host
+
+    try:
+        path = build_host("runtime", _SRC, _flags())
+        lib = ctypes.CDLL(str(path))
+    except (OSError, RuntimeError):
+        return None
+    lib.s3_make_code_lengths.restype = ctypes.c_int
+    lib.s3_make_code_lengths.argtypes = [
+        ctypes.c_void_p, ctypes.c_int32, ctypes.c_int32, ctypes.c_void_p,
+    ]
+    lib.s3_pack_bits.restype = ctypes.c_int64
+    lib.s3_pack_bits.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_uint64, ctypes.c_int32, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p,
+    ]
+    lib.s3_mtf_ranks.restype = None
+    lib.s3_mtf_ranks.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32, ctypes.c_void_p,
+    ]
+    lib.s3_rle1_encode.restype = ctypes.c_int64
+    lib.s3_rle1_encode.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+    ]
+    lib.s3_rle1_decode.restype = ctypes.c_int64
+    lib.s3_rle1_decode.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
+    ]
+    lib.s3_rle1_split.restype = ctypes.c_int64
+    lib.s3_rle1_split.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32,
+        ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int32,
+    ]
+    lib.s3_bz2_decompress.restype = ctypes.c_int64
+    lib.s3_bz2_decompress.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
+    ]
+    lib.s3_bz2_decode_block.restype = ctypes.c_int64
+    lib.s3_bz2_decode_block.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+    ]
+    lib.s3_refine_lengths_batch.restype = ctypes.c_int32
+    lib.s3_refine_lengths_batch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int32, ctypes.c_int32, ctypes.c_void_p,
+    ]
+    lib.s3_selector_mtf.restype = None
+    lib.s3_selector_mtf.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+    ]
+    lib.s3_read_block_symbols.restype = ctypes.c_int64
+    lib.s3_read_block_symbols.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p,
+    ]
+    lib.s3_bwt.restype = ctypes.c_int64
+    lib.s3_bwt.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p]
+    lib.s3_rle2_from_ranks.restype = ctypes.c_int64
+    lib.s3_rle2_from_ranks.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32,
+        ctypes.c_void_p, ctypes.c_void_p,
+    ]
+    lib.s3_bed_transform.restype = ctypes.c_int64
+    lib.s3_bed_transform.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+        ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ]
+    lib.s3_untransform_bed.restype = ctypes.c_int64
+    lib.s3_untransform_bed.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+    ]
+    lib.s3_encode_block.restype = ctypes.c_int64
+    lib.s3_encode_block.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint32,
+        ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_void_p,
+    ]
+    lib.s3_encode_tail.restype = ctypes.c_int64
+    lib.s3_encode_tail.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+        ctypes.c_int32, ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_uint32, ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_void_p,
+    ]
+    lib.s3_write_block_header.restype = ctypes.c_int64
+    lib.s3_write_block_header.argtypes = [
+        ctypes.c_uint32, ctypes.c_int64, ctypes.c_void_p,
+        ctypes.c_int32, ctypes.c_int32, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_void_p,
+    ]
+    lib.s3_crc32.restype = ctypes.c_uint32
+    lib.s3_crc32.argtypes = [ctypes.c_void_p, ctypes.c_int64]
+    lib.s3_append_shifted.restype = ctypes.c_int64
+    lib.s3_append_shifted.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32,
+        ctypes.c_uint64, ctypes.c_void_p,
+    ]
+    lib.s3_count_distinct.restype = ctypes.c_int32
+    lib.s3_count_distinct.argtypes = [ctypes.c_void_p, ctypes.c_int64]
+    lib.s3_parse_ints.restype = ctypes.c_int64
+    lib.s3_parse_ints.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int64, ctypes.c_void_p,
+    ]
+    lib.s3_emit_decimals.restype = None
+    lib.s3_emit_decimals.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int64,
+    ]
+    # the device lane's packs take about a millisecond a block: letting
+    # the GIL go around each and winning it back beside a busy feed and
+    # the host stealers cost the lane tens of ms a batch (ROADMAP C4)
+    gil = ctypes.PyDLL(str(path))
+    gil.s3_dense_pack4.restype = ctypes.c_int32
+    gil.s3_dense_pack4.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+    ]
+    gil.s3_dense_pack_words.restype = ctypes.c_int32
+    gil.s3_dense_pack_words.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32,
+        ctypes.c_void_p, ctypes.c_void_p,
+    ]
+    return lib, gil, path
 
 
 def crc32_native(data: bytes) -> int | None:

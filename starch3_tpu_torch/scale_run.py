@@ -1,14 +1,18 @@
 """The port at the scale its users run: one leg of a streaming encode or
 decode of a scale corpus (``corpus.SCALE_SHAPES``: 3-column BED, and the
 BED6 shapes of the bits 5, 6 and 8 tiers) per process, for
-``chip_smoke.py`` phases 13 to 15 and ``tests/test_torch_scale.py``.
+``chip_smoke.py`` phases 13 to 15 and ``tests/test_torch_scale.py``, and
+BASELINE config 5, one multi-host encode in several processes.
 
     python -m starch3_tpu_torch.scale_run gen OUT TARGET [--shape S] [--n-per N]
     python -m starch3_tpu_torch.scale_run encode IN OUT [--jax [--mode M] [--warm-up]] [--decode]
     python -m starch3_tpu_torch.scale_run pipe IN OUT
     python -m starch3_tpu_torch.scale_run device IN REF TRACE_DIR MISMATCH_DIR [--shape S] [--mode M]
-        [--untraced] [--host-rate]
+        [--untraced] [--host-rate] [--texts FILE]
     python -m starch3_tpu_torch.scale_run decode ARCHIVE CORPUS [--streams K]
+    python -m starch3_tpu_torch.scale_run multihost IN REF --transport {gloo,manifest} [--device D] [--host-limit-s S]
+    python -m starch3_tpu_torch.scale_run host -- CLI_ARGS
+    python -m starch3_tpu_torch.scale_run config5 DIR [--target BYTES]
 
 ``gen`` writes the corpus of shape S (``bed3``, the default, is
 ``corpus.gigabyte_bed``; ``config3``, ``bits6`` and ``wide8`` the BED6
@@ -22,7 +26,9 @@ beside the host stealers on ``--device``, in the encode mode M
 the archive's blocks and the feed's transform seconds.
 ``pipe`` runs ``cat IN | python -m starch3_tpu_torch.cli --jax > OUT``, a
 real pipe into the CLI's stdin.  ``device`` transforms each chromosome of
-IN whole with the native transform, feeds the texts in order to
+IN whole with the native transform (on every core, while the profiler
+starts; or reads them from ``--texts``, where an earlier leg wrote
+them), feeds the texts in order to
 ``pipeline.encode_streams_iter(host_assist=False)`` and holds every
 stream to the stream of the same chromosome in the archive REF, in mode
 M, twice: first under ``observability.device_trace`` into TRACE_DIR,
@@ -38,8 +44,20 @@ must be the bytes of CORPUS (of its first K chromosomes), with
 ``decode_blocks`` equal to the decoded archive's blocks; it times the
 host's share per block (the Huffman walk, ``rle1_decode``, the CRCs)
 around the functions ``decode_streams`` calls.
+``multihost`` starts two ``host`` legs together, each the port's CLI
+with a user's argv, ``--jax --platform=D --num-hosts=2 --host-id=I`` over a
+gloo process group on a free localhost port or a manifest directory:
+host 0's archive must be REF's bytes and the others write nothing
+(``multihost_faults``).  ``host`` runs ``cli.main(CLI_ARGS)`` timed
+around its stages (``HOST_STAGES``) and prints its counters.
+``config5`` is BASELINE config 5 at its stated scale: it checks the room
+(memory and disk, ``config5_target``, with a host's memory as
+``multihost`` measured it), then runs ``gen``, the host
+path's ``encode`` and ``multihost --transport manifest`` in DIR.
 
-Each leg prints one JSON line, its last: its seconds, digests, peak RSS
+Each leg prints one JSON line, its last: its seconds (``timing``: when
+``main`` began, the seconds of its imports, of CUDA's initialisation on
+the card it uses itself, and of its work), digests, peak RSS
 (sampled: ``PeakRss``; ``ru_maxrss`` beside it) and the resident set
 before the encode, a series of the resident set and of the C heap's bytes
 in use and held over the leg, on a card the caching allocator's peaks and
@@ -57,19 +75,25 @@ from __future__ import annotations
 
 import argparse
 import bisect
+import concurrent.futures
 import contextlib
 import ctypes
 import hashlib
+import importlib
 import json
 import os
 import resource
+import shutil
+import socket
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 
 from starch3_tpu_torch.corpus import SCALE_SHAPES, SCALE_TIERS
+from starch3_tpu_torch.leg_fork import LEG_MODULES, spawn
 
 
 class _Hasher:
@@ -626,6 +650,25 @@ def host_run(texts, want, level: int) -> dict:
             "workers": os.cpu_count()}
 
 
+def write_texts(path: str, chroms, texts) -> None:
+    """A corpus's transformed texts in one file: a JSON line of the
+    chromosomes and the texts' lengths, then the texts."""
+    with open(path + ".tmp", "wb") as f:
+        f.write(json.dumps({"chroms": chroms, "lens": [len(t) for t in texts]}).encode() + b"\n")
+        for t in texts:
+            f.write(t)
+    os.replace(path + ".tmp", path)
+
+
+def read_texts(path: str) -> tuple[list, list]:
+    """``write_texts``' chromosomes and texts (views of one buffer)."""
+    with open(path, "rb") as f:
+        head = json.loads(f.readline())
+        buf = memoryview(f.read())
+    ends = np.cumsum([0] + head["lens"]).tolist()
+    return head["chroms"], [buf[a:b] for a, b in zip(ends, ends[1:])]
+
+
 def leg_device(args, peak: PeakRss) -> dict:
     """Device only in ``args.mode``, twice: an encode traced by
     ``device_trace``, which also warms the process, then the timed one
@@ -642,26 +685,45 @@ def leg_device(args, peak: PeakRss) -> dict:
 
     with open(args.ref, "rb") as f:
         want = list(StarchReader.from_bytes(f.read()).iter_streams())
-    # every text is made before the encodes, whose rate is the device path's
-    chroms, texts = [], []
-    t0 = time.perf_counter()
-    with open(args.inp, "rb") as f:
-        for chrom, raw in iter_chromosome_raw(f, args.chunk_bytes):
-            groups = bed_transform_native(raw)
-            if groups is None or len(groups) != 1:
-                raise SystemExit(f"{chrom}: the native transform gave {groups and len(groups)} groups")
-            chroms.append(chrom)
-            texts.append(groups[0][1])
-    res = {"leg": "device", "device": args.device, "streams": len(texts), "ref_streams": len(want),
-           "text_bytes": sum(map(len, texts)), "transform_seconds": time.perf_counter() - t0}
-    traced = None
-    if not args.untraced:
+
+    def transform() -> tuple[list, list, float]:
+        """Every chromosome's text, made on every core (the native transform
+        leaves the GIL), or read from ``args.texts`` where an earlier leg
+        wrote them, and the seconds it took."""
         t0 = time.perf_counter()
-        with device_trace(args.trace_dir, args.device):
-            trace_start_s = time.perf_counter() - t0  # the profiler's own start
-            traced = _device_run(texts, chroms, want, args)
-        traced["trace_start_seconds"] = trace_start_s
-        traced["trace"] = gpu_busy_share(os.path.join(args.trace_dir, sorted(os.listdir(args.trace_dir))[0]))
+        if args.texts and os.path.exists(args.texts):
+            return (*read_texts(args.texts), time.perf_counter() - t0)
+        chroms, texts = [], []
+        with open(args.inp, "rb") as f, concurrent.futures.ThreadPoolExecutor(os.cpu_count()) as pool:
+            jobs = [(chrom, pool.submit(bed_transform_native, raw))
+                    for chrom, raw in iter_chromosome_raw(f, args.chunk_bytes)]
+            for chrom, job in jobs:
+                groups = job.result()
+                if groups is None or len(groups) != 1:
+                    raise SystemExit(f"{chrom}: the native transform gave {groups and len(groups)} groups")
+                chroms.append(chrom)
+                texts.append(groups[0][1])
+        if args.texts:
+            write_texts(args.texts, chroms, texts)
+        return chroms, texts, time.perf_counter() - t0
+
+    # every text is made before the encodes, whose rate is the device
+    # path's, while the profiler starts
+    traced = None
+    with concurrent.futures.ThreadPoolExecutor(1) as bg:
+        made = bg.submit(transform)
+        if not args.untraced:
+            t0 = time.perf_counter()
+            with device_trace(args.trace_dir, args.device):
+                trace_start_s = time.perf_counter() - t0  # the profiler's own start
+                chroms, texts, transform_s = made.result()
+                traced = _device_run(texts, chroms, want, args)
+            traced["trace_start_seconds"] = trace_start_s
+            traced["trace"] = gpu_busy_share(os.path.join(args.trace_dir, sorted(os.listdir(args.trace_dir))[0]))
+        chroms, texts, transform_s = made.result()
+    res = {"leg": "device", "device": args.device, "streams": len(texts), "ref_streams": len(want),
+           "text_bytes": sum(map(len, texts)), "transform_seconds": transform_s}
+    if traced is not None:
         res["traced"] = traced
     res.update(_device_run(texts, chroms, want, args))
     if traced is not None:
@@ -758,7 +820,294 @@ def leg_decode(args, peak: PeakRss) -> dict:
     return res
 
 
+@contextlib.contextmanager
+def counted_streams(pipeline):
+    """Counts the streams and blocks that ``pipeline.encode_streams``
+    returns inside it, for code that looks the name up when it calls it
+    (the multi-host encode of a host's share)."""
+    real = pipeline.encode_streams
+    seen = {"streams": 0, "blocks": 0}
+
+    def call(*args, **kw):
+        out = real(*args, **kw)
+        seen["streams"] += len(out)
+        seen["blocks"] += sum(len(e.block_bit_offsets) for e in out)
+        return out
+
+    pipeline.encode_streams = call
+    try:
+        yield seen
+    finally:
+        pipeline.encode_streams = real
+
+
+# the multi-host entry's stages, each the function the entry calls by name
+HOST_STAGES = {
+    "read": ("starch3_tpu_torch.cli", ("_read_input",)),
+    "parse": ("starch3_tpu_torch.bed.parser", ("parse_bed",)),
+    "transform": ("starch3_tpu_torch.transform.delta", ("transform_chrom",)),
+    "encode": ("starch3_tpu_torch.parallel.pipeline", ("encode_streams",)),
+    "gather": ("starch3_tpu_torch.parallel.distributed", ("gather_results_dist", "gather_results_manifest")),
+}
+
+
+def leg_host(args, peak: PeakRss) -> dict:
+    """One host process of a multi-host encode: the port's CLI entry,
+    ``cli.main(ARGV)`` with a user's argv (``--num-hosts``, ``--host-id``,
+    ``--coordinator`` or ``--manifest-dir``), timed around the functions it
+    calls (``HOST_STAGES``), then the counters its encode left.  Its share's
+    chromosomes are the transform's calls, its streams and blocks what
+    ``encode_streams`` returned; its own peak RSS is above the RSS before
+    the entry, also per GB of the BED it read (each host reads it whole)."""
+    from starch3_tpu_torch import cli
+    from starch3_tpu_torch.parallel import pipeline
+
+    opts = cli._parse_args(args.cli)
+    device, host_id = opts["platform"], opts["host_id"] or 0
+    n_in = os.path.getsize(opts["input"])
+    peak.reset()
+    _zero_counters()
+    rss0 = rss_mb()
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        share = stack.enter_context(counted_streams(pipeline))
+        spent = {stage: [stack.enter_context(timed_calls(importlib.import_module(m), *names)), names]
+                 for stage, (m, names) in HOST_STAGES.items()}
+        rc = cli.main(args.cli)
+    dt = time.perf_counter() - t0
+    res = {
+        "leg": "host", "host_id": host_id, "device": device, "cli_exit": rc, "bytes_in": n_in, "seconds": dt,
+        "mb_per_s_bed": n_in / dt / 1e6, "chromosomes": spent["transform"][0]["transform_chrom_calls"],
+        "streams": share["streams"], "blocks": share["blocks"], "rss_start_mb": rss0,
+        "stage_seconds": {stage: sum(d[n] for n in names) for stage, (d, names) in spent.items()},
+        "output_bytes": os.path.getsize(opts["output"]) if opts["output"] and os.path.exists(opts["output"]) else 0,
+    }
+    res.update(_memory(device if opts["jax"] else "cpu", peak))
+    res["own_peak_rss_mb"] = res["peak_rss_mb"] - rss0
+    res["own_peak_rss_mb_per_gb"] = res["own_peak_rss_mb"] / (n_in / 1e9)
+    res.update(_counters())
+    mode = "fast_huff" if opts["device_huffman"] else "fast"
+    faults = [f"the CLI exited {rc}"] if rc else []
+    if opts["jax"]:
+        faults += launch_faults(res, device, mode)
+    res["faults"] = [f"host {host_id}: {f}" for f in faults]
+    return res
+
+
+def free_port() -> int:
+    """A localhost port that was free a moment ago."""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+PORT_TRIES = 3  # gloo rendezvous ports tried, where another process took the first
+HOSTS = 2  # config 5's N >= 2 hosts, as processes on one machine
+
+
+def _run_hosts(args, how: str, d: str, attempt: int) -> dict:
+    """``HOSTS`` host legs started together, each
+    ``scale_run host -- --jax --platform=D --num-hosts=2 --host-id=I HOW
+    --output=FILE BED``, in this leg's process group; when one fails or the
+    limit passes, every host still running is killed.  Returns the wall
+    time for all and each host's record: its exit, its JSON line, the
+    bytes it wrote besides its line, and the end of its standard error."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, [root, os.environ.get("PYTHONPATH")])))
+    base = [os.path.join(d, f"host{h}-{attempt}") for h in range(HOSTS)]
+    cmds = [[sys.executable, "-m", "starch3_tpu_torch.scale_run", "host", "--", "--jax", f"--platform={args.device}",
+             f"--num-hosts={HOSTS}", f"--host-id={h}", how, f"--output={base[h]}.starch", args.inp]
+            for h in range(HOSTS)]
+    procs = []
+    launched = time.time()
+    t0 = time.perf_counter()
+    try:
+        for b, cmd in zip(base, cmds):
+            with open(b + ".out", "wb") as fo, open(b + ".err", "wb") as fe:
+                procs.append(subprocess.Popen(cmd, cwd=root, env=env, stdout=fo, stderr=fe))
+        deadline = time.monotonic() + args.host_limit_s
+        while any(p.poll() is None for p in procs) and time.monotonic() < deadline:
+            if any(p.returncode for p in procs):  # one failed: the others would wait for it
+                break
+            time.sleep(0.05)
+        wall = time.perf_counter() - t0
+    finally:
+        alive = [p.poll() is None for p in procs]
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    hosts = []
+    for h, (b, p) in enumerate(zip(base, procs)):
+        with open(b + ".out", "rb") as f:
+            lines = f.read().splitlines()
+        with open(b + ".err", "rb") as f:
+            err = f.read().decode(errors="replace")
+        line = {}
+        if lines:
+            try:
+                line = json.loads(lines[-1])
+            except ValueError:
+                lines.append(b"")
+        out = b + ".starch"
+        hosts.append(dict(line, exit=p.returncode, killed=alive[h], launched_at=launched,
+                          wrote_bytes=(os.path.getsize(out) if os.path.exists(out) else 0) + sum(map(len, lines[:-1])),
+                          stderr_tail=err[-3000:] if p.returncode else ""))
+    return {"seconds": wall, "hosts": hosts, "archive": base[0] + ".starch"}
+
+
+def multihost_faults(res: dict) -> list[str]:
+    """The multi-host leg's gates, each naming the transport and the host:
+    every host exits 0 within its limit, abandons no batch and launches
+    its MTF kernels once per device batch at its class's width (the host
+    leg's own faults); host 0's archive is REF's bytes and the other hosts
+    write nothing."""
+    pre = f"multihost {res['transport']}"
+    faults = []
+    for h, host in enumerate(res["host_lines"]):
+        if host["exit"] != 0:
+            why = " (killed at its limit)" if host["killed"] else ""
+            faults.append(f"{pre} host {h}: exit {host['exit']}{why}: {host['stderr_tail'][-1500:]}")
+        abandoned = host.get("scheduler_stats", {}).get("abandoned_batches", 0)
+        if abandoned:
+            faults.append(f"{pre} host {h}: {abandoned} abandoned batches")
+        faults += [f"{pre} {f}" for f in host.get("faults", [])]
+        if h and host["wrote_bytes"]:
+            faults.append(f"{pre} host {h} wrote {host['wrote_bytes']} bytes, where only host 0 writes")
+    if (res["archive_digest"], res["archive_bytes"]) != (res["ref_digest"], res["ref_bytes"]):
+        faults.append(f"{pre} host 0: archive {res['archive_digest']} of {res['archive_bytes']} bytes != REF's "
+                      f"{res['ref_digest']} of {res['ref_bytes']}")
+    return faults
+
+
+def leg_multihost(args, peak: PeakRss) -> dict:
+    """BASELINE config 5 on one machine: ``HOSTS`` processes of one
+    multi-host encode of BED (``host`` legs, the CLI with a user's argv)
+    on ``args.device``, over a gloo process group on a free localhost port
+    or through a manifest directory beside REF.  Host 0's archive must be
+    REF's bytes, and the other hosts write nothing.  Where host 0 finds its
+    gloo port taken between the choice and its bind, the hosts run again
+    on another port (``port_retries``)."""
+    n_in = os.path.getsize(args.inp)
+    retries = []
+    with tempfile.TemporaryDirectory(prefix="s3t-hosts-", dir=os.path.dirname(os.path.abspath(args.ref))) as d:
+        for attempt in range(PORT_TRIES):
+            how = (f"--coordinator=127.0.0.1:{free_port()}" if args.transport == "gloo"
+                   else f"--manifest-dir={os.path.join(d, f'manifest{attempt}')}")
+            run = _run_hosts(args, how, d, attempt)
+            taken = args.transport == "gloo" and any(
+                h["exit"] and "Address already in use" in h["stderr_tail"] for h in run["hosts"])
+            if not taken or attempt == PORT_TRIES - 1:
+                break
+            retries.append(how)
+        arc = run["archive"]
+        got = (file_digest(arc), os.path.getsize(arc)) if os.path.exists(arc) else (None, 0)
+    res = {
+        "leg": "multihost", "transport": args.transport, "hosts": HOSTS, "device": args.device, "bytes_in": n_in,
+        "seconds": run["seconds"], "mb_per_s_bed": n_in / run["seconds"] / 1e6, "archive_digest": got[0],
+        "archive_bytes": got[1], "ref_digest": file_digest(args.ref), "ref_bytes": os.path.getsize(args.ref),
+        "other_hosts_bytes": sum(h["wrote_bytes"] for h in run["hosts"][1:]), "port_retries": retries,
+        "host_lines": run["hosts"],
+    }
+    res["faults"] = multihost_faults(res)
+    return res
+
+
+def mem_available() -> int:
+    """``MemAvailable`` of ``/proc/meminfo``, in bytes."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("no MemAvailable in /proc/meminfo")
+
+
+def config5_target(target: int, mem: int, free: int, host_mb_per_gb: float, start_mb: float,
+                   archive_ratio: float, margin: float = 0.8, chrom_bytes: int = 60_000_000) -> dict:
+    """The largest corpus that BASELINE config 5's run can hold, up to
+    ``target`` bytes of BED: two hosts, each ``host_mb_per_gb`` MB of its
+    own a GB of BED above its start of ``start_mb``, within ``margin`` of
+    ``mem`` bytes available; the corpus and three archives of
+    ``archive_ratio`` of it within ``margin`` of ``free`` bytes of disk.
+    Less the most a last whole chromosome adds (``chrom_bytes``), since the
+    writer appends whole ones until it reaches its target."""
+    by_mem = (margin * mem / 2 - start_mb * 1e6) / (host_mb_per_gb * 1e6) * 1e9
+    by_disk = margin * free / (1 + 3 * archive_ratio)
+    fit = int(min(by_mem, by_disk)) - chrom_bytes
+    return {"target": min(target, fit), "asked": target, "by_memory": int(by_mem), "by_disk": int(by_disk),
+            "cut_by": None if fit >= target else ("memory" if by_mem <= by_disk else "disk")}
+
+
+CONFIG5_ARCHIVE_RATIO = 0.15  # an archive's bytes a byte of BED, at most (bits 4: 0.099)
+# a host's own peak RSS a GB of BED, and its RSS before its encode, as
+# ``multihost`` measured them on an H100's host at 1.1e9 bytes (PERF.md §6)
+CONFIG5_HOST_MB_PER_GB = 6369.0
+CONFIG5_START_MB = 4744.0
+CONFIG5_LIMIT_S = 900.0  # each of config 5's legs
+
+
+def leg_config5(args, peak: PeakRss) -> dict:
+    """BASELINE config 5 at its stated scale, once: the room checked first
+    (``config5_target``: ``MemAvailable`` and the free disk of
+    ``args.dir``), then in child processes ``gen`` of the 3-column scale
+    corpus at the target that fits, the host path's archive (``encode``)
+    and ``multihost`` over a manifest directory, each leg's line kept."""
+    os.makedirs(args.dir, exist_ok=True)
+    room = config5_target(args.target, mem_available(), shutil.disk_usage(args.dir).free, CONFIG5_HOST_MB_PER_GB,
+                          CONFIG5_START_MB, CONFIG5_ARCHIVE_RATIO)
+    room.update(mem_available=mem_available(), disk_free=shutil.disk_usage(args.dir).free)
+    print(json.dumps({"room": room}), flush=True)
+    bed, ref = os.path.join(args.dir, "config5.bed"), os.path.join(args.dir, "config5-a.starch")
+    res = {"leg": "config5", "room": room, "legs": {}}
+    t0 = time.perf_counter()
+    try:
+        for name, leg in (("gen", ["gen", bed, room["target"]]), ("a", ["encode", bed, ref]),
+                          ("multihost", ["multihost", bed, ref, "--transport", "manifest", "--host-limit-s",
+                                         CONFIG5_LIMIT_S])):
+            run = spawn(leg, CONFIG5_LIMIT_S)
+            lines = run.stdout.decode().splitlines()
+            res["legs"][name] = json.loads(lines[-1]) if lines else {"exit": run.returncode}
+            print(json.dumps({name: res["legs"][name]}), flush=True)
+            if run.returncode:
+                res["faults"] = [f"{name}: exit {run.returncode}: {run.stderr.decode()[-3000:]}"]
+                break
+        else:
+            res["faults"] = res["legs"]["multihost"]["faults"]
+    finally:
+        for path in (bed, ref):
+            if os.path.exists(path):
+                os.remove(path)
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
+def _card_of(args) -> str | None:
+    """The card this leg's own process uses, if any: it initialises CUDA
+    there before its work, so that the leg's times split the start."""
+    if args.leg == "host":
+        from starch3_tpu_torch.cli import _parse_args
+
+        opts = _parse_args(args.cli)
+        device = opts["platform"] if opts["jax"] else None
+    else:
+        device = getattr(args, "device", None) if args.leg in ("device", "decode") or getattr(args, "jax", False) \
+            else None
+    return device if device and device.startswith("cuda") else None
+
+
+def cuda_init(device: str) -> float:
+    """Seconds to initialise CUDA and make the card's context."""
+    import torch
+
+    t0 = time.perf_counter()
+    torch.cuda.init()
+    torch.cuda.synchronize(device)
+    return time.perf_counter() - t0
+
+
+
 def main(argv=None) -> int:
+    main_at = time.time()
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     sub = ap.add_subparsers(dest="leg", required=True)
     g = sub.add_parser("gen")
@@ -786,23 +1135,46 @@ def main(argv=None) -> int:
     dev.add_argument("--shape", choices=sorted(SCALE_SHAPES), default="bed3", help="the corpus's shape, for its tier")
     dev.add_argument("--untraced", action="store_true", help="the timed encode alone, without the traced one")
     dev.add_argument("--host-rate", action="store_true", help="then the host cores on the same texts (host_run)")
+    dev.add_argument("--texts", help="the corpus's texts: written here when missing, read from here when not")
     dec = sub.add_parser("decode")
     dec.add_argument("archive")
     dec.add_argument("corpus")
     dec.add_argument("--device", default="cuda")
     dec.add_argument("--streams", type=int, help="decode an archive of the first STREAMS streams only")
+    mh = sub.add_parser("multihost")
+    mh.add_argument("inp")
+    mh.add_argument("ref")
+    mh.add_argument("--transport", choices=("gloo", "manifest"), required=True)
+    mh.add_argument("--device", default="cuda")
+    mh.add_argument("--host-limit-s", type=float, default=600.0, help="the hosts still running then are killed")
+    sub.add_parser("host").add_argument("cli", nargs="*", help="after --: the CLI's arguments")
+    c5 = sub.add_parser("config5")
+    c5.add_argument("dir")
+    c5.add_argument("--target", type=lambda s: int(float(s)), default=10_000_000_000)
     args = ap.parse_args(argv)
     if args.leg == "encode" and (args.mode != "fast" or args.warm_up) and not args.jax:
         ap.error("--mode and --warm-up are for the device path: give --jax")
+    # the start a leg pays before its work: its imports, then CUDA's
+    t0 = time.perf_counter()
+    if args.leg != "gen":
+        for name in LEG_MODULES:
+            importlib.import_module(name)
+    imports_s = time.perf_counter() - t0
+    card = _card_of(args)
+    cuda_init_s = cuda_init(card) if card else 0.0
+    t_work = time.perf_counter()
     # progress: the archive's bytes on disk, in the legs that write one
     out = getattr(args, "out", None)
     peak = PeakRss(progress=lambda: os.path.getsize(out) if out and os.path.exists(out) else 0).start()
-    legs = {"gen": leg_gen, "encode": leg_encode, "pipe": leg_pipe, "device": leg_device, "decode": leg_decode}
+    legs = {"gen": leg_gen, "encode": leg_encode, "pipe": leg_pipe, "device": leg_device, "decode": leg_decode,
+            "multihost": leg_multihost, "host": leg_host, "config5": leg_config5}
     try:
         res = legs[args.leg](args, peak)
     finally:
         peak.stop()
     res["memory_series"] = peak.series
+    res["timing"] = {"main_at": main_at, "imports_s": imports_s, "cuda_init_s": cuda_init_s,
+                     "work_s": time.perf_counter() - t_work}
     print(json.dumps(res), flush=True)
     return 1 if res.get("faults") else 0
 

@@ -68,7 +68,7 @@ def test_mesh_launches_expected(n):
         assert chip_smoke.mesh_launches_expected(stats, n, mode) == ({16: 0, 32: 0, 64: 0}, {128: 0, 256: 7 * n})
 
 
-def _scale_legs(shape: str, demotions: int = 0, device_mb_s: float = 100.0) -> dict:
+def _scale_legs(shape: str, demotions: int = 0, device_mb_s: float = 100.0, exact_hybrids: bool = False) -> dict:
     """One tier's legs as phases 13 to 15 read them: 700 MB of text, the
     host path 10 s (70 MB/s of text), hybrids whose card took 9 batches
     of bits 5, the device-only runs 60 batches each, 55 in the traced
@@ -76,7 +76,10 @@ def _scale_legs(shape: str, demotions: int = 0, device_mb_s: float = 100.0) -> d
     tier's phase-15 legs: each mode's hybrids (as fast mode's) and its
     untraced device-only run at 50 MB/s of text (with the host cores' 140
     MB/s on the same texts where the mode runs a hybrid), and the device
-    decode."""
+    decode; (h)'s two-host encodes where the tier runs them.  With
+    ``exact_hybrids`` the exact modes also run a hybrid on the half
+    corpus, as phase 15 did before its cut: the gates hold whatever
+    hybrids a mode's legs hold."""
     def counters(batches, sched=None, mode="fast"):
         launches = dict.fromkeys(("16", "32", "64", "128", "256"), 0)
         launches[str(scale_run.mode_width(mode, 5))] = batches
@@ -90,7 +93,8 @@ def _scale_legs(shape: str, demotions: int = 0, device_mb_s: float = 100.0) -> d
                   decode={"digest": "c", "bytes": 1_100}, peak_rss_mb=5000.0, rss_start_mb=4500.0,
                   max_memory_reserved=1_000)
     half = dict(hybrid, peak_rss_mb=4990.0, prefix_of_a=True)
-    legs = {"gen": {"digest": "c", "bytes": 1_100}, "a": {"archive_digest": "x", "seconds": 10.0}, "b": hybrid,
+    legs = {"gen": {"digest": "c", "bytes": 1_100}, "a": {"archive_digest": "x", "archive_bytes": 500, "seconds": 10.0},
+            "b": hybrid,
             "d": dict(counters(60), text_bytes=700_000_000, mb_per_s_text=device_mb_s,
                       traced=dict(counters(60), trace={"batches": 55}))}
     if tier.half:
@@ -98,6 +102,8 @@ def _scale_legs(shape: str, demotions: int = 0, device_mb_s: float = 100.0) -> d
     if tier.pipe:
         legs["c"] = {"archive_digest": "x"}
     for run in tier.modes:
+        if exact_hybrids and run.mode in ("ranks", "rle2"):
+            run = run._replace(hybrid=("half",))
         mode = legs.setdefault("modes", {})[run.mode] = {
             "d": dict(counters(60, mode=run.mode), text_bytes=700_000_000, mb_per_s_text=50.0)}
         if run.hybrid:
@@ -105,6 +111,14 @@ def _scale_legs(shape: str, demotions: int = 0, device_mb_s: float = 100.0) -> d
         for part in run.hybrid:
             mode["b" if part == "whole" else "b_half"] = dict(hybrid if part == "whole" else half,
                                                               **counters(9, {"demotions": demotions}, run.mode))
+    for transport in tier.multihost:  # (h): two hosts of 11 chromosomes, 7 device batches of bits 4 each
+        legs.setdefault("h", {})[transport] = {
+            "transport": transport, "device": "cuda", "archive_digest": "x", "archive_bytes": 500, "hosts": 2,
+            "host_lines": [{"exit": 0, "killed": False, "wrote_bytes": 500 if i == 0 else 0, "blocks": 220,
+                            "device_stats": {"batches": 7, "batches_bits4": 7, "blocks": 21},
+                            "width_launches": {"16": 7, "32": 0, "64": 0, "128": 0, "256": 0},
+                            "scheduler_stats": {"demotions": 0, "repromotions": 0, "abandoned_batches": 0,
+                                                "class_skips": 0}} for i in range(2)]}
     if tier.decode:
         legs["g"] = {"digest": "p", "bytes": 400, "streams": tier.decode, "archive_blocks": 72,
                      "corpus": {"digest": "p", "bytes": 400, "streams": tier.decode},
@@ -157,8 +171,12 @@ def test_tier_launches_add_the_hybrids_and_both_device_runs():
     assert chip_smoke.tier_launches(legs) == {"16": 0, "32": 9 + 9 + 60 + 60, "64": 0, "128": 0, "256": 4}
     assert chip_smoke.tier_launches(_scale_legs("wide8")) == {"16": 0, "32": 9 + 60 + 60, "64": 0, "128": 0,
                                                               "256": 60}
-    # bed3's fast_huff half and whole and ranks and rle2 half, 9 batches each, and three (d) runs of 60
-    assert chip_smoke.tier_launches(_scale_legs("bed3"))["256"] == 4 * 9 + 3 * 60
+    # bed3's fast_huff half and whole, 9 batches each, and three (d) runs of 60; with
+    # the exact modes' half hybrids, 9 more each
+    assert chip_smoke.tier_launches(_scale_legs("bed3"))["256"] == 2 * 9 + 3 * 60
+    assert chip_smoke.tier_launches(_scale_legs("bed3", exact_hybrids=True))["256"] == 4 * 9 + 3 * 60
+    # and (h)'s hosts, 7 bits-4 batches in each of two hosts, over gloo and over a manifest directory
+    assert chip_smoke.tier_launches(_scale_legs("bed3"))["16"] == 2 * 2 * 7
 
 
 def _mode_leg(legs, mode, key):
@@ -187,7 +205,7 @@ def _mode_leg(legs, mode, key):
 def test_scale_gates_of_the_other_modes_and_decode(shape, change, fault):
     """Phase 15: each gate on a mode's legs or on the device decode fails
     the tier with one message that names the tier, the mode and the leg."""
-    legs = _scale_legs(shape)
+    legs = _scale_legs(shape, exact_hybrids=True)
     assert chip_smoke.scale_faults(shape, legs) == []
     change(legs)
     faults = chip_smoke.scale_faults(shape, legs)
@@ -201,7 +219,7 @@ def test_scale_mode_demotion_fails_where_that_modes_card_outruns_the_host_cores(
     140 MB/s on the same texts, not where it only beats the host path's
     70 MB/s of text, which its feed bounds; ``ranks``' (d) at 50 MB/s may
     be benched."""
-    legs = _scale_legs("bed3")
+    legs = _scale_legs("bed3", exact_hybrids=True)
     for key in ("b_half", "b"):
         _mode_leg(legs, "fast_huff", key)["scheduler_stats"].update(demotions=1)
     _mode_leg(legs, "fast_huff", "d").update(mb_per_s_text=device_mb_s)
@@ -209,3 +227,33 @@ def test_scale_mode_demotion_fails_where_that_modes_card_outruns_the_host_cores(
     faults = chip_smoke.scale_faults("bed3", legs)
     assert len(faults) == (2 if fails else 0)
     assert all(f.startswith("bed3 fast_huff (b") and "against the host's 140.000" in f for f in faults)
+
+
+def _host(legs, transport, i):
+    return legs["h"][transport]["host_lines"][i]
+
+
+@pytest.mark.parametrize("transport", ["gloo", "manifest"])
+@pytest.mark.parametrize("change, fault", [
+    (lambda l, t: l["h"][t].update(archive_digest="y"),
+     "host 0 archive y of 500 bytes != the host path's x of 500"),
+    (lambda l, t: _host(l, t, 1).update(wrote_bytes=3), "host 1 wrote 3 bytes, where only host 0 writes"),
+    (lambda l, t: _host(l, t, 1).update(exit=-9, killed=True), "host 1 exit -9 at its limit"),
+    (lambda l, t: _host(l, t, 0)["scheduler_stats"].update(abandoned_batches=1), "host 0 abandoned batches"),
+    (lambda l, t: _host(l, t, 1).update(device_stats={}, width_launches=dict.fromkeys(
+        ("16", "32", "64", "128", "256"), 0)), "host 1 put no block on the card, of its 220"),
+    (lambda l, t: _host(l, t, 0)["width_launches"].update({"16": 6}),
+     "host 0 fast: MTF launches by width {'16': 6"),
+], ids=["archive", "host1_wrote", "exit", "abandoned", "no_device_blocks", "launches"])
+def test_scale_gates_of_multihost(transport, change, fault):
+    """(h), BASELINE config 5: each gate on a transport's two-host encode
+    fails bed3 with one message that names the transport and the host; a
+    demotion or a class skip in a host is printed, not gated."""
+    legs = _scale_legs("bed3")
+    assert chip_smoke.scale_faults("bed3", legs) == []
+    change(legs, transport)
+    faults = chip_smoke.scale_faults("bed3", legs)
+    assert len(faults) == 1 and faults[0].startswith(f"bed3 (h) multihost {transport} {fault}"), faults
+    legs = _scale_legs("bed3")
+    _host(legs, transport, 1)["scheduler_stats"].update(demotions=2, class_skips=5)
+    assert chip_smoke.scale_faults("bed3", legs) == []

@@ -372,3 +372,68 @@ def test_gather_memory_bounded_with_skewed_streams(tmp_path, rng):
         assert (tmp_path / f"skew{h}.starch").read_bytes() == single
         st = json.loads((tmp_path / f"skew{h}.json").read_text())
         assert st["peak"] < 8 * st["total_streams"] + (1 << 20), st
+
+
+# ------------------------------------------- BASELINE config 5, the leg
+
+HOST_FIELDS = ("chromosomes", "streams", "blocks", "per_class", "device_stats", "scheduler_stats", "width_launches",
+               "rss_start_mb", "peak_rss_mb", "own_peak_rss_mb", "own_peak_rss_mb_per_gb", "stage_seconds", "timing")
+
+
+def _leg(args, timeout=TIMEOUT_S) -> tuple[int, dict, bytes]:
+    r = subprocess.run([sys.executable, "-m", "starch3_tpu_torch.scale_run", *map(str, args)], capture_output=True,
+                       env=ENV, cwd=ROOT, timeout=timeout)
+    lines = r.stdout.decode().splitlines()
+    return r.returncode, json.loads(lines[-1]) if lines else {}, r.stderr
+
+
+@pytest.mark.parametrize("transport", ["gloo", "manifest"])
+def test_multihost_leg_equals_jax_package(tmp_path, transport):
+    """``scale_run multihost`` on the CPU: two host processes of the CLI
+    (``scale_run host -- --jax --platform=cpu --num-hosts=2 ...``) on a
+    small scale corpus of 4 chromosomes.  Host 0's archive is the JAX
+    package's ``compress_bed_bytes`` archive of the BED, host 1 writes
+    nothing, and each host's line carries its share, counters, memory and
+    stage seconds."""
+    from starch3_tpu_torch import corpus
+
+    bed_path, ref = tmp_path / "in.bed", tmp_path / "ref.starch"
+    _digest, n = corpus.gigabyte_bed(bed_path, 300_000, n_per=4000)
+    bed = bed_path.read_bytes()
+    assert len(parse_bed(bed)) == 4
+    ref.write_bytes(jax_api.compress_bed_bytes(bed))
+    rc, res, err = _leg(["multihost", bed_path, ref, "--transport", transport, "--device", "cpu"])
+    assert rc == 0, (res.get("faults"), err.decode()[-3000:])
+    assert res["faults"] == [] and res["port_retries"] == []
+    assert (res["archive_digest"], res["archive_bytes"]) == (res["ref_digest"], res["ref_bytes"])
+    assert res["archive_bytes"] == ref.stat().st_size and res["other_hosts_bytes"] == 0
+    assert res["bytes_in"] == n and res["seconds"] > 0 and res["transport"] == transport
+    hosts = res["host_lines"]
+    assert [h["host_id"] for h in hosts] == [0, 1] and [h["exit"] for h in hosts] == [0, 0]
+    assert [h["chromosomes"] for h in hosts] == [2, 2] == [h["streams"] for h in hosts]
+    assert [h["output_bytes"] for h in hosts] == [res["archive_bytes"], 0]
+    for h in hosts:
+        assert all(k in h for k in HOST_FIELDS), [k for k in HOST_FIELDS if k not in h]
+        assert set(h["stage_seconds"]) == {"read", "parse", "transform", "encode", "gather"}
+        assert all(v > 0 for v in h["stage_seconds"].values()), h["stage_seconds"]
+        assert h["blocks"] >= 2 and h["scheduler_stats"]["abandoned_batches"] == 0 and h["faults"] == []
+        assert h["own_peak_rss_mb"] >= 0 and h["bytes_in"] == n
+    assert not list(tmp_path.glob("s3t-hosts-*")), "the leg left its directory behind"
+
+
+def test_multihost_leg_kills_hosts_past_their_limit(tmp_path):
+    """Hosts still running at ``--host-limit-s`` are killed, the leg fails
+    naming the transport and each host, and no host process is left."""
+    from starch3_tpu_torch import corpus
+
+    bed_path = tmp_path / "limit.bed"
+    corpus.gigabyte_bed(bed_path, 100_000, n_per=2000)
+    (tmp_path / "ref.starch").write_bytes(b"")
+    rc, res, _err = _leg(["multihost", bed_path, tmp_path / "ref.starch", "--transport", "manifest",
+                          "--device", "cpu", "--host-limit-s", 0.2])
+    assert rc == 1
+    assert [h["killed"] for h in res["host_lines"]] == [True, True]
+    assert all(f"multihost manifest host {h}: exit -9 (killed at its limit)" in " ".join(res["faults"])
+               for h in range(2))
+    r = subprocess.run(["pgrep", "-f", str(bed_path)], capture_output=True)
+    assert r.stdout == b""

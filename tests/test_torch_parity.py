@@ -75,7 +75,9 @@ PORT_ONLY_MODULES = {
     "profile_kernels.py": "device times of the CUDA kernels",
     "profile_lane.py": "where the device lane's time goes in a hybrid encode",
     "profile_step.py": "a tier's time breakdown on the card",
-    "scale_run.py": "the legs of chip_smoke.py phases 13 to 15, every tier and mode at scale, one per process",
+    "leg_fork.py": "the fork server that starts chip_smoke.py's scale legs without importing torch in each",
+    "scale_run.py": "the legs of chip_smoke.py phases 13 to 15, every tier and mode at scale, one per process, "
+                    "and BASELINE config 5's multi-host legs",
     "stall_probe.py": "which host calls wait on a stalled CUDA stream",
     "parallel/host.py": "the host scheduler and tail, copied out of the JAX package's parallel/pipeline.py",
 }

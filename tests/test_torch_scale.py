@@ -226,24 +226,135 @@ def test_file_entry_equals_jax_package_across_chunks_and_blocks(tmp_path):
     assert api.decompress_starch_bytes(got.getvalue()) == bed
 
 
-def test_scale_child_returns_a_leg_and_kills_one_past_its_limit(tmp_path):
-    """``chip_smoke.scale_child``: a leg's JSON line comes back; a leg
-    still running at its limit fails the phase and its process group is
-    gone by then."""
+@pytest.fixture
+def forker():
+    """A fork server of the scale legs (``leg_fork.LegForker``), closed
+    when the test ends."""
+    from starch3_tpu_torch import leg_fork
+
+    with leg_fork.LegForker() as f:
+        yield f
+
+
+def test_scale_child_returns_a_leg_and_kills_one_past_its_limit(tmp_path, forker):
+    """``chip_smoke.scale_child``, forked by the fork server: a leg's JSON
+    line comes back with its start, CUDA and work seconds; a leg still
+    running at its limit fails the phase and its process group is gone by
+    then."""
     import time
 
     import chip_smoke
 
-    res = chip_smoke.scale_child("gen", ["gen", tmp_path / "a.bed", 1000, "--n-per", 500], time.monotonic() + 60, 60)
+    res = chip_smoke.scale_child("gen", ["gen", tmp_path / "a.bed", 1000, "--n-per", 500], time.monotonic() + 60, 60,
+                                 forker)
     assert res["digest"] == _sha256(tmp_path / "a.bed")
+    assert set(res["times"]) == {"start_s", "cuda_init_s", "work_s"} and res["times"]["cuda_init_s"] == 0
+    assert 0 < res["times"]["start_s"] < 60 and 0 < res["times"]["work_s"] < 60
     fifo = tmp_path / "never.bed"  # a pipe nobody writes: the leg blocks on it
     os.mkfifo(fifo)
     t0 = time.monotonic()
     with pytest.raises(AssertionError, match="still running"):
-        chip_smoke.scale_child("blocked encode", ["encode", fifo, tmp_path / "b.starch"], time.monotonic() + 60, 2)
+        chip_smoke.scale_child("blocked encode", ["encode", fifo, tmp_path / "b.starch"], time.monotonic() + 60, 2,
+                               forker)
     assert time.monotonic() - t0 < 30
     r = subprocess.run(["pgrep", "-f", str(fifo)], capture_output=True)
     assert r.stdout == b""
+
+
+def test_forked_leg_past_its_limit_is_killed_with_its_children(tmp_path, forker):
+    """A forked ``pipe`` leg (``cat IN | cli --jax``, real processes of
+    its group) blocked on a pipe nobody writes: at its limit the leg, the
+    ``cat`` and the CLI are killed, and the server forks the next leg."""
+    import time
+
+    from starch3_tpu_torch import leg_fork
+
+    fifo = tmp_path / "never-piped.bed"
+    os.mkfifo(fifo)
+    with pytest.raises(leg_fork.LegTimeout, match="still running after 3 s"):
+        forker.run(["pipe", fifo, tmp_path / "p.starch", "--device", "cpu"], 3)
+    deadline = time.monotonic() + 10  # the kill is sent; the kernel ends them
+    while subprocess.run(["pgrep", "-f", str(fifo)], capture_output=True).stdout and time.monotonic() < deadline:
+        time.sleep(0.1)
+    assert subprocess.run(["pgrep", "-f", str(fifo)], capture_output=True).stdout == b""
+    run = forker.run(["gen", tmp_path / "c.bed", 1000, "--n-per", 500], 60)
+    assert run.returncode == 0 and json.loads(run.stdout.decode().splitlines()[-1])["bytes"] > 1000
+    assert forker.wait_ready()["import_s"] > 0
+
+
+def test_forked_leg_keeps_its_exit_and_error(tmp_path, forker):
+    """A forked leg has its own exit code and standard error: ``encode
+    --mode`` without ``--jax`` is refused by argparse (exit 2); a leg whose
+    input is missing fails with its traceback (exit 1)."""
+    run = forker.run(["encode", tmp_path / "x.bed", tmp_path / "x.starch", "--mode", "ranks"], 60)
+    assert run.returncode == 2 and b"give --jax" in run.stderr and run.stdout == b""
+    run = forker.run(["encode", tmp_path / "missing.bed", tmp_path / "x.starch"], 60)
+    assert run.returncode == 1 and b"FileNotFoundError" in run.stderr
+
+
+def test_fork_server_refuses_to_fork_once_cuda_is_initialised(monkeypatch):
+    """The server checks before each fork that it has not initialised
+    CUDA, whose context a forked child could not use: with
+    ``torch.cuda.is_initialized`` patched to True it raises and never
+    forks."""
+    import torch
+
+    from starch3_tpu_torch import leg_fork
+
+    def no_fork():
+        raise AssertionError("forked")
+
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
+    monkeypatch.setattr(os, "fork", no_fork)
+    with pytest.raises(RuntimeError, match="CUDA is initialised in the fork server"):
+        leg_fork.fork_leg({"id": 0, "args": ["gen"], "stdout": "o", "stderr": "e"}, 1, 1 << 20)
+
+
+@pytest.mark.parametrize("extra", ["python thread", "native thread"])
+def test_fork_server_refuses_to_fork_beside_a_thread(monkeypatch, extra):
+    """The server forks only on its one thread and the threads its imports
+    left: with a Python thread running, or with one thread more than
+    ``max_threads`` in the process, it raises and never forks."""
+    import threading
+
+    from starch3_tpu_torch import leg_fork
+
+    def no_fork():
+        raise AssertionError("forked")
+
+    monkeypatch.setattr(os, "fork", no_fork)
+    req = {"id": 0, "args": ["gen"], "stdout": "o", "stderr": "e"}
+    if extra == "native thread":
+        monkeypatch.setattr(threading, "active_count", lambda: 1)
+        with pytest.raises(RuntimeError, match="its imports left"):
+            leg_fork.fork_leg(req, 1, leg_fork.thread_count() - 1)
+        return
+    stop = threading.Event()
+    t = threading.Thread(target=stop.wait)
+    t.start()
+    try:
+        with pytest.raises(RuntimeError, match=r"\([2-9]\d* of Python\)"):
+            leg_fork.fork_leg(req, 1, 1 << 20)
+    finally:
+        stop.set()
+        t.join()
+
+
+def test_fork_server_reports_its_threads_and_forks_on_them(tmp_path, forker):
+    """The server's first reply counts the threads its imports left, and
+    it forks legs beside them (NumPy's OpenBLAS pool stops itself before a
+    fork): two legs in a row both run."""
+    assert forker.wait_ready()["threads"] >= 1
+    for name in ("a", "b"):
+        run = forker.run(["gen", tmp_path / f"{name}.bed", 1000, "--n-per", 500], 60)
+        assert run.returncode == 0, run.stderr.decode()[-2000:]
+
+
+def test_leg_times_split_the_start():
+    from starch3_tpu_torch import leg_fork
+
+    res = {"timing": {"main_at": 105.0, "imports_s": 2.5, "cuda_init_s": 1.25, "work_s": 30.0}}
+    assert leg_fork.leg_times(res, 100.0) == {"start_s": 7.5, "cuda_init_s": 1.25, "work_s": 30.0}
 
 
 def test_archive_streams_end_is_the_metadata_offset(small):
@@ -758,3 +869,104 @@ def test_decode_leg_gives_back_the_corpus_as_the_jax_package(small, tmp_path):
               "--device", "cpu"])
     assert r.returncode == 1
     assert json.loads(r.stdout.decode().splitlines()[-1])["faults"][0].startswith("the output")
+
+
+def _multihost_res(**change) -> dict:
+    hosts = [{"exit": 0, "killed": False, "stderr_tail": "", "wrote_bytes": 9 if i == 0 else 0, "faults": [],
+              "scheduler_stats": {"abandoned_batches": 0}} for i in range(2)]
+    res = {"transport": "gloo", "archive_digest": "d", "archive_bytes": 9, "ref_digest": "d", "ref_bytes": 9,
+           "host_lines": hosts}
+    res.update(change)
+    return res
+
+
+@pytest.mark.parametrize("change, fault", [
+    (lambda r: r.update(archive_digest="e"), "multihost gloo host 0: archive e of 9 bytes != REF's d of 9"),
+    (lambda r: r["host_lines"][1].update(wrote_bytes=4), "multihost gloo host 1 wrote 4 bytes, where only host 0"),
+    (lambda r: r["host_lines"][0].update(exit=1, stderr_tail="Traceback"), "multihost gloo host 0: exit 1: Traceback"),
+    (lambda r: r["host_lines"][1].update(exit=-9, killed=True), "multihost gloo host 1: exit -9 (killed at its limit)"),
+    (lambda r: r["host_lines"][1]["scheduler_stats"].update(abandoned_batches=2),
+     "multihost gloo host 1: 2 abandoned batches"),
+    (lambda r: r["host_lines"][0].update(faults=["host 0: fast: MTF launches by width"]),
+     "multihost gloo host 0: fast: MTF launches by width"),
+], ids=["archive", "host1_wrote", "exit", "killed", "abandoned", "launches"])
+def test_multihost_faults_name_the_transport_and_the_host(change, fault):
+    res = _multihost_res()
+    assert scale_run.multihost_faults(res) == []
+    change(res)
+    faults = scale_run.multihost_faults(res)
+    assert len(faults) == 1 and faults[0].startswith(fault), faults
+
+
+@pytest.mark.parametrize("mem_gb, free_gb, target, cut_by", [
+    (400, 100, 10_000_000_000, None), (96, 100, 4_925_294_117, "memory"), (400, 10, 5_457_241_379, "disk")])
+def test_config5_target_takes_what_memory_and_disk_hold(mem_gb, free_gb, target, cut_by):
+    """Two hosts of 6.8 GB a GB of BED above a 4.5 GB start within 80% of
+    the memory, and the corpus with three archives of 0.15 of it within
+    80% of the disk, less one whole chromosome's 60 MB."""
+    room = scale_run.config5_target(10_000_000_000, mem_gb * 10**9, free_gb * 10**9, 6800.0, 4500.0, 0.15)
+    assert room["cut_by"] == cut_by
+    assert room["target"] == pytest.approx(target, abs=2)
+    assert room["target"] <= 10_000_000_000
+
+
+def test_native_runtime_loads_once_for_threads_that_ask_together(monkeypatch):
+    """``runtime.get_lib`` asked by 8 threads at once while the library
+    loads (as the device leg's transform pool does): every thread gets the
+    library, none the None of fallback mode, and it loads once.  Before,
+    ``_tried`` was set before the load, so a thread that came meanwhile
+    took None."""
+    import threading
+    import time
+
+    from starch3_tpu_torch import runtime
+
+    loaded = (runtime.get_lib(), runtime._gil_lib, runtime.lib_path)
+    assert loaded[0] is not None
+    calls = []
+
+    def slow_load():
+        calls.append(1)
+        time.sleep(0.3)
+        return loaded
+
+    monkeypatch.setattr(runtime, "_lib", None)
+    monkeypatch.setattr(runtime, "_tried", False)
+    monkeypatch.setattr(runtime, "_load", slow_load)
+    start, got = threading.Barrier(8), []
+
+    def ask():
+        start.wait()
+        got.append(runtime.get_lib())
+
+    threads = [threading.Thread(target=ask) for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=30)
+    assert not any(t.is_alive() for t in threads)
+    assert got == [loaded[0]] * 8 and calls == [1]
+
+
+def test_device_leg_texts_file_is_written_then_read(small, tmp_path):
+    """``device --texts FILE``: the first leg transforms the corpus and
+    writes its texts there, a second leg (another mode, untraced) reads
+    them back; both hold every stream to the host archive's, and the
+    file holds the corpus's chromosomes and the native transform's texts."""
+    from starch3_tpu_torch.runtime import bed_transform_native
+
+    d, _gen, _ = small
+    texts = tmp_path / "in.texts"
+    written = []
+    for extra in ([], ["--mode", "rle2", "--untraced"]):
+        r = _run(["-m", "starch3_tpu_torch.scale_run", "device", d / "in.bed", d / "host.starch", tmp_path / "trace",
+                  tmp_path / "mismatch", "--device", "cpu", "--level", 1, "--texts", texts, *extra],
+                 env=dict(os.environ, STARCH3_TPU_NO_HOST_FALLBACK="1"))
+        assert r.returncode == 0, r.stderr.decode()[-2000:]
+        res = json.loads(r.stdout.decode().splitlines()[-1])
+        assert res["faults"] == [] and res["streams"] == 3 and res["blocks"] == 6
+        written.append((texts.stat().st_ino, texts.stat().st_mtime_ns))
+    assert written[0] == written[1], "the second leg wrote the file again"
+    chroms, got = scale_run.read_texts(str(texts))
+    want = bed_transform_native((d / "in.bed").read_bytes())
+    assert chroms == [g[0] for g in want] and [bytes(t) for t in got] == [bytes(g[1]) for g in want]
