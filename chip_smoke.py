@@ -196,10 +196,11 @@ streams and archives.  It exits 0 only if every phase passes:
      ``corpus.config3_scale_bed`` (bits 5) at 1.1e9 bytes of BED and its
      5.5e8-byte prefix, ``bits6_scale_bed`` (bits 6) at 2.75e8 and
      ``wide8_scale_bed`` (bits 8) at 2.75e8.  Each runs (a), (b) (config3
-     on its half corpus too), (d), (e) and, on config3, (f), with the
+     on its half corpus too), (d) (not on config3: cut for the run's
+     time, ``ScaleTier.device_only``), (e) and, on config3, (f), with the
      gates of phase 13 (``scale_faults``), but no pipe leg, and a
-     demotion of the hybrid fails a tier only where (d)'s MB/s of text is
-     at least (a)'s.  Each tier prints its MB/s of BED and of text,
+     demotion of the hybrid fails a tier only where (d) ran and its MB/s
+     of text is at least (a)'s.  Each tier prints its MB/s of BED and of text,
      device blocks of all blocks, blocks, batches, tie re-encodes, graph
      captures and replays and class skips per class, the busy share and
      the memory peaks, beside the card's name and power limit.
@@ -227,13 +228,28 @@ streams and archives.  It exits 0 only if every phase passes:
      class, bytes read back a block and memory peaks; the decode its MB/s
      beside (e)'s native decode, the host's ms a block of its walk,
      ``rle1_decode`` and CRCs, and its peak RSS a GB of BED.
+  16. BASELINE config 4 at its own shape, in the same phase (a tier of
+     ``SCALE_RUNS`` as phase 14's are): ``corpus.config4_scale_bed``,
+     variant BED whose indels were left-normalised with no re-sort after,
+     so the starts go back and the transform writes negative deltas, cut
+     to whole chromosomes to 1.2e9 bytes (chr1-chr9, the fewest whose (d)
+     traces 50 batches), with (a), (b), (d) and (e) and phase 14's gates;
+     (d) must count starts going back in every chromosome (the native
+     transform's unsorted branch), and (e) gives the corpus back.  The
+     transform's seconds a GB of (a) and (d) are printed beside bed3's.
+     Before the scale phases, BASELINE config 1 (``phase_config1``):
+     ``corpus.chr21_bed()``, one block, encoded by the CLI with ``--jax``
+     in a process started anew and by the host path, byte for byte, and
+     device only in a forked leg, its key's warm-up, capture and a replay,
+     each equal to ``bz2.compress(text, 9)``, with each one's start, CUDA
+     initialisation and encode seconds.
 
 The port imports nothing of JAX and nothing of the JAX package
 ``starch3_tpu``; the run fails if either is loaded.  The line before the
 card's name is one JSON object describing each kernel of the path (the
 narrow wrapper's two kernels apart, each with the launches it counted);
 the wide kernel's entry counts its launches by width too, phases 10,
-12, 14 and 15 included; the last line
+12, 14 and 15 included (and the narrow kernel's, phase 16's); the last line
 is ``{"ok": true, "device": {...}}``.  Without
 a card, or without the rest of the repository, it fails before printing
 any result.
@@ -258,7 +274,7 @@ import typing
 import numpy as np
 import torch
 
-from starch3_tpu_torch import api, corpus, leg_fork, runtime, scale_run
+from starch3_tpu_torch import api, cli, corpus, leg_fork, runtime, scale_run
 from starch3_tpu_torch._build import BUILD_DIR, build
 from starch3_tpu_torch.bed.parser import parse_bed
 from starch3_tpu_torch.codec.crc32 import crc32_bytes
@@ -274,6 +290,7 @@ from starch3_tpu_torch.profile_kernels import (
     real_batch,
     real_mtf_input,
 )
+from starch3_tpu_torch.scale_run import hybrid_faults, memory_growth, streams_are_a_prefix
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 BUCKETS = (901_120, 458_752)
@@ -1270,6 +1287,109 @@ def phase_two_processes(device, bed: bytes, smi: str, timeout_s: float = 300.0) 
                 f"starts included ({len(bed) / dt / 1e6:.3f} MB/s of BED); on {smi}")
 
 
+def config1_faults(legs: dict, device: str = "cuda") -> list[str]:
+    """Phase 16's gates on BASELINE config 1's legs: (i) the archive of
+    the CLI's ``--jax`` encode, a process started anew, equals the host
+    path's from the same CLI, decodes back to the corpus, and its encode
+    abandoned no batch and launched its MTF kernel once per device batch;
+    (ii) in every device-only run of the block (at least its warm-up, its
+    capture and a replay) the stream equals ``bz2.compress(text, 9)`` and
+    the one block ran on the card in one batch of bits 4, with one launch
+    of K1 at width 16 (none on the CPU, where the wrapper runs its plain
+    version)."""
+    cli, one = legs["cli"], legs["oneblock"]
+    faults = []
+    if cli["archive_digest"] != legs["host"]["archive_digest"]:
+        faults.append(f"(i) the CLI's --jax archive {cli['archive_digest']} != the host path's "
+                      f"{legs['host']['archive_digest']}")
+    if (legs["decode"]["digest"], legs["decode"]["bytes"]) != (legs["corpus"]["digest"], legs["corpus"]["bytes"]):
+        faults.append(f"(i) the archive decodes to {legs['decode']['digest']} of {legs['decode']['bytes']} bytes, "
+                      f"not the corpus's {legs['corpus']['digest']} of {legs['corpus']['bytes']}")
+    if cli["scheduler_stats"]["abandoned_batches"]:
+        faults.append(f"(i) abandoned batches: {cli['scheduler_stats']}")
+    faults += [f"(i) {f}" for f in scale_run.launch_faults(cli, device)]
+    if len(one["runs"]) < 3:
+        faults.append(f"(ii) {len(one['runs'])} device-only runs, not the warm-up, the capture and a replay")
+    for k, run in enumerate(one["runs"]):
+        st = run["device_stats"]
+        if not run["equal"]:
+            faults.append(f"(ii) run {k}: the stream != bz2.compress(text, 9)")
+        got = (run["blocks"], st.get("blocks_bits4", 0), st.get("batches", 0), run["width_launches"]["16"])
+        if got != (1, 1, 1, int(device.startswith("cuda"))):
+            faults.append(f"(ii) run {k}: blocks, blocks on the card at bits 4, batches and K1 w16 launches {got}, "
+                          f"not one each on {device}")
+    return [f"config1 {f}" for f in faults]
+
+
+def phase_config1(smi: str, forker, device: str = "cuda", timeout_s: float = 120.0) -> int:
+    """Phase 16, BASELINE config 1: ``corpus.chr21_bed()`` (one chromosome
+    of 100,000 intervals, one block at level 9) encoded as a user's one
+    command.  The host path is the CLI's ``main`` without ``--jax``, in
+    this process; (i) ``python -m starch3_tpu_torch.cli --jax
+    --platform=cuda --output=F chr21.bed`` in a process started anew, as
+    ``scale_run host`` runs the CLI's ``main`` with that argv, timed by
+    stage (its start, imports, CUDA's initialisation, the file entry and
+    its feed's transform), and ``decompress_starch_file`` of its archive;
+    (ii) ``scale_run oneblock`` forked under
+    ``STARCH3_TPU_NO_HOST_FALLBACK=1``: the block device only, three times
+    in one process (its key's warm-up, its graph capture, a replay), each
+    timed.  Gates: ``config1_faults``.  Returns K1's width-16 launches of
+    both.  ``device="cpu"`` runs it on the CPU, as the tests do."""
+    bed = corpus.chr21_bed()
+    legs = {"corpus": {"digest": hashlib.sha256(bed).hexdigest(), "bytes": len(bed)}}
+    with tempfile.TemporaryDirectory(prefix="s3t-config1-") as d:
+        src, host_out, jax_out = (os.path.join(d, n) for n in ("chr21.bed", "host.starch", "jax.starch"))
+        with open(src, "wb") as f:
+            f.write(bed)
+        t0 = time.perf_counter()
+        rc = cli.main([f"--output={host_out}", src])
+        legs["host"] = {"exit": rc, "seconds": time.perf_counter() - t0, "archive_digest": scale_run.file_digest(
+            host_out)}
+        if rc:
+            raise AssertionError(f"config1: the host path's CLI exited {rc}")
+        try:
+            run = leg_fork.spawn(["host", "--", "--jax", f"--platform={device}", f"--output={jax_out}", src],
+                                 timeout_s)
+        except leg_fork.LegTimeout as e:
+            raise AssertionError(f"config1 (i): {e}") from None
+        lines = run.stdout.decode().splitlines()
+        if run.returncode != 0:
+            raise AssertionError(f"config1 (i): exit {run.returncode}: {lines[-1:]} {run.stderr.decode()[-3000:]}")
+        legs["cli"] = one_cli = json.loads(lines[-1])
+        one_cli.pop("memory_series", None)
+        one_cli.update(times=leg_fork.leg_times(one_cli, run.launched_at),
+                       archive_digest=scale_run.file_digest(jax_out), archive_blocks=scale_run.archive_blocks(jax_out))
+        sink = scale_run._Hasher()
+        api.decompress_starch_file(jax_out, sink)
+        legs["decode"] = {"digest": sink.h.hexdigest(), "bytes": sink.n}
+        legs["oneblock"] = scale_child("config1 (ii) device only, one block", ["oneblock", src, "--device", device],
+                                       time.monotonic() + timeout_s, timeout_s, forker,
+                                       {"STARCH3_TPU_NO_HOST_FALLBACK": "1"})
+    faults = config1_faults(legs, device)
+    c, one = legs["cli"], legs["oneblock"]
+    t, st = c["times"], c["device_stats"]
+    log(f"config1 (i) python -m starch3_tpu_torch.cli --jax chr21.bed, {len(bed)} bytes of BED, "
+        f"{c['archive_blocks']} block ({one['text_bytes']} bytes of text), in a process started anew: start "
+        f"{t['start_s']:.3f} s (imports {c['timing']['imports_s']:.3f} s), CUDA init {t['cuda_init_s']:.3f} s, the "
+        f"CLI's work {t['work_s']:.3f} s (file entry {c['stage_seconds']['file_entry']:.3f} s, its feed's "
+        f"transform {c['stage_seconds']['feed_transform']:.3f} s); blocks on the card {st.get('blocks', 0)} in "
+        f"{st.get('batches', 0)} batches, graph captures {st.get('graph_captures', 0)}, MTF launches by width "
+        f"{c['width_launches']}; archive == the host path's ({legs['host']['seconds']:.3f} s in this process): "
+        f"{c['archive_digest'] == legs['host']['archive_digest']}; decode == the corpus: "
+        f"{legs['decode']['digest'] == legs['corpus']['digest']}; on {smi}")
+    t = one["times"]
+    runs = "; ".join(
+        f"{label} {r['seconds']:.4f} s (captures {r['device_stats'].get('graph_captures', 0)}, replays "
+        f"{r['device_stats'].get('graph_replays', 0)}, == bz2.compress(text, 9): {r['equal']})"
+        for label, r in zip(("warm-up", "capture", *["replay"] * (len(one["runs"]) - 2)), one["runs"]))
+    log(f"config1 (ii) device only, forked: start {t['start_s']:.3f} s (imports {one['timing']['imports_s']:.3f} s), "
+        f"CUDA init {t['cuda_init_s']:.3f} s, the block's encodes: {runs}; K1 w16 launches "
+        f"{[r['width_launches']['16'] for r in one['runs']]}; on {smi}")
+    if faults:
+        raise AssertionError("; ".join(faults))
+    return c["width_launches"]["16"] + sum(r["width_launches"]["16"] for r in one["runs"])
+
+
 def host_median_ms(fn, reps: int) -> float:
     """Median host-clock time of ``fn`` on the CPU, after one warm-up."""
     fn()
@@ -1399,11 +1519,14 @@ class ScaleTier(typing.NamedTuple):
     modes: tuple[ModeRun, ...] = ()  # phase 15: its other modes, each with (d) device only, untraced
     decode: int = 0  # phase 15 (g): it decodes an archive of (a)'s first ``decode`` streams on the card, 0: none
     multihost: tuple[str, ...] = ()  # (h) BASELINE config 5: the transports of its two-host encodes on the card
+    unsorted: bool = False  # BASELINE config 4: (d) must find every chromosome's starts going back
+    device_only: bool = True  # whether it runs fast mode's (d); config3's is cut for the run's time (PERF.md §4)
 
 
 # the tiers at scale by ``corpus.SCALE_SHAPES``' shape: phase 13's bits 4
 # (``TestGigabyteScale``'s bytes) and phase 14's BED6 tiers, bits 5, 6 and
-# 8, cut to chip_smoke's time (PERF.md §4); each half corpus runs past the
+# 8, and BASELINE config 4 (variant BED whose starts go back, bits 4), cut
+# to chip_smoke's time (PERF.md §4); each half corpus runs past the
 # point where the encode's memory levels off; bits6 and wide8 hold 3
 # chromosomes each, the fewest whose (d) traces 50 batches.  Phase 15
 # runs the other modes on bits 4 (``fast_huff`` half and whole, for its
@@ -1415,10 +1538,11 @@ SCALE_RUNS = {
     "bed3": ScaleTier(1_100_000_000, 550_000_000, pipe=True, keep_card=True, modes=(
         ModeRun("fast_huff", ("half", "whole")), ModeRun("ranks", ()), ModeRun("rle2", ())),
         multihost=("gloo", "manifest")),
-    "config3": ScaleTier(1_100_000_000, 550_000_000, pipe=False, keep_card=False),
+    "config3": ScaleTier(1_100_000_000, 550_000_000, pipe=False, keep_card=False, device_only=False),
     "bits6": ScaleTier(275_000_000, None, pipe=False, keep_card=False),
     "wide8": ScaleTier(275_000_000, None, pipe=False, keep_card=False, modes=(ModeRun("fast_huff", ()),),
                        decode=1),
+    "config4": ScaleTier(1_200_000_000, None, pipe=False, keep_card=False, unsorted=True),
 }
 SCALE_ARCHIVE_ROOM = 1_350_000_000  # one tier's archives and texts beside its phase's corpora, with room to spare
 
@@ -1448,55 +1572,6 @@ def scale_child(label: str, args, deadline: float, limit_s: float, forker, env=N
     return res
 
 
-def archive_streams_end(path: str) -> int:
-    """The archive's metadata offset: its streams are the bytes before it."""
-    with open(path, "rb") as f:
-        f.seek(-128, os.SEEK_END)
-        return int(f.read(20))
-
-
-def streams_are_a_prefix(half_path: str, whole_path: str) -> bool:
-    """Whether the half corpus's archive holds the whole one's first streams."""
-    end = archive_streams_end(half_path)
-    with open(whole_path, "rb") as fw, open(half_path, "rb") as fh:
-        return fh.read(end) == fw.read(end)
-
-
-def memory_growth(half: dict, whole: dict) -> tuple[float, float]:
-    """From the half corpus's encode to the whole one's: the growth of the
-    encode's own peak RSS (above the RSS its leg had before it, about 4.5
-    GB of ``import torch`` on the card's host) and of
-    ``max_memory_reserved``; phase 13 (f) bounds them at x1.15 and x1.10."""
-    own = (whole["peak_rss_mb"] - whole["rss_start_mb"]) / (half["peak_rss_mb"] - half["rss_start_mb"])
-    return own, whole["max_memory_reserved"] / half["max_memory_reserved"]
-
-
-def _hybrid_faults(pre: str, hybrids: dict, a: dict, dv: dict, host_text: float, keep_card: bool) -> list[str]:
-    """The gates of one mode's hybrids, ``b_half`` and ``b`` where it runs
-    them: the whole archive equals (a)'s, the half archive's streams are
-    (a)'s first (``prefix_of_a``), no batch abandoned, no demotion where
-    ``keep_card`` (the card alone, (d), against the host's ``host_text``
-    MB/s of text), and from half to whole the memory bounds of (f)."""
-    faults = []
-    if "b" in hybrids and hybrids["b"]["archive_digest"] != a["archive_digest"]:
-        faults.append(f"{pre}(b) archive {hybrids['b']['archive_digest']} != host path's {a['archive_digest']}")
-    if "b_half" in hybrids and not hybrids["b_half"]["prefix_of_a"]:
-        faults.append(f"{pre}(b) the half archive's streams are not the host archive's first streams")
-    for label, key in (("(b) half", "b_half"), ("(b)", "b")):
-        sched = hybrids[key]["scheduler_stats"] if key in hybrids else {}
-        if sched.get("abandoned_batches"):
-            faults.append(f"{pre}{label} abandoned batches: {sched}")
-        if keep_card and sched.get("demotions"):
-            faults.append(f"{pre}{label} benched the device, which alone encodes {dv['mb_per_s_text']:.3f} MB/s "
-                          f"of text against the host's {host_text:.3f}: {sched}")
-    if "b_half" in hybrids and "b" in hybrids:
-        rss, reserved = memory_growth(hybrids["b_half"], hybrids["b"])
-        if rss > 1.15 or reserved > 1.10:
-            faults.append(f"{pre}(f) memory grew with the corpus: the encode's peak RSS above its start "
-                          f"x{rss:.4f} (bound 1.15), max_memory_reserved x{reserved:.4f} (bound 1.10)")
-    return faults
-
-
 def scale_faults(shape: str, legs: dict) -> list[str]:
     """The gates of phases 13 to 15 on one tier's legs: ``gen`` (the
     corpus) and ``a``; in fast mode ``b`` and ``d``, and ``b_half`` and
@@ -1506,10 +1581,13 @@ def scale_faults(shape: str, legs: dict) -> list[str]:
     (``multihost_faults``).  Every hybrid's
     archive equals (a)'s, a half archive's streams are (a)'s first, no
     hybrid abandons a batch, and from a mode's half run to its whole one
-    the memory bounds of (f) (``_hybrid_faults``); (c)'s archive equals
+    the memory bounds of (f) (``hybrid_faults``); (c)'s archive equals
     (a)'s, (e) decodes to the corpus, fast mode's (d) holds at least 50
     batches in its traced window; (g) gives back the corpus's first
-    chromosomes and decodes every block of their archive on the card.  A hybrid must not bench a
+    chromosomes and decodes every block of their archive on the card; on
+    a tier of unsorted input (config 4, ``ScaleTier.unsorted``) every
+    chromosome's starts go back in (d)'s count, so that (e)'s decode
+    shows the negative deltas restored.  A hybrid must not bench a
     card that beats the host cores: in fast mode where the tier says so
     (``ScaleTier.keep_card``) or (d) encodes at least (a)'s MB/s of text;
     in another mode where its (d) encodes at least the host cores' MB/s
@@ -1521,21 +1599,26 @@ def scale_faults(shape: str, legs: dict) -> list[str]:
     full, a = legs["gen"], legs["a"]
     faults = []
     if "b" in legs:  # fast mode, phases 13 and 14
-        b, dv = legs["b"], legs["d"]
-        host_text = dv["text_bytes"] / a["seconds"] / 1e6
-        keep = SCALE_RUNS[shape].keep_card or dv["mb_per_s_text"] >= host_text
-        faults += _hybrid_faults("", legs, a, dv, host_text, keep)
+        b, dv = legs["b"], legs.get("d")
+        host_text = a["text_bytes"] / a["seconds"] / 1e6
+        card_text = dv and dv["mb_per_s_text"]
+        keep = SCALE_RUNS[shape].keep_card or (dv is not None and card_text >= host_text)
+        faults += hybrid_faults("", legs, a, card_text, host_text, keep)
         if "c" in legs and legs["c"]["archive_digest"] != a["archive_digest"]:
             faults.append(f"(c) archive {legs['c']['archive_digest']} != host path's {a['archive_digest']}")
         if b["decode"]["digest"] != full["digest"] or b["decode"]["bytes"] != full["bytes"]:
             faults.append(f"(e) decode {b['decode']} != the corpus {full['digest']} {full['bytes']}")
-        batches = dv["traced"]["trace"].get("batches") or 0
+        batches = dv["traced"]["trace"].get("batches") or 0 if dv else 50
         if batches < 50:
             faults.append(f"(d) the traced window holds {batches} batches, fewer than 50")
+        back = (dv or {}).get("starts_back") or {}
+        if SCALE_RUNS[shape].unsorted and not (back.get("of") and back.get("chroms") == back["of"]):
+            faults.append(f"(d) the starts go back in {back.get('chroms')} chromosomes of {back.get('of')}, not "
+                          "in every one: the transform's unsorted branch is not what the tier runs")
     for mode, run in legs.get("modes", {}).items():  # phase 15
         if "b" in run or "b_half" in run:
-            dv, host_text = run["d"], run["d"]["host"]["mb_per_s_text"]
-            faults += _hybrid_faults(f"{mode} ", run, a, dv, host_text, dv["mb_per_s_text"] >= host_text)
+            card_text, host_text = run["d"]["mb_per_s_text"], run["d"]["host"]["mb_per_s_text"]
+            faults += hybrid_faults(f"{mode} ", run, a, card_text, host_text, card_text >= host_text)
     for transport, h in legs.get("h", {}).items():  # BASELINE config 5
         faults += multihost_faults(transport, h, a)
     if "g" in legs:  # held to the corpus's first chromosomes, which the leg reads
@@ -1608,7 +1691,7 @@ def phase_scale(smi: str, deadlines: dict, fast: bool = True, forker=None) -> di
     ready = forker.wait_ready()
     log(f"scale: fork server ready, imports {ready['import_s']:.3f} s, {ready['threads']} threads after them")
     torch.cuda.empty_cache()
-    launches = {}
+    launches, transforms = {}, {}
     no_fallback = {"STARCH3_TPU_NO_HOST_FALLBACK": "1"}
     faults = []
     with tempfile.TemporaryDirectory(prefix="s3t-scale-") as d:
@@ -1650,9 +1733,10 @@ def phase_scale(smi: str, deadlines: dict, fast: bool = True, forker=None) -> di
                                             forker)
                 # (d) device only, every stream against (a)'s; it leaves its
                 # texts to the tier's phase-15 (d) legs
-                legs["d"] = scale_child(f"{shape} (d) device only", ["device", bed, arc["a"], os.path.join(
-                    d, f"trace-{shape}"), BUILD_DIR, "--shape", shape, *texts], deadline, 300, forker,
-                    no_fallback)
+                if tier.device_only:
+                    legs["d"] = scale_child(f"{shape} (d) device only", ["device", bed, arc["a"], os.path.join(
+                        d, f"trace-{shape}"), BUILD_DIR, "--shape", shape, *texts], deadline, 300, forker,
+                        no_fallback)
                 # (h) BASELINE config 5: two host processes of the CLI, started
                 # anew as a user starts them, on the one card
                 for transport in tier.multihost:
@@ -1681,9 +1765,14 @@ def phase_scale(smi: str, deadlines: dict, fast: bool = True, forker=None) -> di
             faults += scale_faults(shape, legs)
             launches[shape] = tier_launches(legs)
             log_scale(shape, smi, legs)
+            if "d" in legs:
+                transforms[shape] = (legs["a"]["transform_seconds"], legs["d"]["transform_seconds"],
+                                     legs["gen"]["bytes"] / 1e9)
             for path in [p for k, (p, _) in jobs.items() if k[0] == shape] + list(arc.values()) + texts[1:]:
                 if os.path.exists(path):
                     os.remove(path)
+    if transforms:
+        log_transforms(smi, transforms)
     if faults:
         raise AssertionError("scale: " + "; ".join(faults))
     return launches
@@ -1787,22 +1876,44 @@ def log_multihost(shape: str, transport: str, smi: str, h: dict, legs: dict) -> 
 
 def log_fast(shape: str, smi: str, legs: dict) -> None:
     """Fast mode's figures, phases 13 and 14."""
-    full, a, b, dv = legs["gen"], legs["a"], legs["b"], legs["d"]
-    bh, text, trace = legs.get("b_half"), dv["text_bytes"], dv["traced"]["trace"]
+    full, a, b, dv = legs["gen"], legs["a"], legs["b"], legs.get("d")
+    bh, text = legs.get("b_half"), a["text_bytes"]
     _log_hybrids(shape, "fast", smi, legs)
     pipe = f"(c) cat | cli --jax {legs['c']['mb_per_s_bed']:.3f} MB/s of BED; " if "c" in legs else ""
+    device = "(d) not run (PERF.md §4)"
+    if dv:
+        trace = dv["traced"]["trace"]
+        device = (
+            f"(d) device only, timed {dv['mb_per_s_text']:.3f} MB/s of text ({dv['blocks']} blocks, "
+            f"{dv['device_stats'].get('batches', 0)} batches in {dv['seconds']:.3f} s, per class "
+            f"{_classes_run(dv['per_class'])}), busy share {dv['busy_share_derived']} derived for it; traced run "
+            f"{dv['traced']['mb_per_s_text']:.3f} MB/s of text, busy share {trace.get('busy_share')} over "
+            f"{trace.get('batches')} steady batches ({trace.get('batches_per_s')} batches/s, "
+            f"{trace.get('device_ms_per_batch')} device ms a batch); max_memory_reserved "
+            f"{dv['max_memory_reserved']}, page-locked bytes {dv.get('pinned_bytes')}, its transform on every core "
+            f"{dv['transform_seconds']:.3f} s, chromosomes whose starts go back {_starts_back(dv)}")
     log(f"scale {shape} summary, {full['bytes']} bytes of BED, {text} of text ({full['seconds']:.3f} s to "
         f"generate): (a) host {a['mb_per_s_bed']:.3f} MB/s of BED ({text / a['seconds'] / 1e6:.3f} of text), "
         f"transform {a['transform_seconds']:.3f} s; (b) hybrid {b['mb_per_s_bed']:.3f} MB/s of BED "
         f"({text / b['seconds'] / 1e6:.3f} of text), blocks on the device {b['device_stats'].get('blocks', 0)} of "
-        f"{b['blocks']}; {pipe}(d) device only, timed {dv['mb_per_s_text']:.3f} MB/s of text ({dv['blocks']} "
-        f"blocks, {dv['device_stats'].get('batches', 0)} batches in {dv['seconds']:.3f} s, per class "
-        f"{_classes_run(dv['per_class'])}), busy share {dv['busy_share_derived']} derived for it; traced run "
-        f"{dv['traced']['mb_per_s_text']:.3f} MB/s of text, busy share {trace.get('busy_share')} over "
-        f"{trace.get('batches')} steady batches ({trace.get('batches_per_s')} batches/s, "
-        f"{trace.get('device_ms_per_batch')} device ms a batch); (e) decode {b['decode']['mb_per_s_bed']:.3f} MB/s "
-        f"of BED; {_memory_line(bh, b)}; device only: max_memory_reserved {dv['max_memory_reserved']}, page-locked "
-        f"bytes {dv.get('pinned_bytes')}; on {smi}")
+        f"{b['blocks']}; {pipe}(e) decode {b['decode']['mb_per_s_bed']:.3f} MB/s of BED; {_memory_line(bh, b)}; "
+        f"{device}; on {smi}")
+
+
+def _starts_back(dv: dict) -> str:
+    back = dv.get("starts_back")
+    if not back:
+        return "not counted"
+    return f"{back['chroms']} of {back['of']} ({back['chroms'] / back['of']:.3f}; {back['lines']} lines)"
+
+
+def log_transforms(smi: str, seen: dict) -> None:
+    """The transform's seconds of each tier's (a) (the feed, one thread)
+    and (d) (each chromosome once, every core), a GB of BED: config 4's
+    unsorted starts beside bed3's sorted ones."""
+    per_gb = {shape: f"(a) {a / gb:.3f} s, (d) {d / gb:.3f} s a GB of BED ({gb:.3f} GB)"
+              for shape, (a, d, gb) in seen.items()}
+    log(f"scale transform seconds: {'; '.join(f'{k} {v}' for k, v in per_gb.items())}; on {smi}")
 
 
 def card_name() -> str:
@@ -1915,22 +2026,26 @@ def main() -> int:
     launches["mtf_narrow"] += helpers["narrow"]
     launches["mtf_wide"] += helpers["wide"]
     wide_by_width[256] += helpers["wide"]
-    # phases 13, (h) and 15 on bits 4, then 14 and 15 on the BED6 tiers,
-    # every corpus written at once; each tier's phase-15 legs (the other
-    # modes, device decode) have a deadline of their own.  On an H100
-    # phases 1-12 took 347-466 s, the legs of bits 4 about 200 and 320 s
-    # more, those of the BED6 tiers about 240 and 290 s more again
-    # (PERF.md §5; the slowest run, before the cuts of §4).  Each deadline
-    # is 70-100 s past where that run reached it, and the last ends the
-    # phase by 1,150 s, inside the 1,200 s.
+    # phase 16's config 1, then phases 13, (h) and 15 on bits 4, config 4,
+    # then 14 and 15 on the BED6 tiers, every corpus written at once; each
+    # tier's phase-15 legs (the other modes, device decode) have a
+    # deadline of their own.  On an H100 phases 1-12 took 347-466 s,
+    # config 1 about 10 s, the legs of bits 4 about 235 s more, config 4's
+    # about 70 and the BED6 tiers' about 215 with config3's (d) cut
+    # (PERF.md §5).  Each deadline leaves room for a machine 30% slower,
+    # and the last ends the phase by 1,160 s, inside the 1,200 s.
     with forker:
-        by_tier = phase_scale(smi, {"bed3": (t_start + 760, t_start + 880), "config3": (t_start + 1100,) * 2,
-                                    "bits6": (t_start + 1100,) * 2, "wide8": (t_start + 1100, t_start + 1150)},
+        launches["mtf_narrow"] += phase_config1(smi, forker)
+        by_tier = phase_scale(smi, {"bed3": (t_start + 790, t_start + 910), "config4": (t_start + 1000,) * 2,
+                                    "config3": (t_start + 1120,) * 2, "bits6": (t_start + 1120,) * 2,
+                                    "wide8": (t_start + 1120, t_start + 1160)},
                               forker=forker)
-    bits4 = by_tier["bed3"]
+    bits4 = {w: by_tier["bed3"][w] + by_tier["config4"][w] for w in by_tier["bed3"]}
     bed6 = {w: sum(by_tier[t][w] for t in ("config3", "bits6", "wide8")) for w in bits4}
-    if not (all(bits4[w] for w in ("16", "128", "256")) and all(bed6[w] for w in ("32", "64", "256"))):
-        raise AssertionError(f"scale: an MTF width of a tier or mode did not launch: bits 4 {bits4}, BED6 {bed6}")
+    if not (all(bits4[w] for w in ("16", "128", "256")) and all(bed6[w] for w in ("32", "64", "256"))
+            and by_tier["config4"]["16"]):
+        raise AssertionError(f"scale: an MTF width of a tier or mode did not launch: bits 4 {bits4}, BED6 {bed6}, "
+                             f"config4 {by_tier['config4']}")
     scale = {w: bits4[w] + bed6[w] for w in bits4}
     launches["mtf_narrow"] += scale["16"]
     launches["mtf_narrow_windowed"] += scale["32"] + scale["64"]

@@ -185,19 +185,22 @@ def _strands(st: np.ndarray):
     return np.where(st, 43, 45).astype(np.uint8)[:, None], np.ones((st.size, 1), bool)
 
 
-def _write_chromosomes(path, target: int, chromosome) -> tuple[str, int]:
-    """Write ``chr1``, ``chr2``, ... to ``path`` until at least ``target``
-    bytes are written, each chromosome's lines the ``bytes`` chunks of
-    ``chromosome(name)``; returns the SHA-256 hex digest and byte count."""
+def _write_chromosomes(path, target: int, chromosome, names=None) -> tuple[str, int]:
+    """Write the chromosomes ``names`` (``chr1``, ``chr2``, ... without
+    end by default) to ``path`` until at least ``target`` bytes are
+    written or the names run out, each chromosome's lines the ``bytes``
+    chunks of ``chromosome(name)``; returns the SHA-256 hex digest and
+    byte count."""
     import hashlib
+    import itertools
 
     digest = hashlib.sha256()
     written = 0
-    c = 0
     with open(path, "wb") as f:
-        while written < target:
-            c += 1
-            for chunk in chromosome(f"chr{c}".encode()):
+        for name in names or (f"chr{c}" for c in itertools.count(1)):
+            if written >= target:
+                break
+            for chunk in chromosome(name.encode()):
                 f.write(chunk)
                 digest.update(chunk)
                 written += len(chunk)
@@ -306,8 +309,69 @@ def wide8_scale_bed(path, target: int, seed: int = 17, n_per: int = 2_000_000) -
     return _bed6_scale(path, target, seed, n_per, remainder)
 
 
-# the scale corpora by shape, each ``(path, target, seed=..., n_per=...)``
-# -> (SHA-256 hex digest, bytes), and the tier of every block of each
+# GRCh38's primary assembly, chr1..chr22, chrX and chrY: their lengths
+# (UCSC ``hg38.chrom.sizes``; NCBI GCA_000001405.15) and their sum
+GRCH38_LENGTHS = {
+    "chr1": 248_956_422, "chr2": 242_193_529, "chr3": 198_295_559, "chr4": 190_214_555,
+    "chr5": 181_538_259, "chr6": 170_805_979, "chr7": 159_345_973, "chr8": 145_138_636,
+    "chr9": 138_394_717, "chr10": 133_797_422, "chr11": 135_086_622, "chr12": 133_275_309,
+    "chr13": 114_364_328, "chr14": 107_043_718, "chr15": 101_991_189, "chr16": 90_338_345,
+    "chr17": 83_257_441, "chr18": 80_373_285, "chr19": 58_617_616, "chr20": 64_444_167,
+    "chr21": 46_709_983, "chr22": 50_818_468, "chrX": 156_040_895, "chrY": 57_227_415,
+}
+GRCH38_TOTAL = 3_088_269_832
+
+
+def config4_scale_bed(path, target: int, seed: int = 19, n_total: int = 100_000_000) -> tuple[str, int]:
+    """BASELINE config 4, "Large unsorted-input stress: 100M-interval WGS
+    variant BED", in chunks: 3-column BED of ``chr1``..``chr22``, ``chrX``,
+    ``chrY`` (``GRCH38_LENGTHS``' order), ``round(n_total * length /
+    GRCH38_TOTAL)`` intervals each, whole chromosomes until at least
+    ``target`` bytes or the last one.  A smaller ``target`` gives a prefix
+    of a larger one.
+
+    For each run of up to ``_LINES`` lines of a chromosome,
+    ``np.random.default_rng(seed)`` draws the site gaps (1..60, after
+    10,000 and the run before), then which lines are indels (1 in 10),
+    their lengths (2..50) and their shifts (1..100), each for every line
+    of the run.  A site is an SNV, ``stop = start + 1``, or an indel of
+    its length whose start and stop move left by its shift: indels left
+    normalised with no re-sort after (``bcftools norm``'s realignment
+    moves records out of order; its ``--site-win`` re-sort is not done),
+    so the starts go back and the transform's deltas are negative."""
+    gen = np.random.default_rng(seed)
+
+    def chromosome(name):
+        n = round(n_total * GRCH38_LENGTHS[name.decode()] / GRCH38_TOTAL)
+        last = 10_000
+        for lo in range(0, n, _LINES):
+            m = min(_LINES, n - lo)
+            sites = last + np.cumsum(gen.integers(1, 61, m))
+            last = int(sites[-1])
+            indel = gen.integers(0, 10, m) == 0
+            lens, shifts = gen.integers(2, 51, m), gen.integers(1, 101, m)
+            starts = np.where(indel, sites - shifts, sites)
+            stops = starts + np.where(indel, lens, 1)
+            yield _tab_rows([_const(m, name), _decimal_columns(starts), _decimal_columns(stops)])
+
+    return _write_chromosomes(path, target, chromosome, GRCH38_LENGTHS)
+
+
+def chr21_bed(n_intervals: int = 100_000, seed: int = 21) -> bytes:
+    """BASELINE config 1, "Single-chromosome sorted BED (chr21, ~100K
+    intervals, 3-column)": the bytes of ``make_chr21_bed`` in the
+    repository's ``bench.py`` (gaps 1..899 after 5,010,000, lengths
+    20..399).  Its transformed text is one block at level 9."""
+    rng = np.random.default_rng(seed)
+    starts = 5_010_000 + np.cumsum(rng.integers(1, 900, n_intervals))
+    stops = starts + rng.integers(20, 400, n_intervals)
+    return b"\n".join(b"chr21\t%d\t%d" % (s, e) for s, e in zip(starts.tolist(), stops.tolist())) + b"\n"
+
+
+# the scale corpora by shape, each ``(path, target, seed=..., <size>=...)``
+# -> (SHA-256 hex digest, bytes), where the size is ``n_per``, the
+# intervals a chromosome, or for config4 ``n_total``, the intervals of
+# all its chromosomes; and the tier of every block of each
 SCALE_SHAPES = {"bed3": gigabyte_bed, "config3": config3_scale_bed, "bits6": bits6_scale_bed,
-                "wide8": wide8_scale_bed}
-SCALE_TIERS = {"bed3": 4, "config3": 5, "bits6": 6, "wide8": 8}
+                "wide8": wide8_scale_bed, "config4": config4_scale_bed}
+SCALE_TIERS = {"bed3": 4, "config3": 5, "bits6": 6, "wide8": 8, "config4": 4}

@@ -233,6 +233,7 @@ class LegForker:
         self.proc = subprocess.Popen([sys.executable, "-m", "starch3_tpu_torch.leg_fork"], cwd=root,
                                      stdin=subprocess.PIPE, stdout=subprocess.PIPE, start_new_session=True)
         self._lock = threading.Lock()
+        self._ready_lock = threading.Lock()  # one waiter takes the server's one "ready" line
         self._queues: dict = {}
         self._ids = itertools.count()
         self._dir = tempfile.TemporaryDirectory(prefix="s3t-legs-")
@@ -260,11 +261,12 @@ class LegForker:
         return msg
 
     def wait_ready(self) -> dict:
-        if self.ready is None:
-            try:
-                self.ready = self._get(self._queue("ready"), READY_S)
-            except queue.Empty:
-                raise RuntimeError(f"the fork server was not ready after {READY_S:.0f} s") from None
+        with self._ready_lock:
+            if self.ready is None:
+                try:
+                    self.ready = self._get(self._queue("ready"), READY_S)
+                except queue.Empty:
+                    raise RuntimeError(f"the fork server was not ready after {READY_S:.0f} s") from None
         return self.ready
 
     def run(self, args, timeout_s: float, env=None) -> LegResult:

@@ -1,10 +1,12 @@
 """The port at the scale its users run: one leg of a streaming encode or
-decode of a scale corpus (``corpus.SCALE_SHAPES``: 3-column BED, and the
-BED6 shapes of the bits 5, 6 and 8 tiers) per process, for
-``chip_smoke.py`` phases 13 to 15 and ``tests/test_torch_scale.py``, and
-BASELINE config 5, one multi-host encode in several processes.
+decode of a scale corpus (``corpus.SCALE_SHAPES``: 3-column BED, the BED6
+shapes of the bits 5, 6 and 8 tiers, and BASELINE config 4's variant BED)
+per process, for ``chip_smoke.py`` phases 13 to 16 and
+``tests/test_torch_scale.py``; BASELINE config 5, one multi-host encode in
+several processes; config 4 at its stated scale; and config 1's one block
+device only.
 
-    python -m starch3_tpu_torch.scale_run gen OUT TARGET [--shape S] [--n-per N]
+    python -m starch3_tpu_torch.scale_run gen OUT TARGET [--shape S] [--n-per N | --n-total N]
     python -m starch3_tpu_torch.scale_run encode IN OUT [--jax [--mode M] [--warm-up]] [--decode]
     python -m starch3_tpu_torch.scale_run pipe IN OUT
     python -m starch3_tpu_torch.scale_run device IN REF TRACE_DIR MISMATCH_DIR [--shape S] [--mode M]
@@ -13,10 +15,12 @@ BASELINE config 5, one multi-host encode in several processes.
     python -m starch3_tpu_torch.scale_run multihost IN REF --transport {gloo,manifest} [--device D] [--host-limit-s S]
     python -m starch3_tpu_torch.scale_run host -- CLI_ARGS
     python -m starch3_tpu_torch.scale_run config5 DIR [--target BYTES]
+    python -m starch3_tpu_torch.scale_run config4 DIR [--target BYTES] [--n-total N] [--device D]
+    python -m starch3_tpu_torch.scale_run oneblock IN [--device D]
 
 ``gen`` writes the corpus of shape S (``bed3``, the default, is
 ``corpus.gigabyte_bed``; ``config3``, ``bits6`` and ``wide8`` the BED6
-tiers).  ``encode`` is ``api.compress_bed_file`` with
+tiers; ``config4`` ``corpus.config4_scale_bed``, sized by ``--n-total``).  ``encode`` is ``api.compress_bed_file`` with
 ``EncodeConfig()`` (the host path) or, with ``--jax``, the device path
 beside the host stealers on ``--device``, in the encode mode M
 (``MODES``: ``fast``, the default, ``fast_huff``, ``ranks`` or
@@ -33,7 +37,8 @@ them), feeds the texts in order to
 stream to the stream of the same chromosome in the archive REF, in mode
 M, twice: first under ``observability.device_trace`` into TRACE_DIR,
 where it reads the card's busy share, then timed (``--untraced``: the
-timed run alone); every block must be of the tier of shape S.  With
+timed run alone); every block must be of the tier of shape S, and it
+counts each chromosome's lines whose start goes back (``starts_back``).  With
 ``--host-rate`` the host cores then encode the same texts, without the
 feed (``host_run``).  A stream that differs leaves its text and its
 first differing block in MISMATCH_DIR, with that block's MTF input and
@@ -49,11 +54,18 @@ with a user's argv, ``--jax --platform=D --num-hosts=2 --host-id=I`` over a
 gloo process group on a free localhost port or a manifest directory:
 host 0's archive must be REF's bytes and the others write nothing
 (``multihost_faults``).  ``host`` runs ``cli.main(CLI_ARGS)`` timed
-around its stages (``HOST_STAGES``) and prints its counters.
+around its stages (``HOST_STAGES``; ``ONE_HOST_STAGES`` without
+``--num-hosts``) and prints its counters.
 ``config5`` is BASELINE config 5 at its stated scale: it checks the room
 (memory and disk, ``config5_target``, with a host's memory as
 ``multihost`` measured it), then runs ``gen``, the host
 path's ``encode`` and ``multihost --transport manifest`` in DIR.
+``config4`` is BASELINE config 4 at its stated 100M intervals: it checks
+the room (``config4_target``), then runs in DIR ``gen``, (a), (b) on a
+1.1e9-byte prefix and on the whole with (e), (d), and (a) and (d) on
+``gigabyte_bed``'s sorted bytes of the same size (``leg_config4``).
+``oneblock`` is BASELINE config 1's one block device only, three times
+in one process: its key's warm-up, its graph capture and a replay.
 
 Each leg prints one JSON line, its last: its seconds (``timing``: when
 ``main`` began, the seconds of its imports, of CUDA's initialisation on
@@ -110,8 +122,8 @@ class _Hasher:
         return len(b)
 
 
-def archive_blocks(path: str) -> int:
-    """The blocks of an archive's streams, read from its metadata alone."""
+def archive_metadata(path: str):
+    """An archive's metadata, read from its end alone."""
     from starch3_tpu_torch.format.archive import FOOTER_LEN
     from starch3_tpu_torch.format.metadata import ArchiveMetadata
 
@@ -120,8 +132,26 @@ def archive_blocks(path: str) -> int:
         end = f.tell()
         offset = int(f.read(20))
         f.seek(offset)
-        meta = ArchiveMetadata.from_json_bytes(f.read(end - offset))
-    return sum(len(s.block_bit_offsets) for s in meta.streams)
+        return ArchiveMetadata.from_json_bytes(f.read(end - offset))
+
+
+def archive_blocks(path: str) -> int:
+    """The blocks of an archive's streams, read from its metadata alone."""
+    return sum(len(s.block_bit_offsets) for s in archive_metadata(path).streams)
+
+
+def archive_streams_end(path: str) -> int:
+    """The archive's metadata offset: its streams are the bytes before it."""
+    with open(path, "rb") as f:
+        f.seek(-128, os.SEEK_END)
+        return int(f.read(20))
+
+
+def streams_are_a_prefix(half_path: str, whole_path: str) -> bool:
+    """Whether the half corpus's archive holds the whole one's first streams."""
+    end = archive_streams_end(half_path)
+    with open(whole_path, "rb") as fw, open(half_path, "rb") as fh:
+        return fh.read(end) == fw.read(end)
 
 
 @contextlib.contextmanager
@@ -348,9 +378,51 @@ def _memory(device: str, peak: PeakRss) -> dict:
     return out
 
 
+def memory_growth(half: dict, whole: dict) -> tuple[float, float]:
+    """From the half corpus's encode to the whole one's: the growth of the
+    encode's own peak RSS (above the RSS its leg had before it, about 4.5
+    GB of ``import torch`` on the card's host) and of
+    ``max_memory_reserved`` (None on the CPU, which has no caching
+    allocator); phase 13 (f) bounds them at x1.15 and x1.10."""
+    own = (whole["peak_rss_mb"] - whole["rss_start_mb"]) / (half["peak_rss_mb"] - half["rss_start_mb"])
+    if "max_memory_reserved" not in whole:
+        return own, None
+    return own, whole["max_memory_reserved"] / half["max_memory_reserved"]
+
+
+def hybrid_faults(pre: str, hybrids: dict, a: dict, card_text: float | None, host_text: float,
+                  keep_card: bool, memory: bool = True) -> list[str]:
+    """The gates of one mode's hybrids, ``b_half`` and ``b`` where it runs
+    them: the whole archive equals (a)'s, the half archive's streams are
+    (a)'s first (``prefix_of_a``), no batch abandoned, no demotion where
+    ``keep_card`` (the card alone, (d), at ``card_text`` MB/s of text where
+    it ran, against the host's ``host_text``), and with ``memory``, from
+    half to whole, the memory bounds of (f)."""
+    faults = []
+    if "b" in hybrids and hybrids["b"]["archive_digest"] != a["archive_digest"]:
+        faults.append(f"{pre}(b) archive {hybrids['b']['archive_digest']} != host path's {a['archive_digest']}")
+    if "b_half" in hybrids and not hybrids["b_half"]["prefix_of_a"]:
+        faults.append(f"{pre}(b) the half archive's streams are not the host archive's first streams")
+    for label, key in (("(b) half", "b_half"), ("(b)", "b")):
+        sched = hybrids[key]["scheduler_stats"] if key in hybrids else {}
+        if sched.get("abandoned_batches"):
+            faults.append(f"{pre}{label} abandoned batches: {sched}")
+        if keep_card and sched.get("demotions"):
+            alone = "not run" if card_text is None else f"{card_text:.3f}"
+            faults.append(f"{pre}{label} benched the device, which alone encodes {alone} MB/s of text against "
+                          f"the host's {host_text:.3f}: {sched}")
+    if memory and "b_half" in hybrids and "b" in hybrids:
+        rss, reserved = memory_growth(hybrids["b_half"], hybrids["b"])
+        if rss > 1.15 or (reserved or 0) > 1.10:
+            faults.append(f"{pre}(f) memory grew with the corpus: the encode's peak RSS above its start "
+                          f"x{rss:.4f} (bound 1.15), max_memory_reserved x{reserved or 0:.4f} (bound 1.10)")
+    return faults
+
+
 def leg_gen(args, peak: PeakRss) -> dict:
+    size = {k: v for k, v in (("n_per", args.n_per), ("n_total", args.n_total)) if v is not None}
     t0 = time.perf_counter()
-    digest, n = SCALE_SHAPES[args.shape](args.out, args.target, n_per=args.n_per)
+    digest, n = SCALE_SHAPES[args.shape](args.out, args.target, **size)
     return {"leg": "gen", "shape": args.shape, "tier": SCALE_TIERS[args.shape], "digest": digest,
             "bytes": n, "seconds": time.perf_counter() - t0}
 
@@ -393,12 +465,14 @@ def leg_encode(args, peak: PeakRss) -> dict:
     with open(args.out, "wb") as fh, timed_calls(runtime, "bed_transform_native") as spent:
         api.compress_bed_file(args.inp, fh, cfg, chunk_bytes=args.chunk_bytes, device=args.device)
     dt = time.perf_counter() - t0
+    streams = archive_metadata(args.out).streams
+    text = sum(s.uncompressed_size for s in streams)
     res = {
         "leg": "encode", "jax": args.jax, "mode": args.mode, "device": args.device if args.jax else None,
-        "bytes_in": n_in, "seconds": dt, "mb_per_s_bed": n_in / dt / 1e6,
-        "transform_seconds": spent["bed_transform_native"],
+        "bytes_in": n_in, "seconds": dt, "mb_per_s_bed": n_in / dt / 1e6, "text_bytes": text,
+        "mb_per_s_text": text / dt / 1e6, "transform_seconds": spent["bed_transform_native"],
         "archive_digest": file_digest(args.out), "archive_bytes": os.path.getsize(args.out),
-        "blocks": archive_blocks(args.out), "rss_start_mb": rss0, "warm_up": warm,
+        "blocks": sum(len(s.block_bit_offsets) for s in streams), "rss_start_mb": rss0, "warm_up": warm,
     }
     res.update(_memory(args.device if args.jax else "cpu", peak))
     res.update(_counters())
@@ -453,34 +527,51 @@ def iter_chromosome_raw(fh, chunk_bytes: int = 64 << 20):
     """Each chromosome of sorted BED from ``fh`` as ``(name, raw lines)``,
     split at the lines where the first column changes: independent of
     ``api.compress_bed_stream``'s carry.  The last line may lack its
-    newline."""
+    newline.  A chunk's lines are views of it until a chromosome's are
+    joined: one copy of each byte."""
     name, parts, partial = None, [], b""
     while True:
         chunk = fh.read(chunk_bytes)
         buf = partial + chunk
         cut = buf.rfind(b"\n") + 1 if chunk else len(buf)
-        buf, partial = buf[:cut], buf[cut:]
-        if buf:
-            ends = np.flatnonzero(np.frombuffer(buf, dtype=np.uint8) == 10) + 1
-            starts = [0] + ends[ends < len(buf)].tolist()
+        view, partial = memoryview(buf)[:cut], buf[cut:]
+        if cut:
+            ends = np.flatnonzero(np.frombuffer(buf, dtype=np.uint8, count=cut) == 10) + 1
+            starts = np.concatenate(([0], ends[ends < cut]))
             i = 0
-            while i < len(starts):
-                nm = _line_name(buf, starts[i])
+            while i < starts.size:
+                nm = _line_name(buf, int(starts[i]))
                 # chromosomes are contiguous: the lines of nm end at the
                 # first later line of another name
-                j = bisect.bisect_left(range(len(starts)), True, lo=i,
-                                       key=lambda k: _line_name(buf, starts[k]) != nm)
-                stop = starts[j] if j < len(starts) else len(buf)
+                j = bisect.bisect_left(range(starts.size), True, lo=i,
+                                       key=lambda k: _line_name(buf, int(starts[k])) != nm)
+                stop = int(starts[j]) if j < starts.size else cut
                 if nm != name:
                     if name is not None:
                         yield name.decode(), b"".join(parts)
                     name, parts = nm, []
-                parts.append(buf[starts[i] : stop])
+                parts.append(view[int(starts[i]) : stop])
                 i = j
         if not chunk:
             break
     if name is not None:
         yield name.decode(), b"".join(parts)
+
+
+def starts_back(raw) -> int:
+    """The lines of one chromosome's BED whose start is below the start of
+    the line before it.  Where this is not 0 the native transform takes
+    its unsorted branch: ``close_chrom`` parses the chromosome's lines
+    again and sorts them by start for its union length."""
+    from starch3_tpu_torch.runtime import parse_ints_native
+
+    arr = np.frombuffer(raw, dtype=np.uint8)
+    heads = np.concatenate(([0], np.flatnonzero(arr == 10) + 1))
+    heads = heads[heads < arr.size]
+    tabs = np.flatnonzero(arr == 9)
+    first = np.searchsorted(tabs, heads)  # each line's first tab
+    starts = parse_ints_native(arr, tabs[first] + 1, tabs[first + 1])
+    return int(np.count_nonzero(starts[1:] < starts[:-1]))
 
 
 def first_differing_block(got: bytes, got_offs, want: bytes, want_offs) -> int:
@@ -686,26 +777,29 @@ def leg_device(args, peak: PeakRss) -> dict:
     with open(args.ref, "rb") as f:
         want = list(StarchReader.from_bytes(f.read()).iter_streams())
 
-    def transform() -> tuple[list, list, float]:
+    def transform() -> tuple[list, list, list | None, float]:
         """Every chromosome's text, made on every core (the native transform
-        leaves the GIL), or read from ``args.texts`` where an earlier leg
-        wrote them, and the seconds it took."""
+        leaves the GIL), with the lines whose start goes back in each
+        (``starts_back``, counted beside it); or the texts alone, read from
+        ``args.texts`` where an earlier leg wrote them; and the seconds
+        it took."""
         t0 = time.perf_counter()
         if args.texts and os.path.exists(args.texts):
-            return (*read_texts(args.texts), time.perf_counter() - t0)
+            return (*read_texts(args.texts), None, time.perf_counter() - t0)
         chroms, texts = [], []
         with open(args.inp, "rb") as f, concurrent.futures.ThreadPoolExecutor(os.cpu_count()) as pool:
-            jobs = [(chrom, pool.submit(bed_transform_native, raw))
+            jobs = [(chrom, pool.submit(bed_transform_native, raw), pool.submit(starts_back, raw))
                     for chrom, raw in iter_chromosome_raw(f, args.chunk_bytes)]
-            for chrom, job in jobs:
+            for chrom, job, _ in jobs:
                 groups = job.result()
                 if groups is None or len(groups) != 1:
                     raise SystemExit(f"{chrom}: the native transform gave {groups and len(groups)} groups")
                 chroms.append(chrom)
                 texts.append(groups[0][1])
+            back = [b.result() for _, _, b in jobs]
         if args.texts:
             write_texts(args.texts, chroms, texts)
-        return chroms, texts, time.perf_counter() - t0
+        return chroms, texts, back, time.perf_counter() - t0
 
     # every text is made before the encodes, whose rate is the device
     # path's, while the profiler starts
@@ -716,13 +810,15 @@ def leg_device(args, peak: PeakRss) -> dict:
             t0 = time.perf_counter()
             with device_trace(args.trace_dir, args.device):
                 trace_start_s = time.perf_counter() - t0  # the profiler's own start
-                chroms, texts, transform_s = made.result()
+                chroms, texts, _, _ = made.result()
                 traced = _device_run(texts, chroms, want, args)
             traced["trace_start_seconds"] = trace_start_s
             traced["trace"] = gpu_busy_share(os.path.join(args.trace_dir, sorted(os.listdir(args.trace_dir))[0]))
-        chroms, texts, transform_s = made.result()
+        chroms, texts, back, transform_s = made.result()
     res = {"leg": "device", "device": args.device, "streams": len(texts), "ref_streams": len(want),
-           "text_bytes": sum(map(len, texts)), "transform_seconds": transform_s}
+           "text_bytes": sum(map(len, texts)), "transform_seconds": transform_s,
+           # the chromosomes whose starts go back (the transform's unsorted branch) and their lines that do
+           "starts_back": back and {"chroms": sum(map(bool, back)), "of": len(back), "lines": sum(back)}}
     if traced is not None:
         res["traced"] = traced
     res.update(_device_run(texts, chroms, want, args))
@@ -849,6 +945,11 @@ HOST_STAGES = {
     "encode": ("starch3_tpu_torch.parallel.pipeline", ("encode_streams",)),
     "gather": ("starch3_tpu_torch.parallel.distributed", ("gather_results_dist", "gather_results_manifest")),
 }
+# the one-host entry's: the file entry, and its feed's native transform within it
+ONE_HOST_STAGES = {
+    "file_entry": ("starch3_tpu_torch.api", ("compress_bed_file",)),
+    "feed_transform": ("starch3_tpu_torch.runtime", ("bed_transform_native",)),
+}
 
 
 def leg_host(args, peak: PeakRss) -> dict:
@@ -858,7 +959,9 @@ def leg_host(args, peak: PeakRss) -> dict:
     calls (``HOST_STAGES``), then the counters its encode left.  Its share's
     chromosomes are the transform's calls, its streams and blocks what
     ``encode_streams`` returned; its own peak RSS is above the RSS before
-    the entry, also per GB of the BED it read (each host reads it whole)."""
+    the entry, also per GB of the BED it read (each host reads it whole).
+    Without ``--num-hosts`` it is the one-host CLI (BASELINE config 1's
+    command), timed around ``ONE_HOST_STAGES``."""
     from starch3_tpu_torch import cli
     from starch3_tpu_torch.parallel import pipeline
 
@@ -871,13 +974,15 @@ def leg_host(args, peak: PeakRss) -> dict:
     t0 = time.perf_counter()
     with contextlib.ExitStack() as stack:
         share = stack.enter_context(counted_streams(pipeline))
+        stages = HOST_STAGES if (opts["num_hosts"] or 0) > 1 else ONE_HOST_STAGES
         spent = {stage: [stack.enter_context(timed_calls(importlib.import_module(m), *names)), names]
-                 for stage, (m, names) in HOST_STAGES.items()}
+                 for stage, (m, names) in stages.items()}
         rc = cli.main(args.cli)
     dt = time.perf_counter() - t0
     res = {
         "leg": "host", "host_id": host_id, "device": device, "cli_exit": rc, "bytes_in": n_in, "seconds": dt,
-        "mb_per_s_bed": n_in / dt / 1e6, "chromosomes": spent["transform"][0]["transform_chrom_calls"],
+        "mb_per_s_bed": n_in / dt / 1e6,
+        "chromosomes": spent["transform"][0]["transform_chrom_calls"] if "transform" in spent else None,
         "streams": share["streams"], "blocks": share["blocks"], "rss_start_mb": rss0,
         "stage_seconds": {stage: sum(d[n] for n in names) for stage, (d, names) in spent.items()},
         "output_bytes": os.path.getsize(opts["output"]) if opts["output"] and os.path.exists(opts["output"]) else 0,
@@ -892,6 +997,53 @@ def leg_host(args, peak: PeakRss) -> dict:
         faults += launch_faults(res, device, mode)
     res["faults"] = [f"host {host_id}: {f}" for f in faults]
     return res
+
+
+ONEBLOCK_RUNS = 3  # the block's encodes in one process: its key's warm-up, capture and a replay
+
+
+def leg_oneblock(args, peak: PeakRss) -> dict:
+    """BASELINE config 1's one block on the card: the input's one
+    chromosome transformed by the native transform, then encoded device
+    only (``encode_streams(host_assist=False)``) ``args.runs`` times in
+    this process (``ONEBLOCK_RUNS``): its batch key's warm-up (eager), its
+    graph capture, then a replay.  Each run is timed, with the counters set to 0 just before it
+    and read just after; each run's stream must equal ``bz2.compress(text,
+    9)``, its one block and batch must be on the device, of bits 4, and its
+    MTF kernel launched once per batch at width 16 on a card
+    (``launch_faults``), with nothing abandoned or benched."""
+    import bz2
+
+    from starch3_tpu_torch.parallel import pipeline
+    from starch3_tpu_torch.runtime import bed_transform_native
+
+    with open(args.inp, "rb") as f:
+        groups = bed_transform_native(f.read())
+    if groups is None or len(groups) != 1:
+        raise SystemExit(f"{args.inp}: the native transform gave {groups and len(groups)} groups, not one")
+    text = groups[0][1]
+    want = bz2.compress(bytes(text), 9)
+    runs, faults = [], []
+    for k in range(ONEBLOCK_RUNS):
+        _zero_counters()
+        t0 = time.perf_counter()
+        enc = pipeline.encode_streams([text], level=9, device=args.device, host_assist=False)[0]
+        run = {"seconds": time.perf_counter() - t0, "equal": enc.data == want,
+               "blocks": len(enc.block_bit_offsets)}
+        run.update(_counters())
+        st, sched = run["device_stats"], run["scheduler_stats"]
+        pre = f"run {k}"
+        if not run["equal"]:
+            faults.append(f"{pre}: the stream != bz2.compress(text, 9)")
+        if (run["blocks"], st.get("blocks_bits4", 0), st.get("batches", 0)) != (1, 1, 1):
+            faults.append(f"{pre}: {run['blocks']} blocks, {st.get('blocks_bits4', 0)} on the device at bits 4 in "
+                          f"{st.get('batches', 0)} batches, not one block in one batch")
+        if sched["abandoned_batches"] or sched["demotions"]:
+            faults.append(f"{pre}: the device-only encode fell back: {sched}")
+        faults += [f"{pre}: {f}" for f in launch_faults(run, args.device)]
+        runs.append(run)
+    return {"leg": "oneblock", "device": args.device, "bed_bytes": os.path.getsize(args.inp),
+            "text_bytes": len(text), "runs": runs, "faults": faults}
 
 
 def free_port() -> int:
@@ -1081,6 +1233,161 @@ def leg_config5(args, peak: PeakRss) -> dict:
     return res
 
 
+CONFIG4_PREFIX = 1_100_000_000  # (b)'s prefix corpus: whole chromosomes to phase 13's 1.1e9 bytes
+CONFIG4_LIMIT_S = 900.0  # each of config 4's legs
+# what config 4's run holds, a byte of BED: the device-only leg holds every
+# chromosome's raw lines while it transforms them, and every text after,
+# beside its start (``CONFIG5_START_MB``); on disk the corpus, its sorted
+# twin and the prefix, and four archives
+CONFIG4_MEM_PER_BYTE = 1.5
+CONFIG4_LARGEST_CHROM = 200_000_000  # chr1's bytes at 100M intervals, at most
+
+
+def config4_target(target: int, mem: int, free: int, margin: float = 0.8) -> dict:
+    """The largest config-4 corpus its run can hold, up to ``target``
+    bytes of BED: the device-only leg's memory (``CONFIG4_MEM_PER_BYTE``
+    above ``CONFIG5_START_MB``) within ``margin`` of ``mem`` bytes
+    available, and the corpus, its sorted twin, the 1.1e9-byte prefix and
+    four archives within ``margin`` of ``free`` bytes of disk.  Less the
+    largest chromosome, since the writer appends whole ones."""
+    by_mem = (margin * mem - CONFIG5_START_MB * 1e6) / CONFIG4_MEM_PER_BYTE
+    by_disk = (margin * free - CONFIG4_PREFIX) / (2 + 4 * CONFIG5_ARCHIVE_RATIO)
+    fit = int(min(by_mem, by_disk)) - CONFIG4_LARGEST_CHROM
+    return {"target": min(target, fit), "asked": target, "by_memory": int(by_mem), "by_disk": int(by_disk),
+            "cut_by": None if fit >= target else ("memory" if by_mem <= by_disk else "disk")}
+
+
+def _leg_summary(line: dict) -> dict:
+    """A config-4 leg's figures: MB/s of BED and of text, device blocks of
+    all blocks, tie re-encodes by class, the transform's seconds, (d)'s
+    busy share, and the starts that go back."""
+    out = {k: line[k] for k in ("seconds", "mb_per_s_bed", "mb_per_s_text", "text_bytes", "blocks",
+                                "transform_seconds", "busy_share_derived", "starts_back", "bytes", "digest")
+           if k in line}
+    st = line.get("device_stats")
+    if st is not None:
+        out["device_blocks"] = st.get("blocks", 0)
+        out["tie_reencodes"] = {c: v["tie_reencodes"] for c, v in line["per_class"].items() if v["blocks"]}
+        out["scheduler_stats"] = line["scheduler_stats"]
+        out["width_launches"] = line["width_launches"]
+    if "traced" in line:
+        out["traced_busy_share"] = line["traced"]["trace"].get("busy_share")
+        out["traced_batches"] = line["traced"]["trace"].get("batches")
+    if "decode" in line:
+        out["decode"] = {k: line["decode"][k] for k in ("seconds", "mb_per_s_bed", "digest", "bytes")}
+    for k in ("max_memory_reserved", "peak_rss_mb", "rss_start_mb"):
+        if k in line:
+            out[k] = line[k]
+    out["times"] = line.get("times")
+    return out
+
+
+def config4_faults(legs: dict) -> list[str]:
+    """Config 4's gates on its legs (each leg's own gates failed it
+    already: streams against (a)'s, tiers, launches by width, fallbacks):
+    the hybrids' (``hybrid_faults``: (b)'s archive equals (a)'s, the
+    prefix's streams are (a)'s first, nothing abandoned, memory from
+    prefix to whole within (f)'s bounds, and no demotion where (d) beats
+    (a)'s MB/s of text); (e) gives back the corpus; some chromosome's
+    starts go back; and on the sorted twin, the same size of
+    ``gigabyte_bed``, (d)'s streams equal its (a)'s.  The memory bounds
+    hold where the prefix is the 1.1e9-byte one, which runs past the
+    point where the encode's memory levels off (phase 13 (f)); a smaller
+    one, as on the CPU, does not, and its growth is only printed."""
+    a, dv, full = legs["a"], legs["d"], legs["gen"]
+    host_text = dv["text_bytes"] / a["seconds"] / 1e6
+    faults = hybrid_faults("", legs, a, dv["mb_per_s_text"], host_text, dv["mb_per_s_text"] >= host_text,
+                           memory=legs["gen_prefix"]["bytes"] >= CONFIG4_PREFIX)
+    dec = legs["b"]["decode"]
+    if (dec["digest"], dec["bytes"]) != (full["digest"], full["bytes"]):
+        faults.append(f"(e) decode {dec['digest']} of {dec['bytes']} bytes != the corpus's {full['digest']} of "
+                      f"{full['bytes']}")
+    if not (dv.get("starts_back") or {}).get("chroms"):
+        faults.append(f"(d) no chromosome's starts go back: {dv.get('starts_back')}")
+    return [f"config4 {f}" for f in faults]
+
+
+def leg_config4(args, peak: PeakRss) -> dict:
+    """BASELINE config 4 at its stated scale, once: the room checked first
+    (``config4_target``: ``MemAvailable`` and the free disk of
+    ``args.dir``), then in child processes forked by a
+    ``leg_fork.LegForker``: ``gen`` of the config-4 corpus at the target
+    that fits and of its prefix, whole chromosomes to 1.1e9 bytes (to half
+    the target where that is less; written together); (a) the host path's
+    archive; (b) the hybrid on the prefix and on the whole corpus, with (e)
+    the decode of the whole one's archive; (d) device only under
+    ``STARCH3_TPU_NO_HOST_FALLBACK=1``, traced then timed.  Then, one leg
+    at a time as before, the sorted twin: ``gen`` of ``gigabyte_bed``'s
+    bytes of the corpus's size, ``args.n_total / 50`` intervals a
+    chromosome (its 2,000,000 at 100M intervals), its (a), and its (d)
+    timed alone.  Every leg's figures (``_leg_summary``) are printed as it
+    ends; the gates are ``config4_faults``.  What it wrote in
+    ``args.dir`` is removed."""
+    from starch3_tpu_torch.leg_fork import LegForker, LegTimeout, leg_times
+
+    os.makedirs(args.dir, exist_ok=True)
+    mem, free = mem_available(), shutil.disk_usage(args.dir).free
+    room = dict(config4_target(args.target, mem, free), mem_available=mem, disk_free=free)
+    print(json.dumps({"room": room}), flush=True)
+    path = {k: os.path.join(args.dir, f"config4-{k}") for k in (
+        "corpus.bed", "prefix.bed", "sorted.bed", "a.starch", "b_half.starch", "b.starch", "sorted-a.starch")}
+    traces = [os.path.join(args.dir, f"config4-trace{i}") for i in range(2)]
+    no_fallback = {"STARCH3_TPU_NO_HOST_FALLBACK": "1"}
+    res = {"leg": "config4", "room": room, "legs": {}, "faults": []}
+    t0 = time.perf_counter()
+
+    def leg(forker, name, argv, env=None) -> dict:
+        run = forker.run(argv, CONFIG4_LIMIT_S, env)
+        lines = run.stdout.decode().splitlines()
+        line = json.loads(lines[-1]) if lines else {}
+        line.pop("memory_series", None)
+        if "timing" in line:
+            line["times"] = leg_times(line, run.launched_at)
+        res["legs"][name] = line
+        print(json.dumps({name: _leg_summary(line)}), flush=True)
+        if run.returncode:
+            raise RuntimeError(f"{name}: exit {run.returncode}: {line.get('faults')} "
+                               f"{run.stderr.decode()[-3000:]}")
+        return line
+
+    try:
+        with LegForker() as forker, concurrent.futures.ThreadPoolExecutor(2) as ex:
+            gens = [ex.submit(leg, forker, name, ["gen", path[f], t, "--shape", "config4", "--n-total",
+                                                  args.n_total])
+                    for name, f, t in (("gen", "corpus.bed", room["target"]),
+                                       ("gen_prefix", "prefix.bed", min(CONFIG4_PREFIX, room["target"] // 2)))]
+            full, _ = (g.result() for g in gens)
+            legs = res["legs"]
+            leg(forker, "a", ["encode", path["corpus.bed"], path["a.starch"]])
+            on = ["--device", args.device]
+            leg(forker, "b_half", ["encode", path["prefix.bed"], path["b_half.starch"], "--jax", *on])
+            legs["b_half"]["prefix_of_a"] = streams_are_a_prefix(path["b_half.starch"], path["a.starch"])
+            leg(forker, "b", ["encode", path["corpus.bed"], path["b.starch"], "--jax", "--decode", *on])
+            leg(forker, "d", ["device", path["corpus.bed"], path["a.starch"], traces[0], args.dir, "--shape",
+                              "config4", *on], no_fallback)
+            leg(forker, "gen_sorted", ["gen", path["sorted.bed"], full["bytes"], "--n-per", args.n_total // 50])
+            leg(forker, "sorted_a", ["encode", path["sorted.bed"], path["sorted-a.starch"]])
+            leg(forker, "sorted_d", ["device", path["sorted.bed"], path["sorted-a.starch"], traces[1], args.dir,
+                                     "--untraced", *on], no_fallback)
+        res["faults"] = config4_faults(res["legs"])
+        res["memory_growth"] = memory_growth(legs["b_half"], legs["b"])
+        # the feed's transform in (a), one thread, and (d)'s, every core: unsorted against sorted bytes
+        res["transform_seconds"] = {k: {"config4": legs[k]["transform_seconds"],
+                                        "sorted": legs[f"sorted_{k}"]["transform_seconds"]} for k in ("a", "d")}
+    except (RuntimeError, LegTimeout) as e:
+        res["faults"] = [f"config4 {e}"]
+    finally:
+        for p in path.values():
+            if os.path.exists(p):
+                os.remove(p)
+        for d in traces:
+            shutil.rmtree(d, ignore_errors=True)
+    res["seconds"] = time.perf_counter() - t0
+    res["summary"] = {name: _leg_summary(line) for name, line in res["legs"].items()}
+    del res["legs"]  # printed as each leg ended
+    return res
+
+
 def _card_of(args) -> str | None:
     """The card this leg's own process uses, if any: it initialises CUDA
     there before its work, so that the leg's times split the start."""
@@ -1090,8 +1397,8 @@ def _card_of(args) -> str | None:
         opts = _parse_args(args.cli)
         device = opts["platform"] if opts["jax"] else None
     else:
-        device = getattr(args, "device", None) if args.leg in ("device", "decode") or getattr(args, "jax", False) \
-            else None
+        device = getattr(args, "device", None) if args.leg in ("device", "decode", "oneblock") \
+            or getattr(args, "jax", False) else None
     return device if device and device.startswith("cuda") else None
 
 
@@ -1113,7 +1420,8 @@ def main(argv=None) -> int:
     g = sub.add_parser("gen")
     g.add_argument("out")
     g.add_argument("target", type=lambda s: int(float(s)))
-    g.add_argument("--n-per", type=int, default=2_000_000)
+    g.add_argument("--n-per", type=int, help="intervals a chromosome (the shape's default without it)")
+    g.add_argument("--n-total", type=int, help="config4: intervals of all its chromosomes (100M without it)")
     g.add_argument("--shape", choices=sorted(SCALE_SHAPES), default="bed3")
     for name in ("encode", "pipe", "device"):
         p = sub.add_parser(name)
@@ -1151,6 +1459,15 @@ def main(argv=None) -> int:
     c5 = sub.add_parser("config5")
     c5.add_argument("dir")
     c5.add_argument("--target", type=lambda s: int(float(s)), default=10_000_000_000)
+    c4 = sub.add_parser("config4")
+    c4.add_argument("dir")
+    c4.add_argument("--target", type=lambda s: int(float(s)), default=10_000_000_000,
+                    help="BED bytes at most (the whole corpus, about 2.1e9, without it)")
+    c4.add_argument("--n-total", type=int, default=100_000_000, help="the corpus's intervals")
+    c4.add_argument("--device", default="cuda")
+    ob = sub.add_parser("oneblock")
+    ob.add_argument("inp")
+    ob.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     if args.leg == "encode" and (args.mode != "fast" or args.warm_up) and not args.jax:
         ap.error("--mode and --warm-up are for the device path: give --jax")
@@ -1167,7 +1484,8 @@ def main(argv=None) -> int:
     out = getattr(args, "out", None)
     peak = PeakRss(progress=lambda: os.path.getsize(out) if out and os.path.exists(out) else 0).start()
     legs = {"gen": leg_gen, "encode": leg_encode, "pipe": leg_pipe, "device": leg_device, "decode": leg_decode,
-            "multihost": leg_multihost, "host": leg_host, "config5": leg_config5}
+            "multihost": leg_multihost, "host": leg_host, "config5": leg_config5, "config4": leg_config4,
+            "oneblock": leg_oneblock}
     try:
         res = legs[args.leg](args, peak)
     finally:

@@ -2,11 +2,19 @@
 the input and both outputs and runs both sides again, so that one failed
 run on the card tells which side was wrong."""
 
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
 import pytest
 import torch
 
 import chip_smoke
-from starch3_tpu_torch import scale_run
+from starch3_tpu_torch import corpus, scale_run
+
+ROOT = Path(__file__).resolve().parent.parent
 from starch3_tpu_torch.ops.mtf_narrow import mtf_ranks_narrow_reference
 
 
@@ -72,7 +80,8 @@ def _scale_legs(shape: str, demotions: int = 0, device_mb_s: float = 100.0, exac
     """One tier's legs as phases 13 to 15 read them: 700 MB of text, the
     host path 10 s (70 MB/s of text), hybrids whose card took 9 batches
     of bits 5, the device-only runs 60 batches each, 55 in the traced
-    window; a half run and a pipe leg where the tier has them; and the
+    window, where the tier runs them; a half run and a pipe leg where the
+    tier has them; and the
     tier's phase-15 legs: each mode's hybrids (as fast mode's) and its
     untraced device-only run at 50 MB/s of text (with the host cores' 140
     MB/s on the same texts where the mode runs a hybrid), and the device
@@ -93,10 +102,12 @@ def _scale_legs(shape: str, demotions: int = 0, device_mb_s: float = 100.0, exac
                   decode={"digest": "c", "bytes": 1_100}, peak_rss_mb=5000.0, rss_start_mb=4500.0,
                   max_memory_reserved=1_000)
     half = dict(hybrid, peak_rss_mb=4990.0, prefix_of_a=True)
-    legs = {"gen": {"digest": "c", "bytes": 1_100}, "a": {"archive_digest": "x", "archive_bytes": 500, "seconds": 10.0},
-            "b": hybrid,
-            "d": dict(counters(60), text_bytes=700_000_000, mb_per_s_text=device_mb_s,
-                      traced=dict(counters(60), trace={"batches": 55}))}
+    legs = {"gen": {"digest": "c", "bytes": 1_100},
+            "a": {"archive_digest": "x", "archive_bytes": 500, "seconds": 10.0, "text_bytes": 700_000_000},
+            "b": hybrid}
+    if tier.device_only:
+        legs["d"] = dict(counters(60), text_bytes=700_000_000, mb_per_s_text=device_mb_s,
+                         traced=dict(counters(60), trace={"batches": 55}))
     if tier.half:
         legs["b_half"] = half
     if tier.pipe:
@@ -119,6 +130,8 @@ def _scale_legs(shape: str, demotions: int = 0, device_mb_s: float = 100.0, exac
                             "width_launches": {"16": 7, "32": 0, "64": 0, "128": 0, "256": 0},
                             "scheduler_stats": {"demotions": 0, "repromotions": 0, "abandoned_batches": 0,
                                                 "class_skips": 0}} for i in range(2)]}
+    if tier.unsorted:  # config 4: every chromosome's starts go back
+        legs["d"]["starts_back"] = {"chroms": 9, "of": 9, "lines": 4_000_000}
     if tier.decode:
         legs["g"] = {"digest": "p", "bytes": 400, "streams": tier.decode, "archive_blocks": 72,
                      "corpus": {"digest": "p", "bytes": 400, "streams": tier.decode},
@@ -133,11 +146,12 @@ def test_scale_gates_pass_a_healthy_tier(shape):
 
 @pytest.mark.parametrize("shape, device_mb_s, fails", [
     ("wide8", 100.0, True), ("wide8", 70.0, True), ("wide8", 69.9, False), ("config3", 69.9, False),
-    ("bed3", 100.0, True), ("bed3", 69.9, True)])
+    ("config3", 100.0, False), ("bed3", 100.0, True), ("bed3", 69.9, True)])
 def test_scale_demotion_fails_where_the_card_must_be_kept(shape, device_mb_s, fails):
     """Gate 6: the host path encodes 70 MB/s of text; a hybrid that benched
     the card fails a BED6 tier when the card alone is at least that fast,
-    and is only printed when it is slower; at bits 4 it always fails."""
+    and is only printed when it is slower or, on config3, whose (d) is
+    cut, not measured; at bits 4 it always fails."""
     faults = chip_smoke.scale_faults(shape, _scale_legs(shape, demotions=1, device_mb_s=device_mb_s))
     assert bool(faults) == fails
     if fails:
@@ -166,7 +180,9 @@ def test_tier_launches_add_the_hybrids_and_both_device_runs():
     """The kernels line's share of a tier: the MTF launches by width of (b)
     half and whole and of (d)'s traced and timed runs, and of each
     phase-15 mode's hybrids and (d)."""
-    legs = _scale_legs("config3")
+    legs = _scale_legs("config3")  # its (d) is cut: the hybrids alone
+    assert chip_smoke.tier_launches(legs) == {"16": 0, "32": 9 + 9, "64": 0, "128": 0, "256": 0}
+    legs["d"] = _scale_legs("bits6")["d"]
     legs["d"]["traced"]["width_launches"] = dict(legs["d"]["traced"]["width_launches"], **{"256": 4})
     assert chip_smoke.tier_launches(legs) == {"16": 0, "32": 9 + 9 + 60 + 60, "64": 0, "128": 0, "256": 4}
     assert chip_smoke.tier_launches(_scale_legs("wide8")) == {"16": 0, "32": 9 + 60 + 60, "64": 0, "128": 0,
@@ -257,3 +273,102 @@ def test_scale_gates_of_multihost(transport, change, fault):
     legs = _scale_legs("bed3")
     _host(legs, transport, 1)["scheduler_stats"].update(demotions=2, class_skips=5)
     assert chip_smoke.scale_faults("bed3", legs) == []
+
+
+def test_scale_runs_hold_config4():
+    """BASELINE config 4 is a tier of the scale phase: whole chromosomes
+    to 1.2e9 bytes (chr1-chr9, the fewest whose (d) traces 50 batches),
+    no half corpus and no pipe, a demotion gated by (d)'s rate as on the
+    BED6 tiers, and its starts that go back counted."""
+    assert chip_smoke.SCALE_RUNS["config4"] == chip_smoke.ScaleTier(
+        1_200_000_000, None, pipe=False, keep_card=False, unsorted=True)
+    assert corpus.SCALE_TIERS["config4"] == 4
+    assert not any(t.unsorted for shape, t in chip_smoke.SCALE_RUNS.items() if shape != "config4")
+
+
+@pytest.mark.parametrize("change, fault", [
+    (lambda l: l["b"].update(archive_digest="y"), "config4 (b) archive y != host path's x"),
+    (lambda l: l["b"].update(decode={"digest": "z", "bytes": 1_100}), "config4 (e) decode {'digest': 'z'"),
+    (lambda l: l["d"]["starts_back"].update(chroms=8),
+     "config4 (d) the starts go back in 8 chromosomes of 9, not in every one"),
+    (lambda l: l["d"].pop("starts_back"), "config4 (d) the starts go back in None chromosomes of None"),
+], ids=["archive", "decode", "some_sorted", "not_counted"])
+def test_scale_gates_of_config4(change, fault):
+    """Config 4's tier: a differing archive or decode, or a chromosome
+    whose starts never go back, fails it with one message."""
+    legs = _scale_legs("config4")
+    assert chip_smoke.scale_faults("config4", legs) == []
+    change(legs)
+    faults = chip_smoke.scale_faults("config4", legs)
+    assert len(faults) == 1 and faults[0].startswith(fault), faults
+
+
+def _config1_legs() -> dict:
+    """Phase 16's legs as ``phase_config1`` reads them on a card: the CLI's
+    --jax encode put its one block on the card, and three device-only
+    runs of the block, warm-up, capture and replay."""
+    def run():
+        return {"equal": True, "blocks": 1, "width_launches": {"16": 1, "32": 0, "64": 0, "128": 0, "256": 0},
+                "device_stats": {"blocks": 1, "blocks_bits4": 1, "batches": 1, "batches_bits4": 1}}
+
+    return {"corpus": {"digest": "c", "bytes": 2_377_972}, "host": {"archive_digest": "x"},
+            "decode": {"digest": "c", "bytes": 2_377_972},
+            "cli": dict(run(), archive_digest="x", scheduler_stats={"abandoned_batches": 0, "demotions": 0}),
+            "oneblock": {"runs": [run() for _ in range(3)]}}
+
+
+@pytest.mark.parametrize("change, fault", [
+    (lambda l: l["cli"].update(archive_digest="y"), "config1 (i) the CLI's --jax archive y != the host path's x"),
+    (lambda l: l["decode"].update(digest="z"), "config1 (i) the archive decodes to z"),
+    (lambda l: l["cli"]["scheduler_stats"].update(abandoned_batches=1), "config1 (i) abandoned batches"),
+    (lambda l: l["cli"]["width_launches"].update({"16": 0}), "config1 (i) fast: MTF launches by width"),
+    (lambda l: l["oneblock"]["runs"][2].update(equal=False),
+     "config1 (ii) run 2: the stream != bz2.compress(text, 9)"),
+    (lambda l: l["oneblock"]["runs"][0]["device_stats"].update(blocks_bits4=0),
+     "config1 (ii) run 0: blocks, blocks on the card at bits 4, batches and K1 w16 launches (1, 0, 1, 1)"),
+    (lambda l: l["oneblock"]["runs"].pop(), "config1 (ii) 2 device-only runs"),
+], ids=["archive", "decode", "abandoned", "launches", "stream", "off_the_card", "runs"])
+def test_config1_gates(change, fault):
+    """Phase 16: a differing archive or decode of the CLI's --jax encode,
+    or a device-only run whose stream differs or whose block was not on
+    the card, fails the phase with one message."""
+    legs = _config1_legs()
+    assert chip_smoke.config1_faults(legs) == []
+    change(legs)
+    faults = chip_smoke.config1_faults(legs)
+    assert len(faults) == 1 and faults[0].startswith(fault), faults
+
+
+def test_phase_config1_on_the_cpu(tmp_path):
+    """Phase 16 run on the CPU: the CLI's --jax encode of chr21 in a
+    process started anew equals the host path's CLI and decodes back, and
+    the forked device-only leg's runs equal ``bz2.compress``; on the CPU
+    no kernel launches."""
+    from starch3_tpu_torch import leg_fork
+
+    with leg_fork.LegForker() as forker:
+        assert chip_smoke.phase_config1("cpu", forker, device="cpu") == 0
+
+
+def test_scale_run_config4_passes_its_gates_on_the_cpu(tmp_path):
+    """``scale_run config4`` at a tiny target on the CPU: 200,000
+    intervals cut to 3e6 bytes, a prefix of half that, its sorted twin; every
+    leg runs, each prints its figures, the gates pass (the memory growth
+    printed, not gated, below the 1.1e9-byte prefix), and it removes what
+    it wrote."""
+    r = subprocess.run([sys.executable, "-m", "starch3_tpu_torch.scale_run", "config4", tmp_path / "c4", "--n-total",
+                        "200000", "--target", "3e6", "--device", "cpu"],
+                       capture_output=True, cwd=ROOT, timeout=300)
+    assert r.returncode == 0, r.stderr.decode()[-3000:]
+    lines = [json.loads(x) for x in r.stdout.decode().splitlines()]
+    res = lines[-1]
+    assert res["faults"] == [] and res["room"]["target"] == 3_000_000
+    printed = [k for x in lines[1:-1] for k in x]
+    assert sorted(printed) == sorted(res["summary"]) == sorted(
+        ["gen", "gen_prefix", "gen_sorted", "a", "b_half", "b", "d", "sorted_a", "sorted_d"])
+    s = res["summary"]
+    assert s["b"]["decode"]["digest"] == s["gen"]["digest"] and s["gen"]["bytes"] >= 3_000_000
+    assert s["d"]["starts_back"]["chroms"] == s["d"]["starts_back"]["of"] > 1
+    assert s["sorted_d"]["starts_back"]["chroms"] == 0
+    assert set(res["transform_seconds"]) == {"a", "d"} and len(res["memory_growth"]) == 2
+    assert os.listdir(tmp_path / "c4") == []

@@ -11,6 +11,7 @@ import hashlib
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -282,6 +283,22 @@ def test_forked_leg_past_its_limit_is_killed_with_its_children(tmp_path, forker)
     assert forker.wait_ready()["import_s"] > 0
 
 
+def test_forked_legs_asked_together_before_the_server_is_ready(tmp_path, monkeypatch):
+    """Two threads ask a new fork server for a leg at once, before its
+    imports are done (``scale_run config4`` writes its corpus and prefix
+    so): both legs run.  Before, the server's one "ready" line went to one
+    waiter and the other waited for it until ``READY_S``."""
+    import concurrent.futures
+
+    from starch3_tpu_torch import leg_fork
+
+    monkeypatch.setattr(leg_fork, "READY_S", 60.0)
+    with leg_fork.LegForker() as fresh, concurrent.futures.ThreadPoolExecutor(2) as ex:
+        runs = list(ex.map(lambda i: fresh.run(["gen", tmp_path / f"c{i}.bed", 1000, "--n-per", 500], 120), (0, 1)))
+    assert [r.returncode for r in runs] == [0, 0]
+    assert (tmp_path / "c0.bed").read_bytes() == (tmp_path / "c1.bed").read_bytes()
+
+
 def test_forked_leg_keeps_its_exit_and_error(tmp_path, forker):
     """A forked leg has its own exit code and standard error: ``encode
     --mode`` without ``--jax`` is refused by argparse (exit 2); a leg whose
@@ -358,12 +375,11 @@ def test_leg_times_split_the_start():
 
 
 def test_archive_streams_end_is_the_metadata_offset(small):
-    import chip_smoke
     from starch3_tpu_torch.format.archive import StarchReader
 
     d, _gen, _ = small
     data = (d / "host.starch").read_bytes()
-    end = chip_smoke.archive_streams_end(str(d / "host.starch"))
+    end = scale_run.archive_streams_end(str(d / "host.starch"))
     streams = StarchReader.from_bytes(data).metadata.streams
     assert end == streams[-1].byte_offset + streams[-1].size
 
@@ -453,6 +469,43 @@ def test_gpu_busy_share_over_the_steady_window(tmp_path):
 
 # the BED6 scale shapes: (seed, ``n_per`` in the tests)
 BED6 = {"config3": 7, "bits6": 13, "wide8": 17}
+# and BASELINE config 4's, whose size is the intervals of all its chromosomes
+SHAPES = dict(BED6, config4=19)
+
+
+def _size(shape: str, n: int) -> dict:
+    """A scale writer's size argument for ``n`` intervals in the first
+    chromosome: ``n_per``, or for config4 the ``n_total`` that gives chr1
+    ``n`` intervals."""
+    if shape != "config4":
+        return {"n_per": n}
+    return {"n_total": round(n * corpus.GRCH38_TOTAL / corpus.GRCH38_LENGTHS["chr1"])}
+
+
+def _config4_lines(target: int, seed: int, n_total: int, run: int = 250_000) -> bytes:
+    """Config 4's spec, line by line: GRCh38's chromosomes in order, each
+    of its share of ``n_total`` intervals, in runs of ``run`` lines; for
+    each run the site gaps (1..60 after 10,000), then which lines are
+    indels (1 in 10), their lengths (2..50) and shifts (1..100); an SNV is
+    ``site, site + 1``, an indel ``site - shift, site - shift + length``."""
+    gen = np.random.default_rng(seed)
+    out, n = [], 0
+    for name, length in corpus.GRCH38_LENGTHS.items():
+        if n >= target:
+            break
+        lines, last = round(n_total * length / corpus.GRCH38_TOTAL), 10_000
+        for lo in range(0, lines, run):
+            m = min(run, lines - lo)
+            gaps, kind = gen.integers(1, 61, m).tolist(), gen.integers(0, 10, m).tolist()
+            lens, shifts = gen.integers(2, 51, m).tolist(), gen.integers(1, 101, m).tolist()
+            rows = []
+            for i in range(m):
+                last += gaps[i]
+                start, stop = (last - shifts[i], last - shifts[i] + lens[i]) if kind[i] == 0 else (last, last + 1)
+                rows.append(b"%s\t%d\t%d\n" % (name.encode(), start, stop))
+            out.append(b"".join(rows))
+            n += len(out[-1])
+    return b"".join(out)
 
 
 def _bed6_lines(shape: str, target: int, seed: int, n_per: int, run: int = 250_000) -> bytes:
@@ -491,55 +544,88 @@ def _bed6_lines(shape: str, target: int, seed: int, n_per: int, run: int = 250_0
 
 
 @pytest.mark.parametrize("run", [250_000, 700], ids=["one_run", "runs_of_700"])
-@pytest.mark.parametrize("shape", sorted(BED6))
+@pytest.mark.parametrize("shape", sorted(SHAPES))
 def test_bed6_writer_equals_a_line_loop(tmp_path, monkeypatch, shape, run):
-    """Each BED6 writer's NumPy formatting against ``%`` line by line, on
+    """Each scale writer's NumPy formatting against ``%`` line by line, on
     the same draws, across chromosomes: each chromosome one run of lines,
     or (``corpus._LINES`` set to 700) four, the last cut short, so that
     each run carries the start, the ``peak_`` ids and the ``% 97``
-    suffixes from the run before it."""
+    suffixes from the run before it.  Config 4's starts go back in chr1;
+    the BED6 shapes' never do."""
     monkeypatch.setattr(corpus, "_LINES", run)
-    digest, n = corpus.SCALE_SHAPES[shape](tmp_path / "w.bed", 250_000, n_per=2500)
+    digest, n = corpus.SCALE_SHAPES[shape](tmp_path / "w.bed", 250_000, **_size(shape, 2500))
     got = (tmp_path / "w.bed").read_bytes()
-    assert got == _bed6_lines(shape, 250_000, BED6[shape], 2500, run=run)
+    if shape == "config4":
+        assert got == _config4_lines(250_000, SHAPES[shape], _size(shape, 2500)["n_total"], run=run)
+    else:
+        assert got == _bed6_lines(shape, 250_000, BED6[shape], 2500, run=run)
     assert (digest, n) == (hashlib.sha256(got).hexdigest(), len(got)) and n >= 250_000
     assert got.count(b"\nchr3\t") >= 1
     if run == 700:
         first = got[: got.index(b"\nchr2\t") + 1].splitlines()
         starts = [int(line.split(b"\t")[1]) for line in first]
-        assert len(first) == 2500 and starts == sorted(starts) and len(set(starts)) == 2500
+        assert len(first) == 2500 and (starts == sorted(starts)) == (shape != "config4")
+        assert len(set(starts)) == 2500 or shape == "config4"
 
 
-@pytest.mark.parametrize("shape", sorted(BED6))
+@pytest.mark.parametrize("shape", sorted(SHAPES))
 def test_bed6_smaller_target_is_a_prefix(tmp_path, shape):
-    small = corpus.SCALE_SHAPES[shape](tmp_path / "s.bed", 60_000, n_per=900)
-    big = corpus.SCALE_SHAPES[shape](tmp_path / "b.bed", 200_000, n_per=900)
+    small = corpus.SCALE_SHAPES[shape](tmp_path / "s.bed", 60_000, **_size(shape, 900))
+    big = corpus.SCALE_SHAPES[shape](tmp_path / "b.bed", 200_000, **_size(shape, 900))
     assert big[1] > small[1] >= 60_000
     assert (tmp_path / "b.bed").read_bytes()[: small[1]] == (tmp_path / "s.bed").read_bytes()
 
 
-@pytest.mark.parametrize("shape", sorted(BED6))
+def _running_union(starts, stops) -> int:
+    """The native transform's union length on its sorted path, a running
+    maximum over the lines in their order: right only where no start goes
+    back."""
+    total, run = 0, None
+    for s, e in zip(starts.tolist(), stops.tolist()):
+        lo = s if run is None else max(s, run)
+        total += max(e - lo, 0)
+        run = e if run is None else max(run, e)
+    return total
+
+
+@pytest.mark.parametrize("shape", sorted(SHAPES))
 def test_bed6_every_block_is_of_its_tier(tmp_path, shape):
     """Every block of every chromosome, at level 1 and at level 9, is of
-    the shape's tier, its last (short) block too."""
+    the shape's tier, its last (short) block too.  In config 4's every
+    chromosome some deltas are negative and some starts go back, and the
+    native transform took its unsorted branch: its union length is the
+    one over the lines sorted by start, not the running maximum of its
+    sorted path."""
+    from starch3_tpu_torch.bed.parser import parse_bed
     from starch3_tpu_torch.parallel.host import _split_classify
+    from starch3_tpu_torch.transform.delta import _union_length
 
-    corpus.SCALE_SHAPES[shape](tmp_path / "t.bed", 1_500_000, n_per=15_000)
-    transformed = api._parse_transform((tmp_path / "t.bed").read_bytes())
+    # 3 blocks at level 1 in chr1, and more than one chromosome
+    n, target = (90_000, 2_000_000) if shape == "config4" else (15_000, 1_500_000)
+    corpus.SCALE_SHAPES[shape](tmp_path / "t.bed", target, **_size(shape, n))
+    bed = (tmp_path / "t.bed").read_bytes()
+    transformed = api._parse_transform(bed)
     assert len(transformed) >= 2
     for tf in transformed:
         for level in (1, 9):
             blocks, classes = _split_classify(tf.text, level)
             assert set(classes) == {corpus.SCALE_TIERS[shape]}, (tf.chrom, level, classes)
     assert len(_split_classify(transformed[0].text, 1)[0]) >= 3
+    if shape == "config4":
+        for tf, chrom in zip(transformed, parse_bed(bed)):
+            assert re.search(rb"(^|\n)-[0-9]", bytes(tf.text)), tf.chrom
+            assert scale_run.starts_back(bed[bed.index(tf.chrom.encode() + b"\t"):]) > 0
+            assert tf.base_count_unique == _union_length(chrom.starts, chrom.stops)
+            assert tf.base_count_unique != _running_union(chrom.starts, chrom.stops), tf.chrom
 
 
-@pytest.mark.parametrize("shape", sorted(BED6))
+@pytest.mark.parametrize("shape", sorted(SHAPES))
 def test_bed6_file_entry_equals_jax_package(tmp_path, shape):
-    """One BED6 chromosome of 6,000 intervals (2-3 blocks at level 1) in
-    16 kB chunks, so that it is carried across many: the port's file
-    entry on the CPU against the JAX package's, byte for byte."""
-    corpus.SCALE_SHAPES[shape](tmp_path / "in.bed", 1, n_per=6_000)
+    """One chromosome of 6,000 intervals (2-3 blocks at level 1; config
+    4's of 60,000, 2 blocks) in 16 kB chunks, so that it is carried across
+    many: the port's file entry on the CPU against the JAX package's,
+    byte for byte."""
+    corpus.SCALE_SHAPES[shape](tmp_path / "in.bed", 1, **_size(shape, 60_000 if shape == "config4" else 6_000))
     src = str(tmp_path / "in.bed")
     assert os.path.getsize(src) > 8 << 14
     cfg = dict(use_jax=True, block_size_100k=1)
@@ -555,18 +641,21 @@ def test_bed6_file_entry_equals_jax_package(tmp_path, shape):
     assert api.decompress_starch_bytes(got.getvalue()) == (tmp_path / "in.bed").read_bytes()
 
 
-@pytest.mark.parametrize("shape", sorted(BED6))
+@pytest.mark.parametrize("shape", sorted(SHAPES))
 def test_bed6_gen_and_device_legs(tmp_path, shape):
     """``gen --shape`` and the ``device`` leg on the CPU: the corpus is the
     writer's, every stream equals the host archive's, every block is of
-    the tier, and the launch check by width passes (on the CPU the
-    wrappers count nothing)."""
+    the tier, the launch check by width passes (on the CPU the wrappers
+    count nothing), and the leg counts the chromosomes whose starts go
+    back: all of config 4's, none of the others'."""
+    size = _size(shape, 2_500)
+    (flag, n), = size.items()
     r = _run(["-m", "starch3_tpu_torch.scale_run", "gen", tmp_path / "in.bed", 150_000, "--shape", shape,
-              "--n-per", 2_500])
+              "--" + flag.replace("_", "-"), n])
     assert r.returncode == 0, r.stderr.decode()[-2000:]
     gen = json.loads(r.stdout.decode().splitlines()[-1])
     assert gen["shape"] == shape and gen["tier"] == corpus.SCALE_TIERS[shape]
-    assert gen["digest"] == corpus.SCALE_SHAPES[shape](tmp_path / "w.bed", 150_000, n_per=2_500)[0]
+    assert gen["digest"] == corpus.SCALE_SHAPES[shape](tmp_path / "w.bed", 150_000, **size)[0]
     out = io.BytesIO()
     api.compress_bed_file(str(tmp_path / "in.bed"), out, EncodeConfig(block_size_100k=1))
     (tmp_path / "host.starch").write_bytes(out.getvalue())
@@ -581,6 +670,9 @@ def test_bed6_gen_and_device_legs(tmp_path, shape):
     assert res["per_class"][tier]["batches"] == res["device_stats"]["batches"]
     assert set(res["width_launches"]) == {"16", "32", "64", "128", "256"}
     assert not any(res["width_launches"].values())
+    back = res["starts_back"]
+    assert back["of"] == res["streams"] >= 2
+    assert back["chroms"] == (back["of"] if shape == "config4" else 0) and (back["lines"] > 0) == (shape == "config4")
 
 
 def test_device_leg_fails_a_block_off_its_tier(small, tmp_path):
@@ -970,3 +1062,138 @@ def test_device_leg_texts_file_is_written_then_read(small, tmp_path):
     chroms, got = scale_run.read_texts(str(texts))
     want = bed_transform_native((d / "in.bed").read_bytes())
     assert chroms == [g[0] for g in want] and [bytes(t) for t in got] == [bytes(g[1]) for g in want]
+
+
+def _config4_chromosomes(tmp_path, n: int = 30_000, target: int = 1_000_000) -> bytes:
+    """Config 4's first chromosomes, chr1 of ``n`` intervals, to
+    ``target`` bytes: about 560 kB a chromosome at 30,000, two blocks
+    at level 1 in chr1."""
+    corpus.config4_scale_bed(tmp_path / "c4.bed", target, **_size("config4", n))
+    return (tmp_path / "c4.bed").read_bytes()
+
+
+@pytest.mark.parametrize("entry, use_jax", [("stream", False), ("stream", True), ("bytes", True)],
+                         ids=["stream_host", "stream_device", "bytes_device"])
+def test_config4_across_chunks_equals_jax_package_bytes(tmp_path, monkeypatch, entry, use_jax):
+    """Config 4's unsorted starts carried across 16 kB chunks: the port's
+    streaming entry (``compress_bed_stream``, whose carry re-transforms a
+    chromosome when it ends), on the host path and on the device path on
+    the CPU, and its in-memory device entry (``compress_bed_bytes``, whose
+    ``_iter_parse_transform`` joins the partial chunks) give the JAX
+    package's ``compress_bed_bytes`` byte for byte."""
+    import functools
+
+    bed = _config4_chromosomes(tmp_path)
+    assert b"\nchr2\t" in bed and b"\nchr3\t" not in bed and len(bed) > 40 << 14
+    cfg = dict(use_jax=use_jax, block_size_100k=1)
+    want = jax_api.compress_bed_bytes(bed, JaxEncodeConfig(**cfg))
+    if entry == "stream":
+        out = io.BytesIO()
+        api.compress_bed_stream(io.BytesIO(bed), out, EncodeConfig(**cfg), chunk_bytes=1 << 14, device="cpu")
+        got = out.getvalue()
+    else:
+        monkeypatch.setattr(api, "_iter_parse_transform",
+                            functools.partial(api._iter_parse_transform, chunk_bytes=1 << 14))
+        got = api.compress_bed_bytes(bed, EncodeConfig(**cfg), device="cpu")
+    assert got == want
+    from starch3_tpu_torch.format.archive import StarchReader
+
+    meta = StarchReader.from_bytes(got).metadata
+    assert len(meta.streams) >= 2 and len(meta.streams[0].block_bit_offsets) >= 2
+
+
+def test_config4_decode_in_both_packages_gives_back_the_unsorted_input(tmp_path):
+    """The archive of config 4's chromosomes decodes to the input, starts
+    that go back and all, through the JAX package's decode, the port's
+    native one and the port's device decode on the CPU (``use_jax=True``):
+    the negative deltas are restored."""
+    bed = _config4_chromosomes(tmp_path, target=600_000)
+    first = [int(line.split(b"\t")[1]) for line in bed.splitlines()[:5000]]
+    assert first != sorted(first)
+    archive = api.compress_bed_bytes(bed, EncodeConfig(block_size_100k=1))
+    assert jax_api.decompress_starch_bytes(archive) == bed
+    assert api.decompress_starch_bytes(archive) == bed
+    assert api.decompress_starch_bytes(archive, use_jax=True, device="cpu") == bed
+
+
+def test_chr21_bed_is_the_bench_generator():
+    """BASELINE config 1's corpus, the port's copy against ``bench.py``'s
+    ``make_chr21_bed``."""
+    import bench
+
+    assert corpus.chr21_bed() == bench.make_chr21_bed()
+    assert corpus.chr21_bed(2_000, seed=3) == bench.make_chr21_bed(2_000, seed=3)
+
+
+def test_starts_back_counts_the_lines_whose_start_goes_back():
+    """Lines of one chromosome, with a remainder column and a last line
+    without its newline: the count of starts below the line before's."""
+    bed = b"c\t10\t20\tx\nc\t15\t30\ty\nc\t12\t13\tz\nc\t12\t14\tw\nc\t3\t4\tv\nc\t9\t19"
+    assert scale_run.starts_back(bed) == 2
+    assert scale_run.starts_back(b"c\t1\t2\nc\t1\t3\nc\t5\t6\n") == 0
+
+
+def test_oneblock_leg_on_the_cpu(tmp_path):
+    """``scale_run oneblock`` (config 1's device-only leg) on the CPU at
+    20,000 intervals of the chr21 shape: every run's one block on the
+    device, its stream equal to ``bz2.compress(text, 9)``; on the CPU the
+    wrappers count no launch and the step runs eagerly (no capture)."""
+    (tmp_path / "chr21.bed").write_bytes(corpus.chr21_bed(20_000))
+    r = _run(["-m", "starch3_tpu_torch.scale_run", "oneblock", tmp_path / "chr21.bed", "--device", "cpu"],
+             env=dict(os.environ, STARCH3_TPU_NO_HOST_FALLBACK="1"))
+    assert r.returncode == 0, r.stderr.decode()[-2000:]
+    res = json.loads(r.stdout.decode().splitlines()[-1])
+    assert res["faults"] == [] and len(res["runs"]) == scale_run.ONEBLOCK_RUNS == 3
+    for run in res["runs"]:
+        assert run["equal"] and run["blocks"] == 1
+        assert run["device_stats"]["blocks_bits4"] == run["device_stats"]["batches"] == 1
+        assert not any(run["width_launches"].values()) and not run["device_stats"].get("graph_captures")
+
+
+@pytest.mark.parametrize("mem_gb, free_gb, target, cut_by", [
+    (400, 100, 10_000_000_000, None), (20, 100, 7_304_000_000, "memory"), (400, 20, 5_530_769_230, "disk")])
+def test_config4_target_takes_what_memory_and_disk_hold(mem_gb, free_gb, target, cut_by):
+    """The device-only leg's 1.5 bytes a byte of BED above a 4,744 MB
+    start within 80% of the memory, and the corpus, its sorted twin, the
+    1.1e9-byte prefix and four archives of 0.15 of it within 80% of the
+    disk, less the largest chromosome's 200 MB."""
+    room = scale_run.config4_target(10_000_000_000, mem_gb * 10**9, free_gb * 10**9)
+    assert room["cut_by"] == cut_by
+    assert room["target"] == pytest.approx(target, abs=2)
+
+
+def _config4_legs(prefix_bytes: int = 1_185_546_635) -> dict:
+    """``leg_config4``'s legs as ``config4_faults`` reads them: the corpus
+    and its 1.1e9-byte prefix, (a) at 10 MB/s of text, the hybrids on the
+    prefix and the whole, (d) at 120 MB/s with every chromosome's starts
+    going back."""
+    sched = {"demotions": 0, "repromotions": 0, "abandoned_batches": 0, "class_skips": 0}
+    hybrid = {"archive_digest": "x", "scheduler_stats": dict(sched), "peak_rss_mb": 4260.0, "rss_start_mb": 3140.0,
+              "max_memory_reserved": 849_346_560, "decode": {"digest": "c", "bytes": 2_382_088_779}}
+    return {"gen": {"digest": "c", "bytes": 2_382_088_779}, "gen_prefix": {"bytes": prefix_bytes},
+            "a": {"archive_digest": "x", "seconds": 36.0},
+            "b_half": dict(hybrid, scheduler_stats=dict(sched), prefix_of_a=True), "b": hybrid,
+            "d": {"text_bytes": 360_000_000, "mb_per_s_text": 120.0,
+                  "starts_back": {"chroms": 24, "of": 24, "lines": 6_506_995}}}
+
+
+@pytest.mark.parametrize("change, fault", [
+    (None, None),
+    (lambda l: l["b"].update(archive_digest="y"), "config4 (b) archive y != host path's x"),
+    (lambda l: l["b_half"].update(prefix_of_a=False), "config4 (b) the half archive's streams are not"),
+    (lambda l: l["b"].update(decode={"digest": "z", "bytes": 1}), "config4 (e) decode z of 1 bytes"),
+    (lambda l: l["b"]["scheduler_stats"].update(demotions=1), "config4 (b) benched the device"),
+    (lambda l: l["b_half"]["scheduler_stats"].update(abandoned_batches=1), "config4 (b) half abandoned batches"),
+    (lambda l: l["d"].update(starts_back={"chroms": 0, "of": 24, "lines": 0}), "config4 (d) no chromosome's starts"),
+    (lambda l: l["b"].update(peak_rss_mb=4500.0), "config4 (f) memory grew with the corpus"),
+    (lambda l: (l["b"].update(peak_rss_mb=4500.0), l["gen_prefix"].update(bytes=1_500_000)), None),
+], ids=["healthy", "archive", "prefix", "decode", "demotion", "abandoned", "sorted", "memory", "memory_tiny_prefix"])
+def test_config4_faults(change, fault):
+    """``scale_run config4``'s gates: each fails the run with one message;
+    the memory bound holds from the 1.1e9-byte prefix, not from a tiny
+    one, where the encode's memory has not levelled off."""
+    legs = _config4_legs()
+    if change:
+        change(legs)
+    faults = scale_run.config4_faults(legs)
+    assert faults == [] if fault is None else (len(faults) == 1 and faults[0].startswith(fault)), faults
