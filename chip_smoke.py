@@ -152,12 +152,15 @@ streams and archives.  It exits 0 only if every phase passes:
      reference archive;
      (b) ``compress_bed_file(EncodeConfig(use_jax=True))`` on the half
      corpus and on the whole one: the whole archive equals (a)'s, the
-     half's streams are (a)'s first streams, no batch abandoned and the
+     half's is (a)'s first streams with their metadata, byte for byte
+     (``scale_run.is_prefix_archive``: the host path's archive of the
+     half corpus), no batch abandoned and the
      device never benched (0 demotions in each run; its blocks on the
      device are printed), the MTF launches by width equal to the device
      batches by class;
-     (c) ``cat corpus | python -m starch3_tpu_torch.cli --jax`` writes
-     (a)'s bytes; (d) device only under ``STARCH3_TPU_NO_HOST_FALLBACK=1``,
+     (c) ``cat half | python -m starch3_tpu_torch.cli --jax`` on the half
+     corpus writes (b)'s half archive (so the host path's); (d)
+     device only under ``STARCH3_TPU_NO_HOST_FALLBACK=1``,
      each chromosome transformed whole and fed in order to
      ``encode_streams_iter(host_assist=False)``: every stream equals
      (a)'s, every block on the device and of the corpus's tier, nothing
@@ -174,12 +177,13 @@ streams and archives.  It exits 0 only if every phase passes:
      memory climbs until its first streams are out, about 4-5 s in, then
      stays level; both corpora run past that point (the quarter corpus
      does not), so growth between them is a leak, not the climb; (h)
-     BASELINE config 5, cut to this corpus and one card: ``scale_run
+     BASELINE config 5, cut to the half corpus and one card: ``scale_run
      multihost``, two host processes of ``python -m
      starch3_tpu_torch.cli --jax --num-hosts=2`` (through ``scale_run
      host``, which prints each host's counters) on the card, once over a
      gloo process group and once through a manifest directory: host 0's
-     archive equals (a)'s and host 1 writes nothing, both exit 0 within
+     archive equals (b)'s half archive (so the host path's of the half
+     corpus, metadata and all) and host 1 writes nothing, both exit 0 within
      their limit, and each host abandons no batch, puts blocks on the
      card and launches its MTF kernel once per device batch at its
      class's width; the wall time and MB/s of both, and each host's
@@ -193,13 +197,14 @@ streams and archives.  It exits 0 only if every phase passes:
      a user's commands do.
   14. the BED6 tiers at scale, the same phase over the tiers of
      ``SCALE_RUNS`` with their corpora written together:
-     ``corpus.config3_scale_bed`` (bits 5) at 1.1e9 bytes of BED and its
-     5.5e8-byte prefix, ``bits6_scale_bed`` (bits 6) at 2.75e8 and
-     ``wide8_scale_bed`` (bits 8) at 2.75e8.  Each runs (a), (b) (config3
-     on its half corpus too), (d) (not on config3: cut for the run's
-     time, ``ScaleTier.device_only``), (e) and, on config3, (f), with the
-     gates of phase 13 (``scale_faults``), but no pipe leg, and a
-     demotion of the hybrid fails a tier only where (d) ran and its MB/s
+     ``corpus.config3_scale_bed`` (bits 5) cut to its first chromosome
+     (8.8e7 bytes of BED), ``bits6_scale_bed`` (bits 6) at 2.75e8 and
+     ``wide8_scale_bed`` (bits 8) at 2.75e8.  Each runs (a), (b), (d) (not
+     on config3: cut for the run's time, ``ScaleTier.device_only``) and
+     (e), with the gates of phase 13 (``scale_faults``), but no pipe leg
+     and no half corpus; config3's (b) must put bits-5 blocks on the card
+     whose rows come back untied from K1 w32; a demotion of the hybrid
+     fails a tier only where (d) ran and its MB/s
      of text is at least (a)'s.  Each tier prints its MB/s of BED and of text,
      device blocks of all blocks, blocks, batches, tie re-encodes, graph
      captures and replays and class skips per class, the busy share and
@@ -209,11 +214,13 @@ streams and archives.  It exits 0 only if every phase passes:
      tier, each leg with a deadline of its own: on the bits-4 corpus
      ``device_huffman`` (``fast_huff``: (b) the hybrid on the half corpus
      and the whole, with the memory bounds of (f), and (d) device only)
-     and the exact modes ``ranks`` and ``rle2`` ((d) on the whole; their
-     hybrids are cut for the run's time, PERF.md §4); on the bits-8 corpus ``fast_huff`` (d) and (g)
-     ``decompress_starch_bytes(use_jax=True)`` of (a)'s first stream (a
-     cut for the run's time, PERF.md §4), which must give back the
-     corpus's first chromosome with every block decoded on the card.
+     and the exact modes ``ranks`` and ``rle2`` ((d) on the first 11 of its
+     22 chromosomes; their hybrids are cut for the run's time, PERF.md
+     §4) and (g) ``decompress_starch_bytes(use_jax=True)`` of (a)'s first
+     stream (20 blocks, the fewest of any tier's first stream: a cut for
+     the run's time, PERF.md §4), which must give back the corpus's first
+     chromosome with every block decoded on the card; on the bits-8
+     corpus ``fast_huff`` (d).
      Each hybrid first warms the card with a few blocks
      (``scale_run --warm-up``); each (d) runs untraced under
      ``STARCH3_TPU_NO_HOST_FALLBACK=1`` and must give (a)'s streams, with
@@ -237,6 +244,17 @@ streams and archives.  It exits 0 only if every phase passes:
      (d) must count starts going back in every chromosome (the native
      transform's unsorted branch), and (e) gives the corpus back.  The
      transform's seconds a GB of (a) and (d) are printed beside bed3's.
+  17. BASELINE config 3 at a public shape, in the same phase (a tier of
+     ``SCALE_RUNS``): ``corpus.reads_scale_bed``, 20M single-end ChIP-seq
+     reads as ``bedtools bamtobed`` writes them (Illumina read names,
+     MAPQ, strand), cut to chr1-chr3 (3.0e8 bytes, the fewest whose (d)
+     traces 50 batches), with (a), (b), (d) and (e) and phase 14's gates.
+     Every block is bits 5 and ties in the fast sort (the names share a
+     22-byte prefix), so (d) re-encodes each on the driver's thread; its
+     tie re-encodes per class and their seconds by thread are printed.
+     (d) is its traced run alone (``ScaleTier.timed``): the re-encodes
+     bound it, and on an H100 a timed run after it took 21 s more at the
+     traced run's rate (10.130 against 10.099 MB/s of text).
      Before the scale phases, BASELINE config 1 (``phase_config1``):
      ``corpus.chr21_bed()``, one block, encoded by the CLI with ``--jax``
      in a process started anew and by the host path, byte for byte, and
@@ -249,7 +267,7 @@ The port imports nothing of JAX and nothing of the JAX package
 card's name is one JSON object describing each kernel of the path (the
 narrow wrapper's two kernels apart, each with the launches it counted);
 the wide kernel's entry counts its launches by width too, phases 10,
-12, 14 and 15 included (and the narrow kernel's, phase 16's); the last line
+12, 14 and 15 included (and the narrow kernel's, phases 16 and 17); the last line
 is ``{"ok": true, "device": {...}}``.  Without
 a card, or without the rest of the repository, it fails before printing
 any result.
@@ -290,7 +308,7 @@ from starch3_tpu_torch.profile_kernels import (
     real_batch,
     real_mtf_input,
 )
-from starch3_tpu_torch.scale_run import hybrid_faults, memory_growth, streams_are_a_prefix
+from starch3_tpu_torch.scale_run import hybrid_faults, is_prefix_archive, memory_growth
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 BUCKETS = (901_120, 458_752)
@@ -1509,40 +1527,51 @@ class ModeRun(typing.NamedTuple):
     """Phase 15: one encode mode of ``scale_run.MODES`` on a tier's corpus."""
     mode: str
     hybrid: tuple[str, ...]  # the corpora of its hybrid (b) legs: "half", "whole"
+    streams: int = 0  # its (d) encodes the corpus's first ``streams`` chromosomes; 0: every one
 
 
 class ScaleTier(typing.NamedTuple):
     target: int  # BED bytes of its corpus
     half: int | None  # BED bytes of its half corpus, a prefix of it, or None
-    pipe: bool  # whether it runs (c), ``cat | cli --jax``
+    pipe: bool  # whether it runs (c), ``cat | cli --jax``, on its half corpus
     keep_card: bool  # whether the fast-mode hybrid must never bench the card, whatever (d)'s rate
     modes: tuple[ModeRun, ...] = ()  # phase 15: its other modes, each with (d) device only, untraced
     decode: int = 0  # phase 15 (g): it decodes an archive of (a)'s first ``decode`` streams on the card, 0: none
-    multihost: tuple[str, ...] = ()  # (h) BASELINE config 5: the transports of its two-host encodes on the card
-    unsorted: bool = False  # BASELINE config 4: (d) must find every chromosome's starts going back
+    # (h) BASELINE config 5: the transports of its two-host encodes of its half corpus on the card
+    multihost: tuple[str, ...] = ()
     device_only: bool = True  # whether it runs fast mode's (d); config3's is cut for the run's time (PERF.md §4)
+    # config3: (b) must put blocks of its tier on the card whose rows come back
+    # untied (the one scale run whose K1 w32 rows are used: every reads block ties)
+    untied_on_card: bool = False
+    # whether fast mode's (d) times a second, untraced encode after its traced
+    # one; reads' (d) is its traced run alone, since the driver's re-encodes
+    # bound it and tracing does not slow them (PERF.md §4)
+    timed: bool = True
 
 
 # the tiers at scale by ``corpus.SCALE_SHAPES``' shape: phase 13's bits 4
-# (``TestGigabyteScale``'s bytes) and phase 14's BED6 tiers, bits 5, 6 and
-# 8, and BASELINE config 4 (variant BED whose starts go back, bits 4), cut
-# to chip_smoke's time (PERF.md §4); each half corpus runs past the
-# point where the encode's memory levels off; bits6 and wide8 hold 3
-# chromosomes each, the fewest whose (d) traces 50 batches.  Phase 15
-# runs the other modes on bits 4 (``fast_huff`` half and whole, for its
-# memory gate; the exact modes device only, their hybrids cut for the
-# run's time) and bits 8 (``fast_huff``'s ``step_fast2`` with the bits-8
-# remap), and device decode at bits 8; (h), BASELINE config 5, runs on
-# bits 4
+# (``TestGigabyteScale``'s bytes), phase 14's BED6 tiers, bits 5, 6 and 8,
+# BASELINE config 4 (variant BED whose starts go back, bits 4) and config
+# 3 as aligned reads (bits 5, every block tied), cut to chip_smoke's time
+# (PERF.md §4): bed3's half corpus runs past the point where the encode's
+# memory levels off; bits6, wide8 and reads hold 3 chromosomes each and
+# config4 9, the fewest whose (d) traces 50 batches; config3 one, whose
+# hybrid (b) puts untied bits-5 blocks on the card (its (d) and half are
+# cut).  Phase 15 runs the other modes on bits 4 (``fast_huff`` half and
+# whole, for its memory gate; the exact modes device only on the first 11
+# of its 22 chromosomes, their hybrids cut) and bits 8 (``fast_huff``'s
+# ``step_fast2`` with the bits-8 remap), and device decode of bits 4's
+# first stream (20 blocks, the fewest of any tier's); (c), the pipe, and
+# (h), BASELINE config 5, run on the bits-4 half corpus
 SCALE_RUNS = {
     "bed3": ScaleTier(1_100_000_000, 550_000_000, pipe=True, keep_card=True, modes=(
-        ModeRun("fast_huff", ("half", "whole")), ModeRun("ranks", ()), ModeRun("rle2", ())),
-        multihost=("gloo", "manifest")),
-    "config3": ScaleTier(1_100_000_000, 550_000_000, pipe=False, keep_card=False, device_only=False),
+        ModeRun("fast_huff", ("half", "whole")), ModeRun("ranks", (), streams=11),
+        ModeRun("rle2", (), streams=11)), decode=1, multihost=("gloo", "manifest")),
+    "config3": ScaleTier(80_000_000, None, pipe=False, keep_card=False, device_only=False, untied_on_card=True),
     "bits6": ScaleTier(275_000_000, None, pipe=False, keep_card=False),
-    "wide8": ScaleTier(275_000_000, None, pipe=False, keep_card=False, modes=(ModeRun("fast_huff", ()),),
-                       decode=1),
-    "config4": ScaleTier(1_200_000_000, None, pipe=False, keep_card=False, unsorted=True),
+    "wide8": ScaleTier(275_000_000, None, pipe=False, keep_card=False, modes=(ModeRun("fast_huff", ()),)),
+    "config4": ScaleTier(1_200_000_000, None, pipe=False, keep_card=False),
+    "reads": ScaleTier(250_000_000, None, pipe=False, keep_card=False, timed=False),
 }
 SCALE_ARCHIVE_ROOM = 1_350_000_000  # one tier's archives and texts beside its phase's corpora, with room to spare
 
@@ -1578,16 +1607,22 @@ def scale_faults(shape: str, legs: dict) -> list[str]:
     ``c`` where the tier runs them; each mode of ``legs["modes"]``, its
     ``d`` and its hybrids; ``g``, the device decode of (a)'s first
     streams; ``h``, BASELINE config 5's two-host encode of each transport
-    (``multihost_faults``).  Every hybrid's
-    archive equals (a)'s, a half archive's streams are (a)'s first, no
+    (``multihost_faults``), on the half corpus, held to (b)'s half
+    archive.  Every hybrid's
+    archive equals (a)'s, a half archive is (a)'s first streams with their
+    metadata (the host path's archive of the half corpus), no
     hybrid abandons a batch, and from a mode's half run to its whole one
     the memory bounds of (f) (``hybrid_faults``); (c)'s archive equals
-    (a)'s, (e) decodes to the corpus, fast mode's (d) holds at least 50
+    (b)'s half archive (the pipe runs on the half corpus, and is so held
+    to the host path's archive of it), (e) decodes to
+    the corpus, fast mode's (d) holds at least 50
     batches in its traced window; (g) gives back the corpus's first
     chromosomes and decodes every block of their archive on the card; on
-    a tier of unsorted input (config 4, ``ScaleTier.unsorted``) every
+    a tier of unsorted input (config 4, ``corpus.SCALE_UNSORTED``) every
     chromosome's starts go back in (d)'s count, so that (e)'s decode
-    shows the negative deltas restored.  A hybrid must not bench a
+    shows the negative deltas restored; on config3
+    (``ScaleTier.untied_on_card``) the hybrid puts blocks of its tier on
+    the card whose rows come back untied.  A hybrid must not bench a
     card that beats the host cores: in fast mode where the tier says so
     (``ScaleTier.keep_card``) or (d) encodes at least (a)'s MB/s of text;
     in another mode where its (d) encodes at least the host cores' MB/s
@@ -1604,23 +1639,27 @@ def scale_faults(shape: str, legs: dict) -> list[str]:
         card_text = dv and dv["mb_per_s_text"]
         keep = SCALE_RUNS[shape].keep_card or (dv is not None and card_text >= host_text)
         faults += hybrid_faults("", legs, a, card_text, host_text, keep)
-        if "c" in legs and legs["c"]["archive_digest"] != a["archive_digest"]:
-            faults.append(f"(c) archive {legs['c']['archive_digest']} != host path's {a['archive_digest']}")
+        if "c" in legs and legs["c"]["archive_digest"] != legs["b_half"]["archive_digest"]:
+            faults.append(f"(c) archive {legs['c']['archive_digest']} != (b) half's {legs['b_half']['archive_digest']}")
         if b["decode"]["digest"] != full["digest"] or b["decode"]["bytes"] != full["bytes"]:
             faults.append(f"(e) decode {b['decode']} != the corpus {full['digest']} {full['bytes']}")
-        batches = dv["traced"]["trace"].get("batches") or 0 if dv else 50
+        batches = (dv.get("traced") or dv)["trace"].get("batches") or 0 if dv else 50
         if batches < 50:
             faults.append(f"(d) the traced window holds {batches} batches, fewer than 50")
         back = (dv or {}).get("starts_back") or {}
-        if SCALE_RUNS[shape].unsorted and not (back.get("of") and back.get("chroms") == back["of"]):
+        if shape in corpus.SCALE_UNSORTED and not (back.get("of") and back.get("chroms") == back["of"]):
             faults.append(f"(d) the starts go back in {back.get('chroms')} chromosomes of {back.get('of')}, not "
                           "in every one: the transform's unsorted branch is not what the tier runs")
+        on_card = b["per_class"][str(corpus.SCALE_TIERS[shape])]
+        if SCALE_RUNS[shape].untied_on_card and on_card["blocks"] <= on_card["tie_reencodes"]:
+            faults.append(f"(b) put no untied bits-{corpus.SCALE_TIERS[shape]} block on the card: "
+                          f"{on_card['blocks']} blocks there, {on_card['tie_reencodes']} of them tied")
     for mode, run in legs.get("modes", {}).items():  # phase 15
         if "b" in run or "b_half" in run:
             card_text, host_text = run["d"]["mb_per_s_text"], run["d"]["host"]["mb_per_s_text"]
             faults += hybrid_faults(f"{mode} ", run, a, card_text, host_text, card_text >= host_text)
     for transport, h in legs.get("h", {}).items():  # BASELINE config 5
-        faults += multihost_faults(transport, h, a)
+        faults += multihost_faults(transport, h, legs["b_half"])
     if "g" in legs:  # held to the corpus's first chromosomes, which the leg reads
         g, want = legs["g"], legs["g"]["corpus"]
         if (g["digest"], g["bytes"], g["streams"]) != (want["digest"], want["bytes"], SCALE_RUNS[shape].decode):
@@ -1632,17 +1671,19 @@ def scale_faults(shape: str, legs: dict) -> list[str]:
     return [f"{shape} {f}" for f in faults]
 
 
-def multihost_faults(transport: str, h: dict, a: dict) -> list[str]:
-    """(h)'s gates on one transport's two-host encode, one message each,
-    naming the transport and the host: host 0's archive is (a)'s bytes and
-    the other hosts write nothing; each host exits 0 within its limit,
-    abandons no batch, puts blocks on the card and launches its MTF kernel
-    once per device batch at its class's width."""
+def multihost_faults(transport: str, h: dict, half: dict) -> list[str]:
+    """(h)'s gates on one transport's two-host encode of the half corpus,
+    one message each, naming the transport and the host: host 0's archive
+    is the bytes of (b)'s half archive ``half`` (the host path's archive
+    of the half corpus, ``is_prefix_archive``) and the other hosts write
+    nothing; each host exits 0 within its limit, abandons no batch, puts
+    blocks on the card and launches its MTF kernel once per device batch
+    at its class's width."""
     pre = f"(h) multihost {transport}"
     faults = []
-    if (h["archive_digest"], h["archive_bytes"]) != (a["archive_digest"], a["archive_bytes"]):
-        faults.append(f"{pre} host 0 archive {h['archive_digest']} of {h['archive_bytes']} bytes != the host path's "
-                      f"{a['archive_digest']} of {a['archive_bytes']}")
+    if (h["archive_digest"], h["archive_bytes"]) != (half["archive_digest"], half["archive_bytes"]):
+        faults.append(f"{pre} host 0 archive {h['archive_digest']} of {h['archive_bytes']} bytes != (b) half's "
+                      f"{half['archive_digest']} of {half['archive_bytes']}")
     for i, host in enumerate(h["host_lines"]):
         st = host.get("device_stats", {})
         if i and host["wrote_bytes"]:
@@ -1660,11 +1701,12 @@ def multihost_faults(transport: str, h: dict, a: dict) -> list[str]:
 
 def tier_launches(legs: dict) -> dict:
     """The MTF launches by width of a tier's hybrids (b) and of both
-    device-only runs (d) in fast mode, of each mode's hybrids and (d), and
+    device-only runs (d) in fast mode (its one run where the tier's (d) is
+    not timed), of each mode's hybrids and (d), and
     of (h)'s host processes, each counted in its own process."""
     runs = [legs[k] for k in ("b_half", "b") if k in legs]
     if "d" in legs:
-        runs += [legs["d"], legs["d"]["traced"]]
+        runs += [legs["d"], legs["d"]["traced"]] if "traced" in legs["d"] else [legs["d"]]
     for run in legs.get("modes", {}).values():
         runs += run.values()
     for h in legs.get("h", {}).values():
@@ -1700,12 +1742,15 @@ def phase_scale(smi: str, deadlines: dict, fast: bool = True, forker=None) -> di
         need, free = sum(t for _, t in jobs.values()) + SCALE_ARCHIVE_ROOM, shutil.disk_usage(d).free
         if free < need:
             raise AssertionError(f"scale: {free} bytes free in {d}, the phase needs {need}")
+        t0 = time.monotonic()
         with concurrent.futures.ThreadPoolExecutor(len(jobs)) as ex:
             gens = {k: ex.submit(scale_child, f"{k[0]} corpus {t:.3g}", ["gen", path, t, "--shape", k[0]],
                                  min(fd for fd, _ in deadlines.values()), 240, forker)
                     for k, (path, t) in jobs.items()}
             corpora = {k: g.result() for k, g in gens.items()}
+        log(f"scale: {len(jobs)} corpora written together in {time.monotonic() - t0:.3f} s")
         for shape, (deadline, mode_deadline) in deadlines.items():
+            t0 = time.monotonic()
             tier, bed = SCALE_RUNS[shape], jobs[shape, "full"][0]
             legs = {"gen": corpora[shape, "full"]}
             if legs["gen"]["bytes"] < tier.target:
@@ -1725,24 +1770,26 @@ def phase_scale(smi: str, deadlines: dict, fast: bool = True, forker=None) -> di
                 if tier.half:
                     legs["b_half"] = scale_child(f"{shape} (b) hybrid, half corpus",
                                                  ["encode", src["half"], arc["b_half"], "--jax"], deadline, 200, forker)
-                    legs["b_half"]["prefix_of_a"] = streams_are_a_prefix(arc["b_half"], arc["a"])
+                    legs["b_half"]["prefix_of_a"] = is_prefix_archive(arc["b_half"], arc["a"])
                 legs["b"] = scale_child(f"{shape} (b) hybrid + (e) decode",
                                         ["encode", bed, arc["b"], "--jax", "--decode"], deadline, 300, forker)
-                if tier.pipe:  # (c) the CLI through a real pipe, its processes started anew
-                    legs["c"] = scale_child(f"{shape} (c) cat | cli --jax", ["pipe", bed, arc["c"]], deadline, 300,
-                                            forker)
+                if tier.pipe:  # (c) the CLI through a real pipe, its processes started anew, on the half corpus
+                    legs["c"] = scale_child(f"{shape} (c) cat | cli --jax", ["pipe", src["half"], arc["c"]],
+                                            deadline, 300, forker)
                 # (d) device only, every stream against (a)'s; it leaves its
                 # texts to the tier's phase-15 (d) legs
                 if tier.device_only:
+                    once = [] if tier.timed else ["--traced-only"]
                     legs["d"] = scale_child(f"{shape} (d) device only", ["device", bed, arc["a"], os.path.join(
-                        d, f"trace-{shape}"), BUILD_DIR, "--shape", shape, *texts], deadline, 300, forker,
+                        d, f"trace-{shape}"), BUILD_DIR, "--shape", shape, *once, *texts], deadline, 300, forker,
                         no_fallback)
                 # (h) BASELINE config 5: two host processes of the CLI, started
-                # anew as a user starts them, on the one card
+                # anew as a user starts them, on the one card, on the half
+                # corpus held to (b)'s half archive, the host path's of the half corpus
                 for transport in tier.multihost:
                     legs.setdefault("h", {})[transport] = scale_child(
-                        f"{shape} (h) multihost {transport}", ["multihost", bed, arc["a"], "--transport", transport,
-                                                               "--host-limit-s", 240], deadline, 300, forker)
+                        f"{shape} (h) multihost {transport}", ["multihost", src["half"], arc["b_half"], "--transport",
+                                                               transport, "--host-limit-s", 240], deadline, 300, forker)
             # phase 15: the other modes, each held to (a), and device decode
             for run in tier.modes:
                 legs.setdefault("modes", {})[run.mode] = mode_legs = {}
@@ -1752,12 +1799,13 @@ def phase_scale(smi: str, deadlines: dict, fast: bool = True, forker=None) -> di
                         "encode", src[part], out, "--jax", "--mode", run.mode, "--warm-up"], mode_deadline, 200,
                         forker)
                     if key == "b_half":
-                        mode_legs[key]["prefix_of_a"] = streams_are_a_prefix(out, arc["a"])
+                        mode_legs[key]["prefix_of_a"] = is_prefix_archive(out, arc["a"])
                     os.remove(out)
                 host_rate = ["--host-rate"] if run.hybrid else []  # the cores a hybrid's card is held to
+                first = ["--streams", run.streams] if run.streams else []
                 mode_legs["d"] = scale_child(f"{shape} {run.mode} (d) device only", [
                     "device", bed, arc["a"], os.path.join(d, f"trace-{shape}"), BUILD_DIR, "--shape", shape,
-                    "--mode", run.mode, "--untraced", *host_rate, *texts], mode_deadline, 300, forker,
+                    "--mode", run.mode, "--untraced", *host_rate, *first, *texts], mode_deadline, 300, forker,
                     no_fallback)
             if tier.decode:  # (g) device decode of (a)'s first streams, a cut for the run's time
                 legs["g"] = scale_child(f"{shape} (g) device decode", [
@@ -1771,6 +1819,7 @@ def phase_scale(smi: str, deadlines: dict, fast: bool = True, forker=None) -> di
             for path in [p for k, (p, _) in jobs.items() if k[0] == shape] + list(arc.values()) + texts[1:]:
                 if os.path.exists(path):
                     os.remove(path)
+            log(f"scale {shape}: the tier's legs took {time.monotonic() - t0:.3f} s")
     if transforms:
         log_transforms(smi, transforms)
     if faults:
@@ -1854,10 +1903,10 @@ def log_scale(shape: str, smi: str, legs: dict) -> None:
 
 def log_multihost(shape: str, transport: str, smi: str, h: dict, legs: dict) -> None:
     """(h)'s figures: the wall time and MB/s of BED for both hosts beside
-    (a)'s and (b)'s single process, and each host's share, device blocks,
+    (a)'s and (b)'s single-process hybrid on the half corpus, and each
+    host's share, device blocks,
     demotions and class skips (printed, not gated), memory and stages."""
-    a, b = legs["a"], legs.get("b")
-    hybrid = f"(b)'s single-process hybrid {b['mb_per_s_bed']:.3f}" if b else "(b) not run"
+    a, b = legs["a"], legs["b_half"]
     hosts = []
     for i, x in enumerate(h["host_lines"]):
         st, sched, t = x["device_stats"], x["scheduler_stats"], leg_fork.leg_times(x, x["launched_at"])
@@ -1868,9 +1917,11 @@ def log_multihost(shape: str, transport: str, smi: str, h: dict, legs: dict) -> 
             f"({x['own_peak_rss_mb_per_gb']:.1f} a GB of BED; {x['rss_start_mb']:.1f} at its start), "
             f"max_memory_reserved {x['max_memory_reserved']}, seconds {json.dumps(x['stage_seconds'])}, start "
             f"{t['start_s']:.3f} s, CUDA init {t['cuda_init_s']:.3f} s, work {t['work_s']:.3f} s")
-    log(f"scale {shape} (h) multihost {transport}, {h['hosts']} processes on one card: {h['seconds']:.3f} s wall for "
-        f"both, process starts included, {h['mb_per_s_bed']:.3f} MB/s of BED against (a)'s {a['mb_per_s_bed']:.3f} "
-        f"and {hybrid}; host 0's archive == (a)'s ({h['archive_bytes']} bytes), the other hosts wrote "
+    log(f"scale {shape} (h) multihost {transport}, {h['hosts']} processes on one card, the half corpus "
+        f"({h['bytes_in']} bytes): {h['seconds']:.3f} s wall for both, process starts included, "
+        f"{h['mb_per_s_bed']:.3f} MB/s of BED against (a)'s {a['mb_per_s_bed']:.3f} on the corpus and (b)'s "
+        f"single-process hybrid {b['mb_per_s_bed']:.3f} on the half corpus; host 0's archive == (b) half's "
+        f"({h['archive_bytes']} bytes), the other hosts wrote "
         f"{h['other_hosts_bytes']} bytes, gloo ports retried {len(h['port_retries'])}; {'; '.join(hosts)}; on {smi}")
 
 
@@ -1879,15 +1930,19 @@ def log_fast(shape: str, smi: str, legs: dict) -> None:
     full, a, b, dv = legs["gen"], legs["a"], legs["b"], legs.get("d")
     bh, text = legs.get("b_half"), a["text_bytes"]
     _log_hybrids(shape, "fast", smi, legs)
-    pipe = f"(c) cat | cli --jax {legs['c']['mb_per_s_bed']:.3f} MB/s of BED; " if "c" in legs else ""
+    pipe = (f"(c) cat | cli --jax {legs['c']['mb_per_s_bed']:.3f} MB/s of BED ({legs['c']['bytes_in']} bytes); "
+            if "c" in legs else "")
     device = "(d) not run (PERF.md §4)"
     if dv:
-        trace = dv["traced"]["trace"]
+        traced = dv.get("traced", dv)  # a tier's (d) that is not timed is its traced run
+        trace = traced["trace"]
         device = (
             f"(d) device only, timed {dv['mb_per_s_text']:.3f} MB/s of text ({dv['blocks']} blocks, "
             f"{dv['device_stats'].get('batches', 0)} batches in {dv['seconds']:.3f} s, per class "
-            f"{_classes_run(dv['per_class'])}), busy share {dv['busy_share_derived']} derived for it; traced run "
-            f"{dv['traced']['mb_per_s_text']:.3f} MB/s of text, busy share {trace.get('busy_share')} over "
+            f"{_classes_run(dv['per_class'])}; the tied blocks' host re-encodes {dv['reencode']['calls']} in "
+            f"{dv['reencode']['seconds']:.3f} s, by thread {dv['reencode']['by_thread']}), busy share "
+            f"{dv['busy_share_derived']} derived for it; traced run "
+            f"{traced['mb_per_s_text']:.3f} MB/s of text, busy share {trace.get('busy_share')} over "
             f"{trace.get('batches')} steady batches ({trace.get('batches_per_s')} batches/s, "
             f"{trace.get('device_ms_per_batch')} device ms a batch); max_memory_reserved "
             f"{dv['max_memory_reserved']}, page-locked bytes {dv.get('pinned_bytes')}, its transform on every core "
@@ -2027,25 +2082,29 @@ def main() -> int:
     launches["mtf_wide"] += helpers["wide"]
     wide_by_width[256] += helpers["wide"]
     # phase 16's config 1, then phases 13, (h) and 15 on bits 4, config 4,
-    # then 14 and 15 on the BED6 tiers, every corpus written at once; each
-    # tier's phase-15 legs (the other modes, device decode) have a
-    # deadline of their own.  On an H100 phases 1-12 took 347-466 s,
-    # config 1 about 10 s, the legs of bits 4 about 235 s more, config 4's
-    # about 70 and the BED6 tiers' about 215 with config3's (d) cut
-    # (PERF.md §5).  Each deadline leaves room for a machine 30% slower,
-    # and the last ends the phase by 1,160 s, inside the 1,200 s.
+    # phase 17's reads, then 14 and 15 on the BED6 tiers, every corpus
+    # written at once; each tier's phase-15 legs (the other modes, device
+    # decode) have a deadline of their own.  On an H100 phases 1-12 took
+    # 347-482 s, and config 1 and the scale phases 481 s on a machine whose
+    # phases 1-12 took 370 s, before (g), the pipe and reads' (d) were cut
+    # (PERF.md §5); slower machines take up to a quarter longer.  Each
+    # deadline leaves room for a slower machine, and the last ends the
+    # phase by 1,170 s, inside the 1,200 s.
+    t_scale = time.monotonic()
     with forker:
         launches["mtf_narrow"] += phase_config1(smi, forker)
-        by_tier = phase_scale(smi, {"bed3": (t_start + 790, t_start + 910), "config4": (t_start + 1000,) * 2,
-                                    "config3": (t_start + 1120,) * 2, "bits6": (t_start + 1120,) * 2,
-                                    "wide8": (t_start + 1120, t_start + 1160)},
+        by_tier = phase_scale(smi, {"bed3": (t_start + 780, t_start + 890), "config4": (t_start + 980,) * 2,
+                                    "reads": (t_start + 1080,) * 2, "config3": (t_start + 1120,) * 2,
+                                    "bits6": (t_start + 1140,) * 2, "wide8": (t_start + 1140, t_start + 1170)},
                               forker=forker)
+    log(f"times: phases 1-12 {t_scale - t_start:.3f} s, config 1 and the scale phases "
+        f"{time.monotonic() - t_scale:.3f} s; on {smi}")
     bits4 = {w: by_tier["bed3"][w] + by_tier["config4"][w] for w in by_tier["bed3"]}
-    bed6 = {w: sum(by_tier[t][w] for t in ("config3", "bits6", "wide8")) for w in bits4}
+    bed6 = {w: sum(by_tier[t][w] for t in ("config3", "bits6", "wide8", "reads")) for w in bits4}
     if not (all(bits4[w] for w in ("16", "128", "256")) and all(bed6[w] for w in ("32", "64", "256"))
-            and by_tier["config4"]["16"]):
+            and by_tier["config4"]["16"] and by_tier["config3"]["32"] and by_tier["reads"]["32"]):
         raise AssertionError(f"scale: an MTF width of a tier or mode did not launch: bits 4 {bits4}, BED6 {bed6}, "
-                             f"config4 {by_tier['config4']}")
+                             f"config4 {by_tier['config4']}, config3 {by_tier['config3']}, reads {by_tier['reads']}")
     scale = {w: bits4[w] + bed6[w] for w in bits4}
     launches["mtf_narrow"] += scale["16"]
     launches["mtf_narrow_windowed"] += scale["32"] + scale["64"]

@@ -357,6 +357,68 @@ def config4_scale_bed(path, target: int, seed: int = 19, n_total: int = 100_000_
     return _write_chromosomes(path, target, chromosome, GRCH38_LENGTHS)
 
 
+# the read names of ``reads_scale_bed``: the instrument, run and flowcell
+# of one library on two NovaSeq flowcells, and NovaSeq S4's tile numbers
+# (surfaces 1-2, swaths 1-2, tiles 01-78 of each)
+_READ_RUNS = np.array([list(b"A00123:45:HHKJ3DSXY:"), list(b"A00123:47:HGV2FDSXY:")], dtype=np.uint8)
+_S4_TILES = (np.array([1101, 1201, 2101, 2201])[:, None] + np.arange(78)).ravel()
+
+
+def reads_scale_bed(path, target: int, seed: int = 23, n_total: int = 20_000_000) -> tuple[str, int]:
+    """BASELINE config 3, "BED with extra id/score/strand columns", as the
+    BED6 that Starch users archive most: aligned single-end ChIP-seq
+    reads, as ``bedtools bamtobed`` writes them (name the SAM QNAME, score
+    the MAPQ, strand), ``n_total`` reads, the usable fragments the ENCODE
+    ChIP-seq standards ask of a replicate.  GRCh38's 24 chromosomes in
+    ``GRCH38_LENGTHS``' order, ``round(n_total * length / GRCH38_TOTAL)``
+    reads each, whole chromosomes until at least ``target`` bytes or the
+    last one; a smaller ``target`` gives a prefix of a larger one.
+
+    For each run of up to ``_LINES`` lines of a chromosome,
+    ``np.random.default_rng(seed)`` draws, each for every line of the
+    run: the start gaps, geometric with a mean of the chromosome's length
+    over its reads (after 10,000 and the run before); which gaps are 0 (1
+    in 20, duplicate starts; never a run's first, so the order holds
+    across runs); which reads hold an indel (1 in 50), its size (1..3) and
+    whether it is a deletion (51..53 bp) or an insertion (47..49 bp; 50 bp
+    otherwise); the flowcell (``45:HHKJ3DSXY`` or ``47:HGV2FDSXY``), the
+    lane (1..4), the S4 tile, x (1000..32000) and y (1000..37000) of the
+    Illumina name ``A00123:<run>:<flowcell>:<lane>:<tile>:<x>:<y>``;
+    whether the MAPQ is 42 (4 in 5, bowtie2's unique hits) and the rest's
+    (30..41, what ``samtools view -q 30`` keeps); the strand.  The lines
+    are ordered by start, then end, as ``sort-bed`` orders them: the
+    spans of a start's duplicates sorted among them, the names in draw
+    order, so that names are not ordered by position."""
+    gen = np.random.default_rng(seed)
+
+    def chromosome(name):
+        length = GRCH38_LENGTHS[name.decode()]
+        n = round(n_total * length / GRCH38_TOTAL)
+        last = 10_000
+        for lo in range(0, n, _LINES):
+            m = min(_LINES, n - lo)
+            gaps = gen.geometric(n / length, m)
+            dup = gen.integers(0, 20, m) == 0
+            dup[0] = False
+            starts = last + np.cumsum(np.where(dup, 0, gaps))
+            last = int(starts[-1])
+            indel, size, deletion = gen.integers(0, 50, m) == 0, gen.integers(1, 4, m), gen.integers(0, 2, m) == 1
+            stops = starts + 50 + np.where(indel, np.where(deletion, size, -size), 0)
+            stops = stops[np.lexsort((stops, starts))]  # starts are in order: the duplicates' spans sort
+            flowcell, lane = gen.integers(0, 2, m), gen.integers(1, 5, m)
+            tile = _S4_TILES[gen.integers(0, _S4_TILES.size, m)]
+            x, y = gen.integers(1000, 32001, m), gen.integers(1000, 37001, m)
+            mapq = np.where(gen.integers(0, 5, m) != 0, 42, gen.integers(30, 42, m))
+            strands = gen.integers(0, 2, m)
+            colon = _const(m, b":")
+            qname = _joined((_READ_RUNS[flowcell], np.ones((m, _READ_RUNS.shape[1]), bool)), _decimal_columns(lane),
+                            colon, _decimal_columns(tile), colon, _decimal_columns(x), colon, _decimal_columns(y))
+            yield _tab_rows([_const(m, name), _decimal_columns(starts), _decimal_columns(stops), qname,
+                             _decimal_columns(mapq), _strands(strands)])
+
+    return _write_chromosomes(path, target, chromosome, GRCH38_LENGTHS)
+
+
 def chr21_bed(n_intervals: int = 100_000, seed: int = 21) -> bytes:
     """BASELINE config 1, "Single-chromosome sorted BED (chr21, ~100K
     intervals, 3-column)": the bytes of ``make_chr21_bed`` in the
@@ -370,8 +432,12 @@ def chr21_bed(n_intervals: int = 100_000, seed: int = 21) -> bytes:
 
 # the scale corpora by shape, each ``(path, target, seed=..., <size>=...)``
 # -> (SHA-256 hex digest, bytes), where the size is ``n_per``, the
-# intervals a chromosome, or for config4 ``n_total``, the intervals of
-# all its chromosomes; and the tier of every block of each
+# intervals a chromosome, or for config4 and reads ``n_total``, the
+# intervals of all their chromosomes; the tier of every block of each;
+# and the shapes whose starts go back within a chromosome (config 4's
+# variant BED, which ``sort-bed`` has not ordered), so that the transform
+# takes its unsorted branch
 SCALE_SHAPES = {"bed3": gigabyte_bed, "config3": config3_scale_bed, "bits6": bits6_scale_bed,
-                "wide8": wide8_scale_bed, "config4": config4_scale_bed}
-SCALE_TIERS = {"bed3": 4, "config3": 5, "bits6": 6, "wide8": 8, "config4": 4}
+                "wide8": wide8_scale_bed, "config4": config4_scale_bed, "reads": reads_scale_bed}
+SCALE_TIERS = {"bed3": 4, "config3": 5, "bits6": 6, "wide8": 8, "config4": 4, "reads": 5}
+SCALE_UNSORTED = frozenset({"config4"})

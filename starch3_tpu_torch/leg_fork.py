@@ -57,6 +57,10 @@ LEG_MODULES = (
     "starch3_tpu_torch.parallel.distributed",
     "starch3_tpu_torch.parallel.pipeline",
 )
+# and what a traced leg imports later: ``torch.profiler``'s first start in
+# a process imports ``torch._inductor`` (9-14 s on an H100's host, in every
+# traced device-only leg), which the server imports once instead
+FORK_ONLY_MODULES = ("starch3_tpu_torch.scale_run", "torch._inductor")
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 READY_S = 300.0  # the server's imports took 10 s on an H100's host
 
@@ -184,7 +188,7 @@ def serve() -> int:
     """The server's loop, on one thread: it reads requests and reaps the
     legs that ended, and starts no thread (``fork_leg`` checks)."""
     t0 = time.perf_counter()
-    for name in (*LEG_MODULES, "starch3_tpu_torch.scale_run"):
+    for name in (*LEG_MODULES, *FORK_ONLY_MODULES):
         importlib.import_module(name)
     reply_fd = os.dup(1)
     os.dup2(2, 1)  # anything else printed goes to standard error

@@ -1,26 +1,28 @@
 """The port at the scale its users run: one leg of a streaming encode or
 decode of a scale corpus (``corpus.SCALE_SHAPES``: 3-column BED, the BED6
-shapes of the bits 5, 6 and 8 tiers, and BASELINE config 4's variant BED)
-per process, for ``chip_smoke.py`` phases 13 to 16 and
-``tests/test_torch_scale.py``; BASELINE config 5, one multi-host encode in
-several processes; config 4 at its stated scale; and config 1's one block
-device only.
+shapes of the bits 5, 6 and 8 tiers, BASELINE config 4's variant BED and
+config 3's aligned reads) per process, for ``chip_smoke.py`` phases 13 to
+17 and ``tests/test_torch_scale.py``; BASELINE config 5, one multi-host
+encode in several processes; configs 4 and 3 at their stated scale; and
+config 1's one block device only.
 
     python -m starch3_tpu_torch.scale_run gen OUT TARGET [--shape S] [--n-per N | --n-total N]
     python -m starch3_tpu_torch.scale_run encode IN OUT [--jax [--mode M] [--warm-up]] [--decode]
     python -m starch3_tpu_torch.scale_run pipe IN OUT
     python -m starch3_tpu_torch.scale_run device IN REF TRACE_DIR MISMATCH_DIR [--shape S] [--mode M]
-        [--untraced] [--host-rate] [--texts FILE]
+        [--untraced | --traced-only] [--host-rate] [--bz2] [--texts FILE] [--streams K]
     python -m starch3_tpu_torch.scale_run decode ARCHIVE CORPUS [--streams K]
     python -m starch3_tpu_torch.scale_run multihost IN REF --transport {gloo,manifest} [--device D] [--host-limit-s S]
     python -m starch3_tpu_torch.scale_run host -- CLI_ARGS
     python -m starch3_tpu_torch.scale_run config5 DIR [--target BYTES]
-    python -m starch3_tpu_torch.scale_run config4 DIR [--target BYTES] [--n-total N] [--device D]
+    python -m starch3_tpu_torch.scale_run {config4,reads} DIR [--target BYTES] [--n-total N] [--device D]
     python -m starch3_tpu_torch.scale_run oneblock IN [--device D]
 
 ``gen`` writes the corpus of shape S (``bed3``, the default, is
 ``corpus.gigabyte_bed``; ``config3``, ``bits6`` and ``wide8`` the BED6
-tiers; ``config4`` ``corpus.config4_scale_bed``, sized by ``--n-total``).  ``encode`` is ``api.compress_bed_file`` with
+tiers; ``config4`` ``corpus.config4_scale_bed`` and ``reads``
+``corpus.reads_scale_bed``, sized by ``--n-total``).  ``encode`` is
+``api.compress_bed_file`` with
 ``EncodeConfig()`` (the host path) or, with ``--jax``, the device path
 beside the host stealers on ``--device``, in the encode mode M
 (``MODES``: ``fast``, the default, ``fast_huff``, ``ranks`` or
@@ -37,10 +39,14 @@ them), feeds the texts in order to
 stream to the stream of the same chromosome in the archive REF, in mode
 M, twice: first under ``observability.device_trace`` into TRACE_DIR,
 where it reads the card's busy share, then timed (``--untraced``: the
-timed run alone); every block must be of the tier of shape S, and it
-counts each chromosome's lines whose start goes back (``starts_back``).  With
-``--host-rate`` the host cores then encode the same texts, without the
-feed (``host_run``).  A stream that differs leaves its text and its
+timed run alone; ``--traced-only``: the traced one alone); every block
+must be of the tier of shape S, and it
+counts each chromosome's lines whose start goes back (``starts_back``)
+and times the host re-encodes of tied blocks by thread (``reencode``).
+With ``--host-rate`` the host cores then encode the same texts, without
+the feed (``host_run``); with ``--bz2`` every stream is held to
+``bz2.compress`` of its text (``bz2_run``); with ``--streams K`` it
+encodes the first K chromosomes only.  A stream that differs leaves its text and its
 first differing block in MISMATCH_DIR, with that block's MTF input and
 the kernel's and the plain version's ranks on it (``mismatch-*.pt``).
 ``decode`` is ``api.decompress_starch_bytes(use_jax=True)`` of ARCHIVE
@@ -60,10 +66,12 @@ around its stages (``HOST_STAGES``; ``ONE_HOST_STAGES`` without
 (memory and disk, ``config5_target``, with a host's memory as
 ``multihost`` measured it), then runs ``gen``, the host
 path's ``encode`` and ``multihost --transport manifest`` in DIR.
-``config4`` is BASELINE config 4 at its stated 100M intervals: it checks
-the room (``config4_target``), then runs in DIR ``gen``, (a), (b) on a
-1.1e9-byte prefix and on the whole with (e), (d), and (a) and (d) on
-``gigabyte_bed``'s sorted bytes of the same size (``leg_config4``).
+``config4`` is BASELINE config 4 at its stated 100M intervals and
+``reads`` config 3 as 20M aligned single-end reads (``STATED``): each
+checks the room (``stated_target``), then runs in DIR ``gen``, (a), (b)
+on a 1.1e9-byte prefix and on the whole with (e), (d) held to
+``bz2.compress`` too, and on config 4 (a) and (d) on ``gigabyte_bed``'s
+sorted bytes of the same size (``leg_stated``).
 ``oneblock`` is BASELINE config 1's one block device only, three times
 in one process: its key's warm-up, its graph capture and a replay.
 
@@ -101,10 +109,11 @@ import subprocess
 import sys
 import tempfile
 import time
+import typing
 
 import numpy as np
 
-from starch3_tpu_torch.corpus import SCALE_SHAPES, SCALE_TIERS
+from starch3_tpu_torch.corpus import SCALE_SHAPES, SCALE_TIERS, SCALE_UNSORTED
 from starch3_tpu_torch.leg_fork import LEG_MODULES, spawn
 
 
@@ -140,18 +149,16 @@ def archive_blocks(path: str) -> int:
     return sum(len(s.block_bit_offsets) for s in archive_metadata(path).streams)
 
 
-def archive_streams_end(path: str) -> int:
-    """The archive's metadata offset: its streams are the bytes before it."""
-    with open(path, "rb") as f:
-        f.seek(-128, os.SEEK_END)
-        return int(f.read(20))
+def is_prefix_archive(half_path: str, whole_path: str) -> bool:
+    """Whether the half corpus's archive is the whole one's first streams
+    with their metadata, byte for byte (``prefix_archive``): where the
+    whole archive is the host path's, the host path's archive of the half
+    corpus, to which an archive held to the half one is held too."""
+    from starch3_tpu_torch.format.archive import StarchReader
 
-
-def streams_are_a_prefix(half_path: str, whole_path: str) -> bool:
-    """Whether the half corpus's archive holds the whole one's first streams."""
-    end = archive_streams_end(half_path)
-    with open(whole_path, "rb") as fw, open(half_path, "rb") as fh:
-        return fh.read(end) == fw.read(end)
+    with open(half_path, "rb") as fh, open(whole_path, "rb") as fw:
+        half, whole = fh.read(), fw.read()
+    return half == prefix_archive(whole, len(StarchReader.from_bytes(half).metadata.streams))
 
 
 @contextlib.contextmanager
@@ -160,10 +167,15 @@ def timed_calls(module, *names):
     function ``module.<name>`` made inside it by code that looks the name
     up in ``module`` when it calls it: the file entry's feed
     (``runtime.bed_transform_native``, whose one thread bounds a
-    streaming encode), or the host's share of ``pipeline.decode_streams``.
-    ``<name>_calls`` counts the calls."""
+    streaming encode), the host's share of ``pipeline.decode_streams``, or
+    the tie re-encodes of a device-only encode (``encoder``'s
+    ``encode_block_fragment``).  ``<name>_calls`` counts the calls and
+    ``<name>_threads`` splits the seconds by the name of the thread that
+    made them."""
+    import threading
+
     real = {n: getattr(module, n) for n in names}
-    spent = dict.fromkeys(names, 0.0) | {f"{n}_calls": 0 for n in names}
+    spent = dict.fromkeys(names, 0.0) | {f"{n}_calls": 0 for n in names} | {f"{n}_threads": {} for n in names}
 
     def timed(name):
         def call(*args, **kw):
@@ -171,7 +183,11 @@ def timed_calls(module, *names):
             try:
                 return real[name](*args, **kw)
             finally:
-                spent[name] += time.perf_counter() - t0
+                dt = time.perf_counter() - t0
+                by_thread = spent[f"{name}_threads"]
+                thread = threading.current_thread().name
+                by_thread[thread] = by_thread.get(thread, 0.0) + dt
+                spent[name] += dt
                 spent[f"{name}_calls"] += 1
 
         return call
@@ -393,8 +409,8 @@ def memory_growth(half: dict, whole: dict) -> tuple[float, float]:
 def hybrid_faults(pre: str, hybrids: dict, a: dict, card_text: float | None, host_text: float,
                   keep_card: bool, memory: bool = True) -> list[str]:
     """The gates of one mode's hybrids, ``b_half`` and ``b`` where it runs
-    them: the whole archive equals (a)'s, the half archive's streams are
-    (a)'s first (``prefix_of_a``), no batch abandoned, no demotion where
+    them: the whole archive equals (a)'s, the half archive is (a)'s first
+    streams with their metadata (``prefix_of_a``), no batch abandoned, no demotion where
     ``keep_card`` (the card alone, (d), at ``card_text`` MB/s of text where
     it ran, against the host's ``host_text``), and with ``memory``, from
     half to whole, the memory bounds of (f)."""
@@ -402,7 +418,8 @@ def hybrid_faults(pre: str, hybrids: dict, a: dict, card_text: float | None, hos
     if "b" in hybrids and hybrids["b"]["archive_digest"] != a["archive_digest"]:
         faults.append(f"{pre}(b) archive {hybrids['b']['archive_digest']} != host path's {a['archive_digest']}")
     if "b_half" in hybrids and not hybrids["b_half"]["prefix_of_a"]:
-        faults.append(f"{pre}(b) the half archive's streams are not the host archive's first streams")
+        faults.append(f"{pre}(b) the half archive's streams are not the host archive's first streams with "
+                      "their metadata")
     for label, key in (("(b) half", "b_half"), ("(b)", "b")):
         sched = hybrids[key]["scheduler_stats"] if key in hybrids else {}
         if sched.get("abandoned_batches"):
@@ -675,30 +692,36 @@ def _device_run(texts, chroms, want, args) -> dict:
     differing stream's text and record (``.json``) go to
     ``args.mismatch_dir`` as it is found; after the counters are read, its
     first differing block's MTF case (``save_block_case``) joins the
-    record."""
+    record.  The host re-encodes of tied blocks (``encode_block_fragment``,
+    which the drain calls on the driver's thread) are timed by thread
+    (``reencode``)."""
+    from starch3_tpu_torch.codec import encoder
     from starch3_tpu_torch.parallel import pipeline
 
     _zero_counters()
     bad, blocks, n = [], 0, 0
     t0 = time.perf_counter()
-    for i, enc in enumerate(pipeline.encode_streams_iter(
-            iter(texts), level=args.level, device=args.device, host_assist=False, **MODES[args.mode])):
-        meta, stream = want[i]
-        n, blocks = i + 1, blocks + len(enc.block_bit_offsets)
-        if meta.chromosome == chroms[i] and enc.data == stream and list(enc.block_bit_offsets) == list(
-                meta.block_bit_offsets):
-            continue
-        k = first_differing_block(enc.data, enc.block_bit_offsets, stream, meta.block_bit_offsets)
-        bad.append({"stream": i, "chrom": chroms[i], "ref_chrom": meta.chromosome, "first_block": k})
-        os.makedirs(args.mismatch_dir, exist_ok=True)
-        base = os.path.join(args.mismatch_dir, f"scale-mismatch-{chroms[i]}")
-        with open(base + ".text", "wb") as f:
-            f.write(texts[i])
-        with open(base + ".json", "w") as f:
-            json.dump(bad[-1], f)
+    with timed_calls(encoder, "encode_block_fragment") as spent:
+        for i, enc in enumerate(pipeline.encode_streams_iter(
+                iter(texts), level=args.level, device=args.device, host_assist=False, **MODES[args.mode])):
+            meta, stream = want[i]
+            n, blocks = i + 1, blocks + len(enc.block_bit_offsets)
+            if meta.chromosome == chroms[i] and enc.data == stream and list(enc.block_bit_offsets) == list(
+                    meta.block_bit_offsets):
+                continue
+            k = first_differing_block(enc.data, enc.block_bit_offsets, stream, meta.block_bit_offsets)
+            bad.append({"stream": i, "chrom": chroms[i], "ref_chrom": meta.chromosome, "first_block": k})
+            os.makedirs(args.mismatch_dir, exist_ok=True)
+            base = os.path.join(args.mismatch_dir, f"scale-mismatch-{chroms[i]}")
+            with open(base + ".text", "wb") as f:
+                f.write(texts[i])
+            with open(base + ".json", "w") as f:
+                json.dump(bad[-1], f)
     dt = time.perf_counter() - t0
     run = {"mode": args.mode, "seconds": dt, "mb_per_s_text": sum(map(len, texts)) / dt / 1e6, "streams": n,
-           "blocks": blocks, "mismatches": bad}
+           "blocks": blocks, "mismatches": bad,
+           "reencode": {"seconds": spent["encode_block_fragment"], "calls": spent["encode_block_fragment_calls"],
+                        "by_thread": spent["encode_block_fragment_threads"]}}
     run.update(_counters())
     for rec in bad:  # its launches come after the counters were read
         i, k = rec["stream"], rec["first_block"]
@@ -741,6 +764,20 @@ def host_run(texts, want, level: int) -> dict:
             "workers": os.cpu_count()}
 
 
+def bz2_run(texts, want, level: int) -> dict:
+    """``bz2.compress(text, level)`` of every text on every core (libbz2
+    leaves the GIL), each held to REF's stream of the same chromosome,
+    which the device-only streams equal: the device path against libbz2
+    itself."""
+    import bz2
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(os.cpu_count()) as pool:
+        got = pool.map(lambda text: bz2.compress(text, level), texts)
+        differ = sum(g != stream for g, (_meta, stream) in zip(got, want))
+    return {"seconds": time.perf_counter() - t0, "streams_differ": differ}
+
+
 def write_texts(path: str, chroms, texts) -> None:
     """A corpus's transformed texts in one file: a JSON line of the
     chromosomes and the texts' lengths, then the texts."""
@@ -763,29 +800,35 @@ def read_texts(path: str) -> tuple[list, list]:
 def leg_device(args, peak: PeakRss) -> dict:
     """Device only in ``args.mode``, twice: an encode traced by
     ``device_trace``, which also warms the process, then the timed one
-    (with ``args.untraced`` the timed one alone).
+    (with ``args.untraced`` the timed one alone; with ``args.traced_only``
+    the traced one alone, whose figures are then the leg's: for a corpus
+    whose rate the driver's host re-encodes bound, which tracing does not
+    slow).
     In each, every stream equals REF's stream of its chromosome, every
     block ran on the device and is of the tier of ``args.shape``, nothing
     was abandoned and the device was never benched, and the MTF kernels
     launched once per batch at the width of its class in the mode.  With
     ``args.host_rate`` the host cores then encode the same texts
-    (``host_run``)."""
+    (``host_run``); with ``args.bz2`` every stream is held to
+    ``bz2.compress`` of its text (``bz2_run``)."""
     from starch3_tpu_torch.format.archive import StarchReader
     from starch3_tpu_torch.observability import device_trace
     from starch3_tpu_torch.runtime import bed_transform_native
 
+    k = args.streams  # the first k chromosomes, or None: every one
     with open(args.ref, "rb") as f:
-        want = list(StarchReader.from_bytes(f.read()).iter_streams())
+        want = list(StarchReader.from_bytes(f.read()).iter_streams())[:k]
 
     def transform() -> tuple[list, list, list | None, float]:
         """Every chromosome's text, made on every core (the native transform
         leaves the GIL), with the lines whose start goes back in each
         (``starts_back``, counted beside it); or the texts alone, read from
         ``args.texts`` where an earlier leg wrote them; and the seconds
-        it took."""
+        it took.  With ``args.streams``, the first chromosomes' alone."""
         t0 = time.perf_counter()
         if args.texts and os.path.exists(args.texts):
-            return (*read_texts(args.texts), None, time.perf_counter() - t0)
+            chroms, texts = read_texts(args.texts)
+            return chroms[:k], texts[:k], None, time.perf_counter() - t0
         chroms, texts = [], []
         with open(args.inp, "rb") as f, concurrent.futures.ThreadPoolExecutor(os.cpu_count()) as pool:
             jobs = [(chrom, pool.submit(bed_transform_native, raw), pool.submit(starts_back, raw))
@@ -799,7 +842,7 @@ def leg_device(args, peak: PeakRss) -> dict:
             back = [b.result() for _, _, b in jobs]
         if args.texts:
             write_texts(args.texts, chroms, texts)
-        return chroms, texts, back, time.perf_counter() - t0
+        return chroms[:k], texts[:k], back[:k], time.perf_counter() - t0
 
     # every text is made before the encodes, whose rate is the device
     # path's, while the profiler starts
@@ -819,20 +862,27 @@ def leg_device(args, peak: PeakRss) -> dict:
            "text_bytes": sum(map(len, texts)), "transform_seconds": transform_s,
            # the chromosomes whose starts go back (the transform's unsorted branch) and their lines that do
            "starts_back": back and {"chroms": sum(map(bool, back)), "of": len(back), "lines": sum(back)}}
-    if traced is not None:
-        res["traced"] = traced
-    res.update(_device_run(texts, chroms, want, args))
-    if traced is not None:
-        # the timed run is not traced (the profiler slows it): its busy share
-        # is the traced device time a batch times its batches, over its seconds
-        ms = traced["trace"].get("device_ms_per_batch")
-        res["busy_share_derived"] = ms and ms * res["device_stats"].get("batches", 0) / (res["seconds"] * 1e3)
-        res["faults"] = res["faults"] + [f"traced: {f}" for f in traced["faults"]]
+    if args.traced_only:  # the one run, traced, is the leg's
+        res.update(traced, busy_share_derived=traced["trace"].get("busy_share"))
+    else:
+        if traced is not None:
+            res["traced"] = traced
+        res.update(_device_run(texts, chroms, want, args))
+        if traced is not None:
+            # the timed run is not traced (the profiler slows it): its busy share
+            # is the traced device time a batch times its batches, over its seconds
+            ms = traced["trace"].get("device_ms_per_batch")
+            res["busy_share_derived"] = ms and ms * res["device_stats"].get("batches", 0) / (res["seconds"] * 1e3)
+            res["faults"] = res["faults"] + [f"traced: {f}" for f in traced["faults"]]
     res.update(_memory(args.device, peak))
     if args.host_rate:
         res["host"] = host_run(texts, want, args.level)
         if res["host"]["streams_differ"]:
             res["faults"] = res["faults"] + [f"host path: {res['host']['streams_differ']} streams differ from REF's"]
+    if args.bz2:
+        res["bz2"] = bz2_run(texts, want, args.level)
+        if res["bz2"]["streams_differ"]:
+            res["faults"] = res["faults"] + [f"{res['bz2']['streams_differ']} streams differ from bz2.compress"]
     return res
 
 
@@ -1233,41 +1283,59 @@ def leg_config5(args, peak: PeakRss) -> dict:
     return res
 
 
-CONFIG4_PREFIX = 1_100_000_000  # (b)'s prefix corpus: whole chromosomes to phase 13's 1.1e9 bytes
-CONFIG4_LIMIT_S = 900.0  # each of config 4's legs
-# what config 4's run holds, a byte of BED: the device-only leg holds every
-# chromosome's raw lines while it transforms them, and every text after,
-# beside its start (``CONFIG5_START_MB``); on disk the corpus, its sorted
-# twin and the prefix, and four archives
-CONFIG4_MEM_PER_BYTE = 1.5
-CONFIG4_LARGEST_CHROM = 200_000_000  # chr1's bytes at 100M intervals, at most
+STATED_PREFIX = 1_100_000_000  # (b)'s prefix corpus: whole chromosomes to phase 13's 1.1e9 bytes
+STATED_LIMIT_S = 900.0  # each leg of a stated-scale run
 
 
-def config4_target(target: int, mem: int, free: int, margin: float = 0.8) -> dict:
-    """The largest config-4 corpus its run can hold, up to ``target``
-    bytes of BED: the device-only leg's memory (``CONFIG4_MEM_PER_BYTE``
-    above ``CONFIG5_START_MB``) within ``margin`` of ``mem`` bytes
-    available, and the corpus, its sorted twin, the 1.1e9-byte prefix and
-    four archives within ``margin`` of ``free`` bytes of disk.  Less the
-    largest chromosome, since the writer appends whole ones."""
-    by_mem = (margin * mem - CONFIG5_START_MB * 1e6) / CONFIG4_MEM_PER_BYTE
-    by_disk = (margin * free - CONFIG4_PREFIX) / (2 + 4 * CONFIG5_ARCHIVE_RATIO)
-    fit = int(min(by_mem, by_disk)) - CONFIG4_LARGEST_CHROM
+class Stated(typing.NamedTuple):
+    """A BASELINE config that ``leg_stated`` runs at its stated scale, by
+    its shape in ``corpus.SCALE_SHAPES`` (whose writer's ``n_total`` is
+    that scale)."""
+    # what its device-only leg holds a byte of BED above ``CONFIG5_START_MB``:
+    # every chromosome's raw lines while it transforms them, and every text
+    # after (0.15 of the BED at config 4, 0.72 at reads)
+    mem_per_byte: float
+    largest_chrom: int  # its largest chromosome's bytes (chr1's), at most
+
+
+# on a shape of ``corpus.SCALE_UNSORTED`` (config 4) the leg also runs (a)
+# and (d) on ``gigabyte_bed``'s sorted bytes of the same size, its twin
+STATED = {"config4": Stated(1.5, 200_000_000), "reads": Stated(2.0, 120_000_000)}
+
+
+def stated_target(shape: str, target: int, mem: int, free: int, margin: float = 0.8) -> dict:
+    """The largest corpus of ``shape`` that its stated-scale run can hold,
+    up to ``target`` bytes of BED: the device-only leg's memory
+    (``Stated.mem_per_byte`` above ``CONFIG5_START_MB``) within ``margin``
+    of ``mem`` bytes available, and the corpus (with config 4's sorted
+    twin), the 1.1e9-byte prefix and the archives (a), (b) half and whole
+    (and the twin's (a)) of ``CONFIG5_ARCHIVE_RATIO`` within ``margin`` of
+    ``free`` bytes of disk.  Less the largest chromosome, since the writer
+    appends whole ones."""
+    st = STATED[shape]
+    beds, archives = (2, 4) if shape in SCALE_UNSORTED else (1, 3)
+    by_mem = (margin * mem - CONFIG5_START_MB * 1e6) / st.mem_per_byte
+    by_disk = (margin * free - STATED_PREFIX) / (beds + archives * CONFIG5_ARCHIVE_RATIO)
+    fit = int(min(by_mem, by_disk)) - st.largest_chrom
     return {"target": min(target, fit), "asked": target, "by_memory": int(by_mem), "by_disk": int(by_disk),
             "cut_by": None if fit >= target else ("memory" if by_mem <= by_disk else "disk")}
 
 
 def _leg_summary(line: dict) -> dict:
-    """A config-4 leg's figures: MB/s of BED and of text, device blocks of
-    all blocks, tie re-encodes by class, the transform's seconds, (d)'s
-    busy share, and the starts that go back."""
+    """A stated-scale leg's figures: MB/s of BED and of text, device blocks
+    of all blocks, blocks and tie re-encodes by class and the seconds of
+    those re-encodes by thread, the transform's seconds, (d)'s busy share
+    and its hold to ``bz2.compress``, and the starts that go back."""
     out = {k: line[k] for k in ("seconds", "mb_per_s_bed", "mb_per_s_text", "text_bytes", "blocks",
-                                "transform_seconds", "busy_share_derived", "starts_back", "bytes", "digest")
+                                "transform_seconds", "busy_share_derived", "starts_back", "bytes", "digest",
+                                "reencode", "bz2")
            if k in line}
     st = line.get("device_stats")
     if st is not None:
         out["device_blocks"] = st.get("blocks", 0)
-        out["tie_reencodes"] = {c: v["tie_reencodes"] for c, v in line["per_class"].items() if v["blocks"]}
+        ran = {c: v for c, v in line["per_class"].items() if v["blocks"]}
+        out["blocks_by_class"] = {c: v["blocks"] for c, v in ran.items()}
+        out["tie_reencodes"] = {c: v["tie_reencodes"] for c, v in ran.items()}
         out["scheduler_stats"] = line["scheduler_stats"]
         out["width_launches"] = line["width_launches"]
     if "traced" in line:
@@ -1282,69 +1350,75 @@ def _leg_summary(line: dict) -> dict:
     return out
 
 
-def config4_faults(legs: dict) -> list[str]:
-    """Config 4's gates on its legs (each leg's own gates failed it
-    already: streams against (a)'s, tiers, launches by width, fallbacks):
-    the hybrids' (``hybrid_faults``: (b)'s archive equals (a)'s, the
-    prefix's streams are (a)'s first, nothing abandoned, memory from
-    prefix to whole within (f)'s bounds, and no demotion where (d) beats
-    (a)'s MB/s of text); (e) gives back the corpus; some chromosome's
-    starts go back; and on the sorted twin, the same size of
-    ``gigabyte_bed``, (d)'s streams equal its (a)'s.  The memory bounds
-    hold where the prefix is the 1.1e9-byte one, which runs past the
-    point where the encode's memory levels off (phase 13 (f)); a smaller
-    one, as on the CPU, does not, and its growth is only printed."""
+def stated_faults(shape: str, legs: dict) -> list[str]:
+    """The gates of a stated-scale run on its legs (each leg's own gates
+    failed it already: streams against (a)'s and ``bz2.compress``, tiers,
+    launches by width, fallbacks): the hybrids' (``hybrid_faults``: (b)'s
+    archive equals (a)'s, the prefix's streams are (a)'s first, nothing
+    abandoned, memory from prefix to whole within (f)'s bounds, and no
+    demotion where (d) beats (a)'s MB/s of text); (e) gives back the
+    corpus; on config 4 some chromosome's starts go back.  The memory bounds hold where the prefix
+    is the 1.1e9-byte one, which runs past the point where the encode's
+    memory levels off (phase 13 (f)); a smaller one, as on the CPU, does
+    not, and its growth is only printed."""
     a, dv, full = legs["a"], legs["d"], legs["gen"]
     host_text = dv["text_bytes"] / a["seconds"] / 1e6
     faults = hybrid_faults("", legs, a, dv["mb_per_s_text"], host_text, dv["mb_per_s_text"] >= host_text,
-                           memory=legs["gen_prefix"]["bytes"] >= CONFIG4_PREFIX)
+                           memory=legs["gen_prefix"]["bytes"] >= STATED_PREFIX)
     dec = legs["b"]["decode"]
     if (dec["digest"], dec["bytes"]) != (full["digest"], full["bytes"]):
         faults.append(f"(e) decode {dec['digest']} of {dec['bytes']} bytes != the corpus's {full['digest']} of "
                       f"{full['bytes']}")
-    if not (dv.get("starts_back") or {}).get("chroms"):
+    if shape in SCALE_UNSORTED and not (dv.get("starts_back") or {}).get("chroms"):
         faults.append(f"(d) no chromosome's starts go back: {dv.get('starts_back')}")
-    return [f"config4 {f}" for f in faults]
+    return [f"{shape} {f}" for f in faults]
 
 
-def leg_config4(args, peak: PeakRss) -> dict:
-    """BASELINE config 4 at its stated scale, once: the room checked first
-    (``config4_target``: ``MemAvailable`` and the free disk of
+def leg_stated(args, peak: PeakRss) -> dict:
+    """A BASELINE config at its stated scale (``STATED``, by the leg's
+    name: ``config4``, ``reads``), once: the room checked first
+    (``stated_target``: ``MemAvailable`` and the free disk of
     ``args.dir``), then in child processes forked by a
-    ``leg_fork.LegForker``: ``gen`` of the config-4 corpus at the target
-    that fits and of its prefix, whole chromosomes to 1.1e9 bytes (to half
-    the target where that is less; written together); (a) the host path's
+    ``leg_fork.LegForker``: ``gen`` of the corpus at the target that fits
+    and of its prefix, whole chromosomes to 1.1e9 bytes (to half the
+    target where that is less; written together); (a) the host path's
     archive; (b) the hybrid on the prefix and on the whole corpus, with (e)
     the decode of the whole one's archive; (d) device only under
-    ``STARCH3_TPU_NO_HOST_FALLBACK=1``, traced then timed.  Then, one leg
-    at a time as before, the sorted twin: ``gen`` of ``gigabyte_bed``'s
-    bytes of the corpus's size, ``args.n_total / 50`` intervals a
-    chromosome (its 2,000,000 at 100M intervals), its (a), and its (d)
-    timed alone.  Every leg's figures (``_leg_summary``) are printed as it
-    ends; the gates are ``config4_faults``.  What it wrote in
-    ``args.dir`` is removed."""
+    ``STARCH3_TPU_NO_HOST_FALLBACK=1``, traced then timed, then held to
+    ``bz2.compress`` (``--bz2``).  On config 4 then, one leg at a time as
+    before, the sorted twin: ``gen`` of ``gigabyte_bed``'s bytes of the
+    corpus's size, ``args.n_total / 50`` intervals a chromosome (its
+    default 2,000,000 without ``--n-total``: config 4's default 100M / 50),
+    its (a), and its (d) timed alone.  Every
+    leg's figures (``_leg_summary``) are printed as it ends; the gates are
+    ``stated_faults``.  What it wrote in ``args.dir`` is removed."""
+    import threading
+
     from starch3_tpu_torch.leg_fork import LegForker, LegTimeout, leg_times
 
+    shape = args.leg
     os.makedirs(args.dir, exist_ok=True)
     mem, free = mem_available(), shutil.disk_usage(args.dir).free
-    room = dict(config4_target(args.target, mem, free), mem_available=mem, disk_free=free)
+    room = dict(stated_target(shape, args.target, mem, free), mem_available=mem, disk_free=free)
     print(json.dumps({"room": room}), flush=True)
-    path = {k: os.path.join(args.dir, f"config4-{k}") for k in (
+    path = {k: os.path.join(args.dir, f"{shape}-{k}") for k in (
         "corpus.bed", "prefix.bed", "sorted.bed", "a.starch", "b_half.starch", "b.starch", "sorted-a.starch")}
-    traces = [os.path.join(args.dir, f"config4-trace{i}") for i in range(2)]
+    traces = [os.path.join(args.dir, f"{shape}-trace{i}") for i in range(2)]
     no_fallback = {"STARCH3_TPU_NO_HOST_FALLBACK": "1"}
-    res = {"leg": "config4", "room": room, "legs": {}, "faults": []}
+    res = {"leg": shape, "room": room, "legs": {}, "faults": []}
+    printing = threading.Lock()  # the two gen legs end on threads of their own
     t0 = time.perf_counter()
 
     def leg(forker, name, argv, env=None) -> dict:
-        run = forker.run(argv, CONFIG4_LIMIT_S, env)
+        run = forker.run(argv, STATED_LIMIT_S, env)
         lines = run.stdout.decode().splitlines()
         line = json.loads(lines[-1]) if lines else {}
         line.pop("memory_series", None)
         if "timing" in line:
             line["times"] = leg_times(line, run.launched_at)
         res["legs"][name] = line
-        print(json.dumps({name: _leg_summary(line)}), flush=True)
+        with printing:
+            print(json.dumps({name: _leg_summary(line)}), flush=True)
         if run.returncode:
             raise RuntimeError(f"{name}: exit {run.returncode}: {line.get('faults')} "
                                f"{run.stderr.decode()[-3000:]}")
@@ -1352,30 +1426,33 @@ def leg_config4(args, peak: PeakRss) -> dict:
 
     try:
         with LegForker() as forker, concurrent.futures.ThreadPoolExecutor(2) as ex:
-            gens = [ex.submit(leg, forker, name, ["gen", path[f], t, "--shape", "config4", "--n-total",
-                                                  args.n_total])
+            size = [] if args.n_total is None else ["--n-total", args.n_total]
+            gens = [ex.submit(leg, forker, name, ["gen", path[f], t, "--shape", shape, *size])
                     for name, f, t in (("gen", "corpus.bed", room["target"]),
-                                       ("gen_prefix", "prefix.bed", min(CONFIG4_PREFIX, room["target"] // 2)))]
+                                       ("gen_prefix", "prefix.bed", min(STATED_PREFIX, room["target"] // 2)))]
             full, _ = (g.result() for g in gens)
             legs = res["legs"]
             leg(forker, "a", ["encode", path["corpus.bed"], path["a.starch"]])
             on = ["--device", args.device]
             leg(forker, "b_half", ["encode", path["prefix.bed"], path["b_half.starch"], "--jax", *on])
-            legs["b_half"]["prefix_of_a"] = streams_are_a_prefix(path["b_half.starch"], path["a.starch"])
+            legs["b_half"]["prefix_of_a"] = is_prefix_archive(path["b_half.starch"], path["a.starch"])
             leg(forker, "b", ["encode", path["corpus.bed"], path["b.starch"], "--jax", "--decode", *on])
             leg(forker, "d", ["device", path["corpus.bed"], path["a.starch"], traces[0], args.dir, "--shape",
-                              "config4", *on], no_fallback)
-            leg(forker, "gen_sorted", ["gen", path["sorted.bed"], full["bytes"], "--n-per", args.n_total // 50])
-            leg(forker, "sorted_a", ["encode", path["sorted.bed"], path["sorted-a.starch"]])
-            leg(forker, "sorted_d", ["device", path["sorted.bed"], path["sorted-a.starch"], traces[1], args.dir,
-                                     "--untraced", *on], no_fallback)
-        res["faults"] = config4_faults(res["legs"])
+                              shape, "--bz2", *on], no_fallback)
+            if shape in SCALE_UNSORTED:
+                per = [] if args.n_total is None else ["--n-per", args.n_total // 50]
+                leg(forker, "gen_sorted", ["gen", path["sorted.bed"], full["bytes"], *per])
+                leg(forker, "sorted_a", ["encode", path["sorted.bed"], path["sorted-a.starch"]])
+                leg(forker, "sorted_d", ["device", path["sorted.bed"], path["sorted-a.starch"], traces[1], args.dir,
+                                         "--untraced", *on], no_fallback)
+        res["faults"] = stated_faults(shape, res["legs"])
         res["memory_growth"] = memory_growth(legs["b_half"], legs["b"])
-        # the feed's transform in (a), one thread, and (d)'s, every core: unsorted against sorted bytes
-        res["transform_seconds"] = {k: {"config4": legs[k]["transform_seconds"],
-                                        "sorted": legs[f"sorted_{k}"]["transform_seconds"]} for k in ("a", "d")}
+        if shape in SCALE_UNSORTED:
+            # the feed's transform in (a), one thread, and (d)'s, every core: unsorted against sorted bytes
+            res["transform_seconds"] = {k: {shape: legs[k]["transform_seconds"],
+                                            "sorted": legs[f"sorted_{k}"]["transform_seconds"]} for k in ("a", "d")}
     except (RuntimeError, LegTimeout) as e:
-        res["faults"] = [f"config4 {e}"]
+        res["faults"] = [f"{shape} {e}"]
     finally:
         for p in path.values():
             if os.path.exists(p):
@@ -1421,7 +1498,8 @@ def main(argv=None) -> int:
     g.add_argument("out")
     g.add_argument("target", type=lambda s: int(float(s)))
     g.add_argument("--n-per", type=int, help="intervals a chromosome (the shape's default without it)")
-    g.add_argument("--n-total", type=int, help="config4: intervals of all its chromosomes (100M without it)")
+    g.add_argument("--n-total", type=int, help="config4 and reads: intervals of all their chromosomes (the "
+                   "shape's default without it)")
     g.add_argument("--shape", choices=sorted(SCALE_SHAPES), default="bed3")
     for name in ("encode", "pipe", "device"):
         p = sub.add_parser(name)
@@ -1441,9 +1519,13 @@ def main(argv=None) -> int:
     dev.add_argument("trace_dir")
     dev.add_argument("mismatch_dir")
     dev.add_argument("--shape", choices=sorted(SCALE_SHAPES), default="bed3", help="the corpus's shape, for its tier")
-    dev.add_argument("--untraced", action="store_true", help="the timed encode alone, without the traced one")
+    once = dev.add_mutually_exclusive_group()
+    once.add_argument("--untraced", action="store_true", help="the timed encode alone, without the traced one")
+    once.add_argument("--traced-only", action="store_true", help="the traced encode alone, without the timed one")
     dev.add_argument("--host-rate", action="store_true", help="then the host cores on the same texts (host_run)")
     dev.add_argument("--texts", help="the corpus's texts: written here when missing, read from here when not")
+    dev.add_argument("--bz2", action="store_true", help="then hold every stream to bz2.compress(text) (bz2_run)")
+    dev.add_argument("--streams", type=int, help="encode the corpus's first STREAMS chromosomes only")
     dec = sub.add_parser("decode")
     dec.add_argument("archive")
     dec.add_argument("corpus")
@@ -1459,12 +1541,13 @@ def main(argv=None) -> int:
     c5 = sub.add_parser("config5")
     c5.add_argument("dir")
     c5.add_argument("--target", type=lambda s: int(float(s)), default=10_000_000_000)
-    c4 = sub.add_parser("config4")
-    c4.add_argument("dir")
-    c4.add_argument("--target", type=lambda s: int(float(s)), default=10_000_000_000,
-                    help="BED bytes at most (the whole corpus, about 2.1e9, without it)")
-    c4.add_argument("--n-total", type=int, default=100_000_000, help="the corpus's intervals")
-    c4.add_argument("--device", default="cuda")
+    for shape in STATED:
+        st = sub.add_parser(shape)
+        st.add_argument("dir")
+        st.add_argument("--target", type=lambda s: int(float(s)), default=10_000_000_000,
+                        help="BED bytes at most (the whole corpus without it)")
+        st.add_argument("--n-total", type=int, help="the corpus's intervals (the writer's default without it)")
+        st.add_argument("--device", default="cuda")
     ob = sub.add_parser("oneblock")
     ob.add_argument("inp")
     ob.add_argument("--device", default="cuda")
@@ -1484,8 +1567,8 @@ def main(argv=None) -> int:
     out = getattr(args, "out", None)
     peak = PeakRss(progress=lambda: os.path.getsize(out) if out and os.path.exists(out) else 0).start()
     legs = {"gen": leg_gen, "encode": leg_encode, "pipe": leg_pipe, "device": leg_device, "decode": leg_decode,
-            "multihost": leg_multihost, "host": leg_host, "config5": leg_config5, "config4": leg_config4,
-            "oneblock": leg_oneblock}
+            "multihost": leg_multihost, "host": leg_host, "config5": leg_config5, "oneblock": leg_oneblock}
+    legs.update(dict.fromkeys(STATED, leg_stated))
     try:
         res = legs[args.leg](args, peak)
     finally:

@@ -79,7 +79,8 @@ def test_mesh_launches_expected(n):
 def _scale_legs(shape: str, demotions: int = 0, device_mb_s: float = 100.0, exact_hybrids: bool = False) -> dict:
     """One tier's legs as phases 13 to 15 read them: 700 MB of text, the
     host path 10 s (70 MB/s of text), hybrids whose card took 9 batches
-    of bits 5, the device-only runs 60 batches each, 55 in the traced
+    of bits 5 (27 blocks, 9 of them tied) and which wrote the host path's
+    archive, the device-only runs 60 batches each, 55 in the traced
     window, where the tier runs them; a half run and a pipe leg where the
     tier has them; and the
     tier's phase-15 legs: each mode's hybrids (as fast mode's) and its
@@ -93,21 +94,24 @@ def _scale_legs(shape: str, demotions: int = 0, device_mb_s: float = 100.0, exac
         launches = dict.fromkeys(("16", "32", "64", "128", "256"), 0)
         launches[str(scale_run.mode_width(mode, 5))] = batches
         return {"device_stats": {"batches": batches, "batches_bits5": batches, "blocks": 3 * batches},
+                "per_class": {str(c): {"blocks": 3 * batches if c == 5 else 0, "tie_reencodes": batches if c == 5
+                                       else 0} for c in scale_run.WIDTH_OF_CLASS},
                 "width_launches": launches,
                 "scheduler_stats": dict({"demotions": 0, "repromotions": 0, "abandoned_batches": 0,
                                          "class_skips": 0}, **(sched or {}))}
 
     tier = chip_smoke.SCALE_RUNS[shape]
-    hybrid = dict(counters(9, {"demotions": demotions}), archive_digest="x",
+    hybrid = dict(counters(9, {"demotions": demotions}), archive_digest="x", archive_bytes=500,
                   decode={"digest": "c", "bytes": 1_100}, peak_rss_mb=5000.0, rss_start_mb=4500.0,
                   max_memory_reserved=1_000)
     half = dict(hybrid, peak_rss_mb=4990.0, prefix_of_a=True)
     legs = {"gen": {"digest": "c", "bytes": 1_100},
             "a": {"archive_digest": "x", "archive_bytes": 500, "seconds": 10.0, "text_bytes": 700_000_000},
             "b": hybrid}
-    if tier.device_only:
+    if tier.device_only:  # traced, then timed; or, where the tier's (d) is not timed, its traced run alone
         legs["d"] = dict(counters(60), text_bytes=700_000_000, mb_per_s_text=device_mb_s,
-                         traced=dict(counters(60), trace={"batches": 55}))
+                         **({"traced": dict(counters(60), trace={"batches": 55})} if tier.timed else
+                            {"trace": {"batches": 55}}))
     if tier.half:
         legs["b_half"] = half
     if tier.pipe:
@@ -130,7 +134,7 @@ def _scale_legs(shape: str, demotions: int = 0, device_mb_s: float = 100.0, exac
                             "width_launches": {"16": 7, "32": 0, "64": 0, "128": 0, "256": 0},
                             "scheduler_stats": {"demotions": 0, "repromotions": 0, "abandoned_batches": 0,
                                                 "class_skips": 0}} for i in range(2)]}
-    if tier.unsorted:  # config 4: every chromosome's starts go back
+    if shape in corpus.SCALE_UNSORTED:  # config 4: every chromosome's starts go back
         legs["d"]["starts_back"] = {"chroms": 9, "of": 9, "lines": 4_000_000}
     if tier.decode:
         legs["g"] = {"digest": "p", "bytes": 400, "streams": tier.decode, "archive_blocks": 72,
@@ -146,7 +150,8 @@ def test_scale_gates_pass_a_healthy_tier(shape):
 
 @pytest.mark.parametrize("shape, device_mb_s, fails", [
     ("wide8", 100.0, True), ("wide8", 70.0, True), ("wide8", 69.9, False), ("config3", 69.9, False),
-    ("config3", 100.0, False), ("bed3", 100.0, True), ("bed3", 69.9, True)])
+    ("config3", 100.0, False), ("bed3", 100.0, True), ("bed3", 69.9, True), ("reads", 70.0, True),
+    ("reads", 69.9, False)])
 def test_scale_demotion_fails_where_the_card_must_be_kept(shape, device_mb_s, fails):
     """Gate 6: the host path encodes 70 MB/s of text; a hybrid that benched
     the card fails a BED6 tier when the card alone is at least that fast,
@@ -180,13 +185,16 @@ def test_tier_launches_add_the_hybrids_and_both_device_runs():
     """The kernels line's share of a tier: the MTF launches by width of (b)
     half and whole and of (d)'s traced and timed runs, and of each
     phase-15 mode's hybrids and (d)."""
-    legs = _scale_legs("config3")  # its (d) is cut: the hybrids alone
-    assert chip_smoke.tier_launches(legs) == {"16": 0, "32": 9 + 9, "64": 0, "128": 0, "256": 0}
+    legs = _scale_legs("config3")  # its (d) and half are cut: the whole corpus's hybrid alone
+    assert chip_smoke.tier_launches(legs) == {"16": 0, "32": 9, "64": 0, "128": 0, "256": 0}
+    legs["b_half"] = _scale_legs("bed3")["b_half"]
     legs["d"] = _scale_legs("bits6")["d"]
     legs["d"]["traced"]["width_launches"] = dict(legs["d"]["traced"]["width_launches"], **{"256": 4})
     assert chip_smoke.tier_launches(legs) == {"16": 0, "32": 9 + 9 + 60 + 60, "64": 0, "128": 0, "256": 4}
     assert chip_smoke.tier_launches(_scale_legs("wide8")) == {"16": 0, "32": 9 + 60 + 60, "64": 0, "128": 0,
                                                               "256": 60}
+    # reads' (d) is its traced run alone
+    assert chip_smoke.tier_launches(_scale_legs("reads")) == {"16": 0, "32": 9 + 60, "64": 0, "128": 0, "256": 0}
     # bed3's fast_huff half and whole, 9 batches each, and three (d) runs of 60; with
     # the exact modes' half hybrids, 9 more each
     assert chip_smoke.tier_launches(_scale_legs("bed3"))["256"] == 2 * 9 + 3 * 60
@@ -211,11 +219,11 @@ def _mode_leg(legs, mode, key):
      "max_memory_reserved x1.1010"),
     ("bed3", lambda l: _mode_leg(l, "fast_huff", "b").update(peak_rss_mb=5064.0),
      "bed3 fast_huff (f) memory grew with the corpus: the encode's peak RSS above its start x1.1510"),
-    ("wide8", lambda l: l["g"].update(digest="q"), "wide8 (g) device decode q 400 of 1 streams != the corpus's p 400"),
-    ("wide8", lambda l: l["g"].update(streams=2),
-     "wide8 (g) device decode p 400 of 2 streams != the corpus's p 400 of 1"),
-    ("wide8", lambda l: l["g"]["device_stats"].update(decode_blocks=71),
-     "wide8 (g) device decode of 71 blocks != the archive's 72"),
+    ("bed3", lambda l: l["g"].update(digest="q"), "bed3 (g) device decode q 400 of 1 streams != the corpus's p 400"),
+    ("bed3", lambda l: l["g"].update(streams=2),
+     "bed3 (g) device decode p 400 of 2 streams != the corpus's p 400 of 1"),
+    ("bed3", lambda l: l["g"]["device_stats"].update(decode_blocks=71),
+     "bed3 (g) device decode of 71 blocks != the archive's 72"),
 ], ids=["archive", "half_prefix", "abandoned", "reserved", "rss", "decode_output", "decode_streams",
         "decode_blocks"])
 def test_scale_gates_of_the_other_modes_and_decode(shape, change, fault):
@@ -252,7 +260,7 @@ def _host(legs, transport, i):
 @pytest.mark.parametrize("transport", ["gloo", "manifest"])
 @pytest.mark.parametrize("change, fault", [
     (lambda l, t: l["h"][t].update(archive_digest="y"),
-     "host 0 archive y of 500 bytes != the host path's x of 500"),
+     "host 0 archive y of 500 bytes != (b) half's x of 500"),
     (lambda l, t: _host(l, t, 1).update(wrote_bytes=3), "host 1 wrote 3 bytes, where only host 0 writes"),
     (lambda l, t: _host(l, t, 1).update(exit=-9, killed=True), "host 1 exit -9 at its limit"),
     (lambda l, t: _host(l, t, 0)["scheduler_stats"].update(abandoned_batches=1), "host 0 abandoned batches"),
@@ -262,8 +270,9 @@ def _host(legs, transport, i):
      "host 0 fast: MTF launches by width {'16': 6"),
 ], ids=["archive", "host1_wrote", "exit", "abandoned", "no_device_blocks", "launches"])
 def test_scale_gates_of_multihost(transport, change, fault):
-    """(h), BASELINE config 5: each gate on a transport's two-host encode
-    fails bed3 with one message that names the transport and the host; a
+    """(h), BASELINE config 5, on bed3's half corpus: each gate on a
+    transport's two-host encode fails bed3 with one message that names the
+    transport and the host, host 0's archive held to (b)'s half archive; a
     demotion or a class skip in a host is printed, not gated."""
     legs = _scale_legs("bed3")
     assert chip_smoke.scale_faults("bed3", legs) == []
@@ -281,9 +290,52 @@ def test_scale_runs_hold_config4():
     no half corpus and no pipe, a demotion gated by (d)'s rate as on the
     BED6 tiers, and its starts that go back counted."""
     assert chip_smoke.SCALE_RUNS["config4"] == chip_smoke.ScaleTier(
-        1_200_000_000, None, pipe=False, keep_card=False, unsorted=True)
+        1_200_000_000, None, pipe=False, keep_card=False)
     assert corpus.SCALE_TIERS["config4"] == 4
-    assert not any(t.unsorted for shape, t in chip_smoke.SCALE_RUNS.items() if shape != "config4")
+    assert corpus.SCALE_UNSORTED == {"config4"}
+
+
+def test_scale_runs_hold_reads_and_config3s_cut():
+    """BASELINE config 3 as aligned reads is a tier of the scale phase:
+    whole chromosomes to 2.5e8 bytes (chr1-chr3, the fewest whose (d)
+    traces 50 batches), bits 5, no half corpus and no pipe, its (d) its
+    traced run alone.
+    The config3 tier is cut to its first chromosome (88.4 MB of 2,000,000
+    intervals), no half and no (d), and keeps the gate on its hybrid's
+    untied blocks on the card; bed3's exact modes encode 11 of its 22
+    chromosomes device only and decodes its first on the card (g)."""
+    assert chip_smoke.SCALE_RUNS["reads"] == chip_smoke.ScaleTier(250_000_000, None, pipe=False, keep_card=False,
+                                                                  timed=False)
+    assert [t for t, tier in chip_smoke.SCALE_RUNS.items() if not tier.timed] == ["reads"]
+    assert corpus.SCALE_TIERS["reads"] == 5
+    assert chip_smoke.SCALE_RUNS["config3"] == chip_smoke.ScaleTier(
+        80_000_000, None, pipe=False, keep_card=False, device_only=False, untied_on_card=True)
+    assert [t for t, tier in chip_smoke.SCALE_RUNS.items() if tier.untied_on_card] == ["config3"]
+    assert {r.mode: r.streams for r in chip_smoke.SCALE_RUNS["bed3"].modes} == {"fast_huff": 0, "ranks": 11,
+                                                                                "rle2": 11}
+    # (g) decodes bits 4's first stream, 20 blocks, and no other tier's
+    assert {t: tier.decode for t, tier in chip_smoke.SCALE_RUNS.items() if tier.decode} == {"bed3": 1}
+
+
+def test_scale_gates_hold_reads_traced_window():
+    """Reads' (d), its traced run alone, must hold 50 batches in its
+    traced window as a timed tier's traced run must."""
+    legs = _scale_legs("reads")
+    assert chip_smoke.scale_faults("reads", legs) == []
+    legs["d"]["trace"] = {"batches": 49}
+    assert chip_smoke.scale_faults("reads", legs) == ["reads (d) the traced window holds 49 batches, fewer than 50"]
+
+
+@pytest.mark.parametrize("blocks, tied, fault", [
+    (27, 9, None), (27, 27, "config3 (b) put no untied bits-5 block on the card: 27 blocks there, 27 of them tied"),
+    (0, 0, "config3 (b) put no untied bits-5 block on the card: 0 blocks there")], ids=["untied", "all_tied", "none"])
+def test_scale_gates_of_config3_want_untied_blocks_on_the_card(blocks, tied, fault):
+    """Config3's hybrid must put bits-5 blocks on the card whose rows come
+    back untied: the one scale run whose K1 w32 rows make its archive."""
+    legs = _scale_legs("config3")
+    legs["b"]["per_class"]["5"].update(blocks=blocks, tie_reencodes=tied)
+    faults = chip_smoke.scale_faults("config3", legs)
+    assert faults == [] if fault is None else (len(faults) == 1 and faults[0].startswith(fault)), faults
 
 
 @pytest.mark.parametrize("change, fault", [
@@ -372,3 +424,29 @@ def test_scale_run_config4_passes_its_gates_on_the_cpu(tmp_path):
     assert s["sorted_d"]["starts_back"]["chroms"] == 0
     assert set(res["transform_seconds"]) == {"a", "d"} and len(res["memory_growth"]) == 2
     assert os.listdir(tmp_path / "c4") == []
+
+
+def test_scale_run_reads_passes_its_gates_on_the_cpu(tmp_path):
+    """``scale_run reads`` at a tiny target on the CPU: 200,000 reads cut
+    to 3e6 bytes (chr1-chr3) and a prefix of half that; every leg runs and
+    prints its figures, the gates pass, and it removes what it wrote.
+    Every block is bits 5 and ties, so (d) re-encodes each on the
+    driver's thread (``s3tdevice``), and its streams equal
+    ``bz2.compress``; no sorted twin."""
+    r = subprocess.run([sys.executable, "-m", "starch3_tpu_torch.scale_run", "reads", tmp_path / "r", "--n-total",
+                        "200000", "--target", "3e6", "--device", "cpu"],
+                       capture_output=True, cwd=ROOT, timeout=300)
+    assert r.returncode == 0, r.stderr.decode()[-3000:]
+    lines = [json.loads(x) for x in r.stdout.decode().splitlines()]
+    res = lines[-1]
+    assert res["leg"] == "reads" and res["faults"] == [] and res["room"]["target"] == 3_000_000
+    printed = [k for x in lines[1:-1] for k in x]
+    assert sorted(printed) == sorted(res["summary"]) == sorted(["gen", "gen_prefix", "a", "b_half", "b", "d"])
+    s = res["summary"]
+    assert s["b"]["decode"]["digest"] == s["gen"]["digest"] and s["gen"]["bytes"] >= 3_000_000
+    d = s["d"]
+    assert d["blocks_by_class"] == d["tie_reencodes"] == {"5": d["blocks"]} and d["blocks"] >= 3
+    assert d["reencode"]["calls"] == d["blocks"] and set(d["reencode"]["by_thread"]) == {"s3tdevice"}
+    assert d["bz2"]["streams_differ"] == 0 and d["starts_back"]["chroms"] == 0
+    assert "transform_seconds" not in res and len(res["memory_growth"]) == 2
+    assert os.listdir(tmp_path / "r") == []

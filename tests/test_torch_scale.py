@@ -367,21 +367,35 @@ def test_fork_server_reports_its_threads_and_forks_on_them(tmp_path, forker):
         assert run.returncode == 0, run.stderr.decode()[-2000:]
 
 
+def test_fork_server_imports_what_the_profilers_first_start_imports():
+    """In a process that imported the fork server's modules, the first
+    ``torch.profiler`` start (each traced device-only leg's) imports no
+    more of ``torch._inductor``, ``torch._dynamo`` or
+    ``torch.distributed``: the server imported them once.  The imports
+    past ``LEG_MODULES`` start no thread (the count after them, the
+    server's ``threads``, is where its forks' guard stands) and leave CUDA
+    uninitialised, as the server's forks require."""
+    code = (
+        "import importlib, os, sys, torch\n"
+        "from starch3_tpu_torch import leg_fork\n"
+        "for m in leg_fork.LEG_MODULES: importlib.import_module(m)\n"
+        "legs = leg_fork.thread_count()\n"
+        "for m in leg_fork.FORK_ONLY_MODULES: importlib.import_module(m)\n"
+        "n, before = leg_fork.thread_count(), set(sys.modules)\n"
+        "p = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]); p.__enter__()\n"
+        "p.__exit__(None, None, None)\n"
+        "print([m for m in set(sys.modules) - before if m.startswith(('torch._inductor', 'torch._dynamo', "
+        "'torch.distributed'))], torch.cuda.is_initialized(), n - legs)\n")
+    r = _run(["-c", code])
+    assert r.returncode == 0, r.stderr.decode()[-2000:]
+    assert r.stdout.decode().split("\n")[-2] == "[] False 0"
+
+
 def test_leg_times_split_the_start():
     from starch3_tpu_torch import leg_fork
 
     res = {"timing": {"main_at": 105.0, "imports_s": 2.5, "cuda_init_s": 1.25, "work_s": 30.0}}
     assert leg_fork.leg_times(res, 100.0) == {"start_s": 7.5, "cuda_init_s": 1.25, "work_s": 30.0}
-
-
-def test_archive_streams_end_is_the_metadata_offset(small):
-    from starch3_tpu_torch.format.archive import StarchReader
-
-    d, _gen, _ = small
-    data = (d / "host.starch").read_bytes()
-    end = scale_run.archive_streams_end(str(d / "host.starch"))
-    streams = StarchReader.from_bytes(data).metadata.streams
-    assert end == streams[-1].byte_offset + streams[-1].size
 
 
 def test_peak_rss_sees_a_transient_allocation():
@@ -469,15 +483,16 @@ def test_gpu_busy_share_over_the_steady_window(tmp_path):
 
 # the BED6 scale shapes: (seed, ``n_per`` in the tests)
 BED6 = {"config3": 7, "bits6": 13, "wide8": 17}
-# and BASELINE config 4's, whose size is the intervals of all its chromosomes
-SHAPES = dict(BED6, config4=19)
+# and BASELINE config 4's and the aligned reads', whose size is the
+# intervals of all their chromosomes
+SHAPES = dict(BED6, config4=19, reads=23)
 
 
 def _size(shape: str, n: int) -> dict:
     """A scale writer's size argument for ``n`` intervals in the first
-    chromosome: ``n_per``, or for config4 the ``n_total`` that gives chr1
-    ``n`` intervals."""
-    if shape != "config4":
+    chromosome: ``n_per``, or for config4 and reads the ``n_total`` that
+    gives chr1 ``n`` intervals."""
+    if shape not in ("config4", "reads"):
         return {"n_per": n}
     return {"n_total": round(n * corpus.GRCH38_TOTAL / corpus.GRCH38_LENGTHS["chr1"])}
 
@@ -506,6 +521,71 @@ def _config4_lines(target: int, seed: int, n_total: int, run: int = 250_000) -> 
             out.append(b"".join(rows))
             n += len(out[-1])
     return b"".join(out)
+
+
+def _reads_lines(target: int, seed: int, n_total: int, run: int = 250_000) -> bytes:
+    """The aligned reads' spec, line by line: GRCh38's chromosomes in
+    order, each of its share of ``n_total`` reads, in runs of ``run``
+    lines; for each run the geometric start gaps, which are 0 (1 in 20,
+    never a run's first), which reads hold an indel (1 in 50), its size
+    and whether it is a deletion, the flowcell, lane, tile, x and y of the
+    name, whether the MAPQ is 42 and the rest's, the strand; the lines
+    sorted by start, then end, the names in draw order."""
+    gen = np.random.default_rng(seed)
+    tiles = [base + t for base in (1101, 1201, 2101, 2201) for t in range(78)]
+    runs = (b"45:HHKJ3DSXY", b"47:HGV2FDSXY")
+    out, n = [], 0
+    for name, length in corpus.GRCH38_LENGTHS.items():
+        if n >= target:
+            break
+        lines, last = round(n_total * length / corpus.GRCH38_TOTAL), 10_000
+        for lo in range(0, lines, run):
+            m = min(run, lines - lo)
+            gaps, dup = gen.geometric(lines / length, m).tolist(), (gen.integers(0, 20, m) == 0).tolist()
+            indel, size, deletion = (gen.integers(0, 50, m) == 0).tolist(), gen.integers(1, 4, m).tolist(), \
+                (gen.integers(0, 2, m) == 1).tolist()
+            flowcell, lane, tile = gen.integers(0, 2, m).tolist(), gen.integers(1, 5, m).tolist(), \
+                gen.integers(0, 312, m).tolist()
+            x, y = gen.integers(1000, 32001, m).tolist(), gen.integers(1000, 37001, m).tolist()
+            high, low, strand = (gen.integers(0, 5, m) != 0).tolist(), gen.integers(30, 42, m).tolist(), \
+                gen.integers(0, 2, m).tolist()
+            spans = []
+            for i in range(m):
+                last += 0 if dup[i] and i else gaps[i]
+                spans.append((last, last + 50 + ((size[i] if deletion[i] else -size[i]) if indel[i] else 0)))
+            rows = [b"%s\t%d\t%d\tA00123:%s:%d:%d:%d:%d\t%d\t%s\n" % (
+                name.encode(), start, stop, runs[flowcell[i]], lane[i], tiles[tile[i]], x[i], y[i],
+                42 if high[i] else low[i], b"+" if strand[i] else b"-") for i, (start, stop) in enumerate(sorted(spans))]
+            out.append(b"".join(rows))
+            n += len(out[-1])
+    return b"".join(out)
+
+
+def _check_reads(bed: bytes, run: int) -> None:
+    """The aligned reads' columns, line by line: an Illumina name of the
+    two flowcells, lanes 1..4, the S4 tiles, x and y in range; MAPQ 42 or
+    30..41; spans of 47..53 (50 but for the indels); lines in order of
+    start, then end, within a chromosome, across the runs of ``run``
+    lines, some starts repeated but never at a run's first line."""
+    name = re.compile(rb"A00123:(45:HHKJ3DSXY|47:HGV2FDSXY):([1-4]):([12][12][0-9]{2}):([0-9]+):([0-9]+)")
+    tiles = {base + t for base in (1101, 1201, 2101, 2201) for t in range(78)}
+    spans, mapqs, flowcells, per_chrom = set(), set(), set(), {}
+    for line in bed.splitlines():
+        chrom, start, stop, qname, mapq, strand = line.split(b"\t")
+        f = name.fullmatch(qname)
+        assert f and int(f[3]) in tiles and 1000 <= int(f[4]) <= 32000 and 1000 <= int(f[5]) <= 37000, line
+        assert strand in (b"+", b"-") and (int(mapq) == 42 or 30 <= int(mapq) <= 41), line
+        spans.add(int(stop) - int(start))
+        mapqs.add(int(mapq))
+        flowcells.add(f[1])
+        per_chrom.setdefault(chrom, []).append((int(start), int(stop)))
+    assert spans <= set(range(47, 54)) and 50 in spans and len(spans) > 2
+    assert 42 in mapqs and len(mapqs) > 2 and len(flowcells) == 2
+    for pairs in per_chrom.values():
+        assert pairs == sorted(pairs)
+        starts = [p[0] for p in pairs]
+        assert len(set(starts)) < len(starts)  # duplicate starts
+        assert all(starts[i] > starts[i - 1] for i in range(run, len(starts), run))
 
 
 def _bed6_lines(shape: str, target: int, seed: int, n_per: int, run: int = 250_000) -> bytes:
@@ -551,21 +631,27 @@ def test_bed6_writer_equals_a_line_loop(tmp_path, monkeypatch, shape, run):
     or (``corpus._LINES`` set to 700) four, the last cut short, so that
     each run carries the start, the ``peak_`` ids and the ``% 97``
     suffixes from the run before it.  Config 4's starts go back in chr1;
-    the BED6 shapes' never do."""
+    the BED6 shapes' never do, and only the reads repeat a start.  The
+    reads' chromosomes are 150 kB at 2,500 reads (9-digit starts), so
+    they are cut at 400 kB."""
     monkeypatch.setattr(corpus, "_LINES", run)
-    digest, n = corpus.SCALE_SHAPES[shape](tmp_path / "w.bed", 250_000, **_size(shape, 2500))
+    target = 400_000 if shape == "reads" else 250_000
+    digest, n = corpus.SCALE_SHAPES[shape](tmp_path / "w.bed", target, **_size(shape, 2500))
     got = (tmp_path / "w.bed").read_bytes()
     if shape == "config4":
-        assert got == _config4_lines(250_000, SHAPES[shape], _size(shape, 2500)["n_total"], run=run)
+        assert got == _config4_lines(target, SHAPES[shape], _size(shape, 2500)["n_total"], run=run)
+    elif shape == "reads":
+        assert got == _reads_lines(target, SHAPES[shape], _size(shape, 2500)["n_total"], run=run)
+        _check_reads(got, run)
     else:
-        assert got == _bed6_lines(shape, 250_000, BED6[shape], 2500, run=run)
-    assert (digest, n) == (hashlib.sha256(got).hexdigest(), len(got)) and n >= 250_000
+        assert got == _bed6_lines(shape, target, BED6[shape], 2500, run=run)
+    assert (digest, n) == (hashlib.sha256(got).hexdigest(), len(got)) and n >= target
     assert got.count(b"\nchr3\t") >= 1
     if run == 700:
         first = got[: got.index(b"\nchr2\t") + 1].splitlines()
         starts = [int(line.split(b"\t")[1]) for line in first]
-        assert len(first) == 2500 and (starts == sorted(starts)) == (shape != "config4")
-        assert len(set(starts)) == 2500 or shape == "config4"
+        assert len(first) == 2500 and (starts == sorted(starts)) == (shape not in corpus.SCALE_UNSORTED)
+        assert (len(set(starts)) == 2500) == (shape not in ("config4", "reads"))
 
 
 @pytest.mark.parametrize("shape", sorted(SHAPES))
@@ -647,15 +733,17 @@ def test_bed6_gen_and_device_legs(tmp_path, shape):
     writer's, every stream equals the host archive's, every block is of
     the tier, the launch check by width passes (on the CPU the wrappers
     count nothing), and the leg counts the chromosomes whose starts go
-    back: all of config 4's, none of the others'."""
+    back: all of config 4's, none of the others'.  The reads' longer
+    lines are cut at 350 kB, for more than one chromosome."""
     size = _size(shape, 2_500)
     (flag, n), = size.items()
-    r = _run(["-m", "starch3_tpu_torch.scale_run", "gen", tmp_path / "in.bed", 150_000, "--shape", shape,
+    target = 350_000 if shape == "reads" else 150_000
+    r = _run(["-m", "starch3_tpu_torch.scale_run", "gen", tmp_path / "in.bed", target, "--shape", shape,
               "--" + flag.replace("_", "-"), n])
     assert r.returncode == 0, r.stderr.decode()[-2000:]
     gen = json.loads(r.stdout.decode().splitlines()[-1])
     assert gen["shape"] == shape and gen["tier"] == corpus.SCALE_TIERS[shape]
-    assert gen["digest"] == corpus.SCALE_SHAPES[shape](tmp_path / "w.bed", 150_000, **size)[0]
+    assert gen["digest"] == corpus.SCALE_SHAPES[shape](tmp_path / "w.bed", target, **size)[0]
     out = io.BytesIO()
     api.compress_bed_file(str(tmp_path / "in.bed"), out, EncodeConfig(block_size_100k=1))
     (tmp_path / "host.starch").write_bytes(out.getvalue())
@@ -775,22 +863,34 @@ def test_device_run_keeps_a_mismatch_record_before_its_case(small, tmp_path, mon
     assert (tmp_path / f"scale-mismatch-{chroms[1]}.text").read_bytes() == texts[1]
 
 
-def test_streams_are_a_prefix(small, tmp_path):
-    """Phase 13 and 14's half check: the archive of a corpus's first
-    chromosomes holds the whole archive's first streams; a corpus's
-    archive at another level does not."""
-    import chip_smoke
+def _line_count_off(data: bytes) -> bytes:
+    """The archive ``data`` with its streams as they are and its first
+    stream's line count one more: its metadata no longer the corpus's."""
+    from starch3_tpu_torch.format.archive import StarchReader, StarchWriter
 
+    reader = StarchReader.from_bytes(data)
+    writer = StarchWriter(note=reader.metadata.note, compression=reader.metadata.compression_format)
+    for i, (sm, stream) in enumerate(reader.iter_streams()):
+        writer.add_stream(sm.chromosome, stream, uncompressed_size=sm.uncompressed_size,
+                          line_count=sm.line_count + (i == 0), base_count_nonunique=sm.base_count_nonunique,
+                          base_count_unique=sm.base_count_unique, block_bit_offsets=sm.block_bit_offsets)
+    return writer.finish()
+
+
+@pytest.mark.parametrize("level, change, prefix", [(1, None, True), (9, None, False), (1, _line_count_off, False)],
+                         ids=["half", "other_level", "metadata"])
+def test_streams_are_a_prefix(small, tmp_path, level, change, prefix):
+    """Phase 13 and 14's half check: the archive of a corpus's first
+    chromosomes is the whole archive's first streams with their metadata,
+    byte for byte; a corpus's archive at another level is not, nor one
+    whose streams are the whole's first but whose metadata differ."""
     d, _gen, _ = small
     bed = (d / "in.bed").read_bytes()
-    half = bed[: bed.index(b"\nchr3\t") + 1]
-    for path, data, level in (("half.starch", half, 1), ("other.starch", half, 9)):
-        (tmp_path / "h.bed").write_bytes(data)
-        out = io.BytesIO()
-        api.compress_bed_file(str(tmp_path / "h.bed"), out, EncodeConfig(block_size_100k=level))
-        (tmp_path / path).write_bytes(out.getvalue())
-    assert chip_smoke.streams_are_a_prefix(str(tmp_path / "half.starch"), str(d / "host.starch"))
-    assert not chip_smoke.streams_are_a_prefix(str(tmp_path / "other.starch"), str(d / "host.starch"))
+    (tmp_path / "h.bed").write_bytes(bed[: bed.index(b"\nchr3\t") + 1])
+    out = io.BytesIO()
+    api.compress_bed_file(str(tmp_path / "h.bed"), out, EncodeConfig(block_size_100k=level))
+    (tmp_path / "half.starch").write_bytes(change(out.getvalue()) if change else out.getvalue())
+    assert scale_run.is_prefix_archive(str(tmp_path / "half.starch"), str(d / "host.starch")) == prefix
 
 
 # the encode modes past fast mode (phase 15)
@@ -1064,6 +1164,43 @@ def test_device_leg_texts_file_is_written_then_read(small, tmp_path):
     assert chroms == [g[0] for g in want] and [bytes(t) for t in got] == [bytes(g[1]) for g in want]
 
 
+def test_device_leg_traced_only(small, tmp_path):
+    """``device --traced-only`` (reads' (d) in ``chip_smoke.py``): one
+    encode, traced, whose figures are the leg's, its trace beside them and
+    no timed run; every stream held to the host archive's."""
+    d, _gen, _ = small
+    r = _run(["-m", "starch3_tpu_torch.scale_run", "device", d / "in.bed", d / "host.starch", tmp_path / "trace",
+              tmp_path / "mismatch", "--device", "cpu", "--level", 1, "--traced-only"],
+             env=dict(os.environ, STARCH3_TPU_NO_HOST_FALLBACK="1"))
+    assert r.returncode == 0, r.stderr.decode()[-2000:]
+    res = json.loads(r.stdout.decode().splitlines()[-1])
+    assert res["faults"] == [] and "traced" not in res and res["streams"] == 3
+    assert res["blocks"] == res["device_stats"]["blocks"] == 6 and res["device_stats"]["batches"] >= 2
+    assert res["trace_start_seconds"] >= 0 and "batches" in res["trace"]
+    assert res["reencode"]["calls"] == res["device_stats"].get("tie_reencodes", 0)
+    r = _run(["-m", "starch3_tpu_torch.scale_run", "device", d / "in.bed", d / "host.starch", tmp_path / "trace",
+              tmp_path / "mismatch", "--untraced", "--traced-only"])
+    assert r.returncode == 2 and b"not allowed with" in r.stderr
+
+
+def test_device_leg_first_streams(small, tmp_path):
+    """``device --streams 2`` (phase 15's exact modes on half the
+    chromosomes): the first two chromosomes alone, transformed (the texts
+    file written whole, all three) and then read from that file, each
+    held to the host archive's stream of its chromosome."""
+    d, _gen, _ = small
+    texts = tmp_path / "in.texts"
+    for _ in range(2):
+        r = _run(["-m", "starch3_tpu_torch.scale_run", "device", d / "in.bed", d / "host.starch", tmp_path / "trace",
+                  tmp_path / "mismatch", "--device", "cpu", "--level", 1, "--untraced", "--streams", 2, "--texts",
+                  texts], env=dict(os.environ, STARCH3_TPU_NO_HOST_FALLBACK="1"))
+        assert r.returncode == 0, r.stderr.decode()[-2000:]
+        res = json.loads(r.stdout.decode().splitlines()[-1])
+        assert res["faults"] == [] and res["streams"] == res["ref_streams"] == 2
+        assert res["blocks"] == res["device_stats"]["blocks"] == 4
+        assert len(scale_run.read_texts(str(texts))[0]) == 3
+
+
 def _config4_chromosomes(tmp_path, n: int = 30_000, target: int = 1_000_000) -> bytes:
     """Config 4's first chromosomes, chr1 of ``n`` intervals, to
     ``target`` bytes: about 560 kB a chromosome at 30,000, two blocks
@@ -1100,6 +1237,64 @@ def test_config4_across_chunks_equals_jax_package_bytes(tmp_path, monkeypatch, e
 
     meta = StarchReader.from_bytes(got).metadata
     assert len(meta.streams) >= 2 and len(meta.streams[0].block_bit_offsets) >= 2
+
+
+@pytest.mark.parametrize("entry, use_jax", [("stream", False), ("stream", True), ("bytes", True)],
+                         ids=["stream_host", "stream_device", "bytes_device"])
+def test_reads_across_chunks_equals_jax_package_bytes(tmp_path, monkeypatch, entry, use_jax):
+    """The aligned reads (chr1 of 9,000 reads, 603 kB, and chr2) carried
+    across 16 kB chunks: the port's streaming entry on the host path and
+    on the device path on the CPU, where every block is bits 5 and ties,
+    and its in-memory device entry give the JAX package's
+    ``compress_bed_bytes`` byte for byte."""
+    import functools
+
+    corpus.reads_scale_bed(tmp_path / "r.bed", 650_000, **_size("reads", 9_000))
+    bed = (tmp_path / "r.bed").read_bytes()
+    assert b"\nchr2\t" in bed and b"\nchr3\t" not in bed and len(bed) > 40 << 14
+    cfg = dict(use_jax=use_jax, block_size_100k=1)
+    want = jax_api.compress_bed_bytes(bed, JaxEncodeConfig(**cfg))
+    if entry == "stream":
+        out = io.BytesIO()
+        api.compress_bed_stream(io.BytesIO(bed), out, EncodeConfig(**cfg), chunk_bytes=1 << 14, device="cpu")
+        got = out.getvalue()
+    else:
+        monkeypatch.setattr(api, "_iter_parse_transform",
+                            functools.partial(api._iter_parse_transform, chunk_bytes=1 << 14))
+        got = api.compress_bed_bytes(bed, EncodeConfig(**cfg), device="cpu")
+    assert got == want
+    from starch3_tpu_torch.format.archive import StarchReader
+
+    meta = StarchReader.from_bytes(got).metadata
+    assert len(meta.streams) == 2 and len(meta.streams[0].block_bit_offsets) >= 3
+
+
+def test_reads_block_ties_in_both_packages_bwt(tmp_path):
+    """One block of the aligned reads at n_max 16,384, bits 5: the port's
+    ``bwt_of_batch`` on the packed words and the JAX package's
+    ``bwt_sort_fast_mid`` on the same dense symbols give the same
+    ``orig_ptr`` and ``ties``, and the block ties: every name shares its
+    22-byte ``<instrument>:<run>:<flowcell>:`` start with thousands of
+    others, longer than the sort's 23 symbols of context can part."""
+    import jax.numpy as jnp
+    import torch
+
+    from starch3_tpu.ops.bwt_fast import bwt_sort_fast_mid
+    from starch3_tpu_torch.parallel import pipeline
+    from starch3_tpu_torch.runtime import bed_transform_native
+
+    n_max = 16_384
+    corpus.reads_scale_bed(tmp_path / "r.bed", 1, **_size("reads", 2_000))
+    block = bytes(bed_transform_native((tmp_path / "r.bed").read_bytes())[0][1])[:n_max - 1000]
+    symbols = np.unique(np.frombuffer(block, dtype=np.uint8))
+    assert 17 <= symbols.size <= 32  # bits 5
+    packed, lens, _, _ = pipeline.pack_batch([block], n_max, 5)
+    _, ptr, ties = pipeline.bwt_of_batch(packed, torch.from_numpy(lens), 5, n_max)
+    dense = np.zeros(n_max, dtype=np.int32)
+    dense[: len(block)] = np.searchsorted(symbols, np.frombuffer(block, dtype=np.uint8))
+    _, jptr, jties = bwt_sort_fast_mid(jnp.asarray(dense), jnp.int32(len(block)), n_max, 5)
+    assert (int(ptr[0]), int(ties[0])) == (int(jptr), int(jties))
+    assert int(ties[0]) > 0
 
 
 def test_config4_decode_in_both_packages_gives_back_the_unsorted_input(tmp_path):
@@ -1157,13 +1352,13 @@ def test_config4_target_takes_what_memory_and_disk_hold(mem_gb, free_gb, target,
     start within 80% of the memory, and the corpus, its sorted twin, the
     1.1e9-byte prefix and four archives of 0.15 of it within 80% of the
     disk, less the largest chromosome's 200 MB."""
-    room = scale_run.config4_target(10_000_000_000, mem_gb * 10**9, free_gb * 10**9)
+    room = scale_run.stated_target("config4", 10_000_000_000, mem_gb * 10**9, free_gb * 10**9)
     assert room["cut_by"] == cut_by
     assert room["target"] == pytest.approx(target, abs=2)
 
 
 def _config4_legs(prefix_bytes: int = 1_185_546_635) -> dict:
-    """``leg_config4``'s legs as ``config4_faults`` reads them: the corpus
+    """``leg_stated``'s legs of config 4 as ``stated_faults`` reads them: the corpus
     and its 1.1e9-byte prefix, (a) at 10 MB/s of text, the hybrids on the
     prefix and the whole, (d) at 120 MB/s with every chromosome's starts
     going back."""
@@ -1195,5 +1390,42 @@ def test_config4_faults(change, fault):
     legs = _config4_legs()
     if change:
         change(legs)
-    faults = scale_run.config4_faults(legs)
+    faults = scale_run.stated_faults("config4", legs)
+    assert faults == [] if fault is None else (len(faults) == 1 and faults[0].startswith(fault)), faults
+
+
+@pytest.mark.parametrize("mem_gb, free_gb, target, cut_by", [
+    (400, 100, 10_000_000_000, None), (20, 100, 5_508_000_000, "memory"), (400, 10, 4_638_620_689, "disk")])
+def test_stated_target_of_reads(mem_gb, free_gb, target, cut_by):
+    """The reads' run: the device-only leg's 2 bytes a byte of BED above a
+    4,744 MB start within 80% of the memory, and the corpus, the
+    1.1e9-byte prefix and three archives of 0.15 of it (no sorted twin)
+    within 80% of the disk, less chr1's 120 MB at most."""
+    room = scale_run.stated_target("reads", 10_000_000_000, mem_gb * 10**9, free_gb * 10**9)
+    assert room["cut_by"] == cut_by
+    assert room["target"] == pytest.approx(target, abs=2)
+
+
+@pytest.mark.parametrize("change, fault", [
+    (None, None),
+    (lambda l: l["b"]["scheduler_stats"].update(demotions=1), None),
+    (lambda l: (l["b"]["scheduler_stats"].update(demotions=1), l["d"].update(mb_per_s_text=120.0)),
+     "reads (b) benched the device"),
+    (lambda l: l["b"].update(archive_digest="y"), "reads (b) archive y != host path's x"),
+    (lambda l: l["b"].update(decode={"digest": "z", "bytes": 1}), "reads (e) decode z of 1 bytes"),
+    (lambda l: l["b_half"]["scheduler_stats"].update(abandoned_batches=1), "reads (b) half abandoned batches"),
+    (lambda l: l["b"].update(peak_rss_mb=4500.0), "reads (f) memory grew with the corpus"),
+], ids=["healthy", "benched", "benched_faster", "archive", "decode", "abandoned", "memory"])
+def test_stated_faults_of_reads(change, fault):
+    """``scale_run reads``' gates: config 4's but the starts that go back,
+    by the same rule: with (d) at a quarter of (a)'s MB/s of text, as on
+    the card (every block ties and is re-encoded on the driver thread), a
+    hybrid that benches the card is printed, not a fault; with (d) faster
+    than (a) it is one."""
+    legs = _config4_legs()
+    del legs["d"]["starts_back"]
+    legs["d"]["mb_per_s_text"] = 2.5
+    if change:
+        change(legs)
+    faults = scale_run.stated_faults("reads", legs)
     assert faults == [] if fault is None else (len(faults) == 1 and faults[0].startswith(fault)), faults
