@@ -55,13 +55,21 @@ streams and archives.  It exits 0 only if every phase passes:
      replays, which count what their capture launched; the captures and
      replays are printed), and at least one bits-8 block was tie-free;
      MB/s beside same-run libbz2 -9;
-  6. the entry points, on config 2 and on config 3:
-     ``compress_bed_bytes(use_jax=True)`` equals the host path's archive
-     and decodes back to the BED, and ``python -m starch3_tpu_torch.cli
-     --jax FILE`` writes the same bytes.  The hybrid abandons no batch;
-     its demotions, repromotions and class skips, its blocks on the
-     device against those on the stealers, and the graph captures and
-     replays and per-width launches are printed;
+  6. the entry points with their defaults, the device path on the card,
+     on config 2 and on config 3: ``compress_bed_bytes(bed)`` (no config,
+     no device) equals the host path's archive, asked for with
+     ``EncodeConfig(use_jax=False)``, and puts blocks on the card;
+     ``decompress_starch_bytes(archive)`` (no flag: the device decode,
+     every block on the card) and ``use_jax=False`` each give back the
+     BED; and the CLI with no flag but its output, ``-o F FILE`` (its
+     ``main`` with that argv in a process started anew, ``scale_run
+     host``), writes the host path's bytes, abandons no batch and
+     launches its MTF kernel once per device batch.  The hybrid abandons
+     no batch; its demotions, repromotions and class skips, its blocks on
+     the device against those on the stealers, and the graph captures and
+     replays and per-width launches are printed, and one ``default
+     entry`` line per entry point: its platform, its blocks on the card
+     of all its blocks, and its MB/s beside the host path's;
   7. ``device_huffman`` (mode ``fast_huff``), device only, on the config 2,
      config 3 and free-text texts, each run between two runs of ``fast``
      mode on the same texts (fast, fast_huff, fast_huff, fast): every
@@ -69,9 +77,9 @@ streams and archives.  It exits 0 only if every phase passes:
      the device never benched, the wide kernel launched at width 128 once
      per bits-4 batch and at width 256 once per other batch, the narrow
      kernel never; MB/s and the bytes read back per block of each mode are
-     printed.  Then ``compress_bed_bytes(use_jax=True,
-     device_huffman=True)`` and the CLI's ``--jax --device-huffman`` on
-     config 2 equal the host path's archive;
+     printed.  Then phase 6 again on config 2 with ``device_huffman``:
+     ``compress_bed_bytes(bed, EncodeConfig(device_huffman=True))`` and
+     the CLI's ``--device-huffman`` equal the host path's archive;
   8. fault handling on the card, on config 2's texts: the first batch of
      an encode runs behind a ``torch.cuda._sleep`` spin on its stream
      (calibrated with CUDA events), with ``_ABANDON_S`` at 0.5 s.  (a) The
@@ -124,7 +132,7 @@ streams and archives.  It exits 0 only if every phase passes:
      two-entry mesh, the same checks; (c) ``decode_streams`` of configs 2
      and 3 and ``decompress_starch_bytes(use_jax=True)`` of their archives
      under the two-entry mesh equal the texts and the host decode; (d) two
-     CLI processes, ``--jax --num-hosts=2``, on config 2, once over a gloo
+     CLI processes, ``--num-hosts=2``, on config 2, once over a gloo
      process group (``--coordinator``) and once through a manifest
      directory: host 0's archive equals the host path's and host 1 writes
      nothing; the wall time of both.
@@ -148,17 +156,20 @@ streams and archives.  It exits 0 only if every phase passes:
      bytes of BED (``TestGigabyteScale``'s bytes, about 44M intervals in
      22 chromosomes) and its half at 5.5e8 bytes, a prefix, both in a
      temporary directory (the phase fails when the disk lacks room):
-     (a) the host path, ``compress_bed_file(EncodeConfig())``, gives the
-     reference archive;
-     (b) ``compress_bed_file(EncodeConfig(use_jax=True))`` on the half
-     corpus and on the whole one: the whole archive equals (a)'s, the
+     (a) the host path, the CLI asked for it (``--platform=host``: its
+     ``main`` in the leg, ``scale_run encode --cli``), gives the reference
+     archive;
+     (b) the CLI's default, the device path on the card beside the host
+     stealers (``--output=F IN``, no other flag), on the half corpus and
+     on the whole one: the whole archive equals (a)'s and puts at least
+     one block on the card, the
      half's is (a)'s first streams with their metadata, byte for byte
      (``scale_run.is_prefix_archive``: the host path's archive of the
      half corpus), no batch abandoned and the
      device never benched (0 demotions in each run; its blocks on the
      device are printed), the MTF launches by width equal to the device
      batches by class;
-     (c) ``cat half | python -m starch3_tpu_torch.cli --jax`` on the half
+     (c) ``cat half | python -m starch3_tpu_torch.cli`` on the half
      corpus writes (b)'s half archive (so the host path's); (d)
      device only under ``STARCH3_TPU_NO_HOST_FALLBACK=1``,
      each chromosome transformed whole and fed in order to
@@ -179,7 +190,7 @@ streams and archives.  It exits 0 only if every phase passes:
      does not), so growth between them is a leak, not the climb; (h)
      BASELINE config 5, cut to the half corpus and one card: ``scale_run
      multihost``, two host processes of ``python -m
-     starch3_tpu_torch.cli --jax --num-hosts=2`` (through ``scale_run
+     starch3_tpu_torch.cli --num-hosts=2`` (through ``scale_run
      host``, which prints each host's counters) on the card, once over a
      gloo process group and once through a manifest directory: host 0's
      archive equals (b)'s half archive (so the host path's of the half
@@ -256,8 +267,9 @@ streams and archives.  It exits 0 only if every phase passes:
      bound it, and on an H100 a timed run after it took 21 s more at the
      traced run's rate (10.130 against 10.099 MB/s of text).
      Before the scale phases, BASELINE config 1 (``phase_config1``):
-     ``corpus.chr21_bed()``, one block, encoded by the CLI with ``--jax``
-     in a process started anew and by the host path, byte for byte, and
+     ``corpus.chr21_bed()``, one block, encoded by the CLI with no flag
+     (the device path on the card) in a process started anew and by the
+     CLI's ``--platform=host``, byte for byte, and
      device only in a forked leg, its key's warm-up, capture and a replay,
      each equal to ``bz2.compress(text, 9)``, with each one's start, CUDA
      initialisation and encode seconds.
@@ -659,12 +671,25 @@ def phase_fast_huff(device, label: str, texts) -> dict:
     return launches
 
 
-def phase_entry_points(device, label: str, bed: bytes, device_huffman: bool = False):
-    """Phases 6 and 7: the archive API and the CLI against the host path."""
-    cfg = api.EncodeConfig(use_jax=True, device_huffman=device_huffman)
+def log_default(entry: str, platform: str, on_card: int, blocks: int, mb_s: float, host_mb_s: float,
+                smi: str) -> None:
+    """One line per entry point run with its defaults: where it ran, its
+    blocks on the card of all its blocks, and its MB/s beside the host
+    path's (``use_jax=False``, ``--platform=host``) in the same run."""
+    log(f"default entry {entry}: platform {platform}, {on_card} of {blocks} blocks on the card, "
+        f"{mb_s:.3f} MB/s of BED; host path {host_mb_s:.3f} MB/s; on {smi}")
+
+
+def phase_entry_points(label: str, bed: bytes, smi: str, device_huffman: bool = False, timeout_s: float = 120.0):
+    """Phases 6 and 7: the archive API and the CLI with their defaults,
+    the device path on the card (phase 7 adds ``device_huffman``), against
+    the host path asked for (``EncodeConfig(use_jax=False)``); and the
+    default decode (the device decode) against the host decode
+    (``use_jax=False``)."""
+    cfg = api.EncodeConfig(device_huffman=True) if device_huffman else None
     sched, dev_stats, counts = dict(host.scheduler_stats), dict(pipeline.device_stats), launch_counts()
     t0 = time.perf_counter()
-    got = api.compress_bed_bytes(bed, cfg, device=device)
+    got = api.compress_bed_bytes(bed, cfg)
     dt = time.perf_counter() - t0
     sched = stats_since(host.scheduler_stats, sched)
     dev_stats = stats_since(pipeline.device_stats, dev_stats)
@@ -673,13 +698,12 @@ def phase_entry_points(device, label: str, bed: bytes, device_huffman: bool = Fa
         raise AssertionError(f"{label} compress_bed_bytes: a device batch was abandoned: {sched}")
     n_blocks = count_blocks(texts_of(bed))
     t1 = time.perf_counter()
-    want = api.compress_bed_bytes(bed, api.EncodeConfig())
+    want = api.compress_bed_bytes(bed, api.EncodeConfig(use_jax=False))
     dt_host = time.perf_counter() - t1
     if got != want:
         raise AssertionError(f"{label} compress_bed_bytes: device archive != host archive")
-    if api.decompress_starch_bytes(got) != bed:
-        raise AssertionError(f"{label} compress_bed_bytes: archive does not decode to the input")
-    log(f"{label} compress_bed_bytes: archive == host path's, decodes to the input; "
+    call = f"compress_bed_bytes(bed{', EncodeConfig(device_huffman=True)' if device_huffman else ''})"
+    log(f"{label} {call}: archive == host path's (use_jax=False); "
         f"{len(bed) / dt / 1e6:.3f} MB/s of BED ({dt:.3f} s); host path "
         f"{len(bed) / dt_host / 1e6:.3f} MB/s ({dt_host:.3f} s)")
     log(f"{label} compress_bed_bytes scheduler: demotions {sched['demotions']}, repromotions "
@@ -688,23 +712,55 @@ def phase_entry_points(device, label: str, bed: bytes, device_huffman: bool = Fa
         f"({dev_stats['tie_reencodes']} re-encoded for ties) and {n_blocks - dev_stats['blocks']} to the "
         f"stealers; graph captures {dev_stats['graph_captures']}, replays {dev_stats['graph_replays']}, "
         f"launches by width {counts}; per-class device rates now {host._class_rate_cache}")
+    if not dev_stats["blocks"]:
+        raise AssertionError(f"{label} {call}: no block went to the card")
+    host_mb_s = len(bed) / dt_host / 1e6
+    log_default(f"{label} {call}", "cuda", dev_stats["blocks"], n_blocks, len(bed) / dt / 1e6, host_mb_s, smi)
+    # the default decode is the device decode; use_jax=False the native one
+    decoded = dict(pipeline.device_stats)
+    t0 = time.perf_counter()
+    dec = api.decompress_starch_bytes(got)
+    dt = time.perf_counter() - t0
+    decoded = stats_since(pipeline.device_stats, decoded)
+    t1 = time.perf_counter()
+    dec_host = api.decompress_starch_bytes(got, use_jax=False)
+    dt_host_dec = time.perf_counter() - t1
+    if not dec == dec_host == bed:
+        raise AssertionError(f"{label} decompress_starch_bytes: the default (device) decode == BED {dec == bed}, "
+                             f"use_jax=False == BED {dec_host == bed}")
+    if decoded["decode_blocks"] != n_blocks:
+        raise AssertionError(f"{label} decompress_starch_bytes(archive): {decoded['decode_blocks']} of {n_blocks} "
+                             "blocks decoded on the card")
+    log_default(f"{label} decompress_starch_bytes(archive)", "cuda", decoded["decode_blocks"], n_blocks,
+                len(bed) / dt / 1e6, len(bed) / dt_host_dec / 1e6, smi)
+    # the CLI with no flag but the output, in a process started anew: the
+    # CLI's main with that argv (scale_run host), with the counters it left
     with tempfile.TemporaryDirectory() as d:
         src, out = os.path.join(d, "in.bed"), os.path.join(d, "out.starch")
         with open(src, "wb") as f:
             f.write(bed)
-        cmd = [sys.executable, "-m", "starch3_tpu_torch.cli", "--jax",
-               f"--platform={device.type}", "-o", out, src]
-        if device_huffman:
-            cmd.insert(4, "--device-huffman")
+        argv = [*scale_run.cli_flags("cuda", "fast_huff" if device_huffman else "fast"), "-o", out, src]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True)
+        try:
+            run = leg_fork.spawn(["host", "--", *argv], timeout_s)
+        except leg_fork.LegTimeout as e:
+            raise AssertionError(f"{label} CLI: {e}") from None
         dt = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise AssertionError(f"{label} CLI exit {proc.returncode}: {proc.stderr[-2000:]}")
+        lines = run.stdout.decode().splitlines()
+        if run.returncode != 0:
+            raise AssertionError(f"{label} CLI exit {run.returncode}: {lines[-1:]} {run.stderr.decode()[-2000:]}")
+        res = json.loads(lines[-1])
         with open(out, "rb") as f:
             if f.read() != want:
-                raise AssertionError(f"{label} CLI --jax archive != host archive")
-    log(f"{label} cli {' '.join(cmd[3:-3])}: same archive bytes ({dt:.3f} s with process start)")
+                raise AssertionError(f"{label} CLI archive != host archive")
+        cli_blocks = scale_run.archive_blocks(out)
+    st = res["device_stats"]  # a process's cold card may leave every block to the stealers (ROADMAP E1)
+    if res["scheduler_stats"]["abandoned_batches"]:
+        raise AssertionError(f"{label} CLI: abandoned batches: {res['scheduler_stats']}")
+    shown = " ".join(argv[:-3] + ["-o", "F", "IN"])
+    log(f"{label} cli {shown}: same archive bytes ({dt:.3f} s with process start, the CLI's work "
+        f"{res['seconds']:.3f} s); launches by width {res['width_launches']}")
+    log_default(f"{label} cli {shown}", res["device"], st["blocks"], cli_blocks, res["mb_per_s_bed"], host_mb_s, smi)
 
 
 def sleep_cycles_per_s() -> float:
@@ -971,12 +1027,12 @@ def phase_archive_decode(device, label: str, bed: bytes, smi: str) -> None:
     """Phase 9, the entry: ``decompress_starch_bytes(archive, use_jax=True)``
     equals the native block-parallel decode and the BED; MB/s of BED of
     both and of single-thread ``bz2.decompress`` of the archive's streams."""
-    archive = api.compress_bed_bytes(bed, api.EncodeConfig())
+    archive = api.compress_bed_bytes(bed, api.EncodeConfig(use_jax=False))
     t0 = time.perf_counter()
     got = api.decompress_starch_bytes(archive, use_jax=True, device=device.type)
     dt = time.perf_counter() - t0
     t0 = time.perf_counter()
-    native = api.decompress_starch_bytes(archive)
+    native = api.decompress_starch_bytes(archive, use_jax=False)
     dt_native = time.perf_counter() - t0
     if not got == native == bed:
         raise AssertionError(f"{label} decompress_starch_bytes(use_jax=True) != host decode or BED")
@@ -1132,7 +1188,7 @@ def phase_exact_archives(device, bed: bytes, smi: str) -> None:
     the device ran the mode's kernels (config 2 is all bits 4: fast mode
     runs the narrow kernel, the exact modes K3 at width 256)."""
     t0 = time.perf_counter()
-    want = api.compress_bed_bytes(bed, api.EncodeConfig())
+    want = api.compress_bed_bytes(bed, api.EncodeConfig(use_jax=False))
     dt_host = time.perf_counter() - t0
     for flags in ({"fast_bwt": False}, {"fast_bwt": False, "device_rle2": True}, {"device_rle2": True}):
         mode = pipeline.encode_mode(**flags)
@@ -1251,11 +1307,11 @@ def phase_mesh_decode(mesh, by_label, beds, smi: str) -> None:
         stats = {k: pipeline.device_stats[k] for k in ("decode_batches", "decode_blocks")}
         if stats != {"decode_batches": n_batches, "decode_blocks": sum(buckets.values())}:
             raise AssertionError(f"{label} mesh decode: counters {stats} != {n_batches} batches, {buckets}")
-        archive = api.compress_bed_bytes(beds[label], api.EncodeConfig())
+        archive = api.compress_bed_bytes(beds[label], api.EncodeConfig(use_jax=False))
         t1 = time.perf_counter()
         arc = api.decompress_starch_bytes(archive, use_jax=True, mesh=mesh)
         dt_arc = time.perf_counter() - t1
-        if not arc == api.decompress_starch_bytes(archive) == beds[label]:
+        if not arc == api.decompress_starch_bytes(archive, use_jax=False) == beds[label]:
             raise AssertionError(f"{label} decompress_starch_bytes(use_jax=True, mesh=...) != host decode or BED")
         log(f"{label} decode under mesh cuda:0 twice: decode_streams == texts, {stats}, "
             f"{sum(map(len, texts)) / dt / 1e6:.3f} MB/s of text ({dt:.3f} s); decompress_starch_bytes == host "
@@ -1264,14 +1320,14 @@ def phase_mesh_decode(mesh, by_label, beds, smi: str) -> None:
 
 def phase_two_processes(device, bed: bytes, smi: str, timeout_s: float = 300.0) -> None:
     """Phase 11 (d): two processes on the one card, ``python -m
-    starch3_tpu_torch.cli --jax --num-hosts=2 --host-id=i``, once over a
-    gloo process group (``--coordinator``) and once through a manifest
-    directory.  Host 0's archive equals the single-process host archive
-    and host 1 writes nothing.  Both children are killed if either is
-    still running when the case ends."""
+    starch3_tpu_torch.cli --platform=cuda --num-hosts=2 --host-id=i``, once
+    over a gloo process group (``--coordinator``) and once through a
+    manifest directory.  Host 0's archive equals the single-process host
+    archive and host 1 writes nothing.  Both children are killed if either
+    is still running when the case ends."""
     import socket
 
-    want = api.compress_bed_bytes(bed, api.EncodeConfig())
+    want = api.compress_bed_bytes(bed, api.EncodeConfig(use_jax=False))
     with tempfile.TemporaryDirectory() as d:
         src = os.path.join(d, "in.bed")
         with open(src, "wb") as f:
@@ -1281,7 +1337,7 @@ def phase_two_processes(device, bed: bytes, smi: str, timeout_s: float = 300.0) 
             port = sock.getsockname()[1]
         for transport, how in (("gloo", f"--coordinator=127.0.0.1:{port}"),
                                ("manifest", f"--manifest-dir={os.path.join(d, 'manifest')}")):
-            cmds = [[sys.executable, "-m", "starch3_tpu_torch.cli", "--jax", f"--platform={device.type}",
+            cmds = [[sys.executable, "-m", "starch3_tpu_torch.cli", f"--platform={device.type}",
                      "--num-hosts=2", f"--host-id={h}", how, src] for h in range(2)]
             t0 = time.perf_counter()
             procs = [subprocess.Popen(c, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE) for c in cmds]
@@ -1300,15 +1356,16 @@ def phase_two_processes(device, bed: bytes, smi: str, timeout_s: float = 300.0) 
             if outs[0][0] != want or outs[1][0] != b"":
                 raise AssertionError(f"two processes ({transport}): host 0 archive == host archive "
                                      f"{outs[0][0] == want}, host 1 wrote {len(outs[1][0])} bytes")
-            log(f"config2 two processes on one card ({transport}, --jax --num-hosts=2): host 0 archive == "
+            log(f"config2 two processes on one card ({transport}, --num-hosts=2): host 0 archive == "
                 f"single-process host archive, host 1 wrote nothing; {dt:.3f} s wall for both, process "
                 f"starts included ({len(bed) / dt / 1e6:.3f} MB/s of BED); on {smi}")
 
 
 def config1_faults(legs: dict, device: str = "cuda") -> list[str]:
     """Phase 16's gates on BASELINE config 1's legs: (i) the archive of
-    the CLI's ``--jax`` encode, a process started anew, equals the host
-    path's from the same CLI, decodes back to the corpus, and its encode
+    the CLI's default encode (no flag: the device path on the card), a
+    process started anew, equals the host path's from the same CLI
+    (``--platform=host``), decodes back to the corpus, and its encode
     abandoned no batch and launched its MTF kernel once per device batch;
     (ii) in every device-only run of the block (at least its warm-up, its
     capture and a replay) the stream equals ``bz2.compress(text, 9)`` and
@@ -1318,7 +1375,7 @@ def config1_faults(legs: dict, device: str = "cuda") -> list[str]:
     cli, one = legs["cli"], legs["oneblock"]
     faults = []
     if cli["archive_digest"] != legs["host"]["archive_digest"]:
-        faults.append(f"(i) the CLI's --jax archive {cli['archive_digest']} != the host path's "
+        faults.append(f"(i) the CLI's default archive {cli['archive_digest']} != the host path's "
                       f"{legs['host']['archive_digest']}")
     if (legs["decode"]["digest"], legs["decode"]["bytes"]) != (legs["corpus"]["digest"], legs["corpus"]["bytes"]):
         faults.append(f"(i) the archive decodes to {legs['decode']['digest']} of {legs['decode']['bytes']} bytes, "
@@ -1342,9 +1399,9 @@ def config1_faults(legs: dict, device: str = "cuda") -> list[str]:
 def phase_config1(smi: str, forker, device: str = "cuda", timeout_s: float = 120.0) -> int:
     """Phase 16, BASELINE config 1: ``corpus.chr21_bed()`` (one chromosome
     of 100,000 intervals, one block at level 9) encoded as a user's one
-    command.  The host path is the CLI's ``main`` without ``--jax``, in
-    this process; (i) ``python -m starch3_tpu_torch.cli --jax
-    --platform=cuda --output=F chr21.bed`` in a process started anew, as
+    command.  The host path is the CLI's ``main`` with ``--platform=host``,
+    in this process; (i) ``python -m starch3_tpu_torch.cli --output=F
+    chr21.bed``, the CLI's default, in a process started anew, as
     ``scale_run host`` runs the CLI's ``main`` with that argv, timed by
     stage (its start, imports, CUDA's initialisation, the file entry and
     its feed's transform), and ``decompress_starch_file`` of its archive;
@@ -1360,13 +1417,13 @@ def phase_config1(smi: str, forker, device: str = "cuda", timeout_s: float = 120
         with open(src, "wb") as f:
             f.write(bed)
         t0 = time.perf_counter()
-        rc = cli.main([f"--output={host_out}", src])
+        rc = cli.main(["--platform=host", f"--output={host_out}", src])
         legs["host"] = {"exit": rc, "seconds": time.perf_counter() - t0, "archive_digest": scale_run.file_digest(
             host_out)}
         if rc:
             raise AssertionError(f"config1: the host path's CLI exited {rc}")
         try:
-            run = leg_fork.spawn(["host", "--", "--jax", f"--platform={device}", f"--output={jax_out}", src],
+            run = leg_fork.spawn(["host", "--", *scale_run.cli_flags(device), f"--output={jax_out}", src],
                                  timeout_s)
         except leg_fork.LegTimeout as e:
             raise AssertionError(f"config1 (i): {e}") from None
@@ -1386,7 +1443,8 @@ def phase_config1(smi: str, forker, device: str = "cuda", timeout_s: float = 120
     faults = config1_faults(legs, device)
     c, one = legs["cli"], legs["oneblock"]
     t, st = c["times"], c["device_stats"]
-    log(f"config1 (i) python -m starch3_tpu_torch.cli --jax chr21.bed, {len(bed)} bytes of BED, "
+    log(f"config1 (i) python -m starch3_tpu_torch.cli {' '.join(scale_run.cli_flags(device) + ['chr21.bed'])}, "
+        f"{len(bed)} bytes of BED, "
         f"{c['archive_blocks']} block ({one['text_bytes']} bytes of text), in a process started anew: start "
         f"{t['start_s']:.3f} s (imports {c['timing']['imports_s']:.3f} s), CUDA init {t['cuda_init_s']:.3f} s, the "
         f"CLI's work {t['work_s']:.3f} s (file entry {c['stage_seconds']['file_entry']:.3f} s, its feed's "
@@ -1395,6 +1453,8 @@ def phase_config1(smi: str, forker, device: str = "cuda", timeout_s: float = 120
         f"{c['width_launches']}; archive == the host path's ({legs['host']['seconds']:.3f} s in this process): "
         f"{c['archive_digest'] == legs['host']['archive_digest']}; decode == the corpus: "
         f"{legs['decode']['digest'] == legs['corpus']['digest']}; on {smi}")
+    log_default(f"config1 cli {' '.join(scale_run.cli_flags(device) + ['chr21.bed'])}", device, st.get("blocks", 0),
+                c["archive_blocks"], c["mb_per_s_bed"], len(bed) / legs["host"]["seconds"] / 1e6, smi)
     t = one["times"]
     runs = "; ".join(
         f"{label} {r['seconds']:.4f} s (captures {r['device_stats'].get('graph_captures', 0)}, replays "
@@ -1533,7 +1593,7 @@ class ModeRun(typing.NamedTuple):
 class ScaleTier(typing.NamedTuple):
     target: int  # BED bytes of its corpus
     half: int | None  # BED bytes of its half corpus, a prefix of it, or None
-    pipe: bool  # whether it runs (c), ``cat | cli --jax``, on its half corpus
+    pipe: bool  # whether it runs (c), ``cat | cli``, on its half corpus
     keep_card: bool  # whether the fast-mode hybrid must never bench the card, whatever (d)'s rate
     modes: tuple[ModeRun, ...] = ()  # phase 15: its other modes, each with (d) device only, untraced
     decode: int = 0  # phase 15 (g): it decodes an archive of (a)'s first ``decode`` streams on the card, 0: none
@@ -1622,7 +1682,9 @@ def scale_faults(shape: str, legs: dict) -> list[str]:
     chromosome's starts go back in (d)'s count, so that (e)'s decode
     shows the negative deltas restored; on config3
     (``ScaleTier.untied_on_card``) the hybrid puts blocks of its tier on
-    the card whose rows come back untied.  A hybrid must not bench a
+    the card whose rows come back untied; where the tier keeps the card
+    (``ScaleTier.keep_card``, bits 4) the hybrid, the CLI's default, puts
+    at least one block on it.  A hybrid must not bench a
     card that beats the host cores: in fast mode where the tier says so
     (``ScaleTier.keep_card``) or (d) encodes at least (a)'s MB/s of text;
     in another mode where its (d) encodes at least the host cores' MB/s
@@ -1650,6 +1712,8 @@ def scale_faults(shape: str, legs: dict) -> list[str]:
         if shape in corpus.SCALE_UNSORTED and not (back.get("of") and back.get("chroms") == back["of"]):
             faults.append(f"(d) the starts go back in {back.get('chroms')} chromosomes of {back.get('of')}, not "
                           "in every one: the transform's unsorted branch is not what the tier runs")
+        if SCALE_RUNS[shape].keep_card and not b["device_stats"].get("blocks"):
+            faults.append(f"(b) the default CLI put no block on the card, of its {b.get('blocks')}")
         on_card = b["per_class"][str(corpus.SCALE_TIERS[shape])]
         if SCALE_RUNS[shape].untied_on_card and on_card["blocks"] <= on_card["tie_reencodes"]:
             faults.append(f"(b) put no untied bits-{corpus.SCALE_TIERS[shape]} block on the card: "
@@ -1763,18 +1827,19 @@ def phase_scale(smi: str, deadlines: dict, fast: bool = True, forker=None) -> di
                         raise AssertionError(f"scale {shape}: the half corpus is not a prefix of the corpus")
             src = {"half": tier.half and jobs[shape, "half"][0], "whole": bed}
             texts = ["--texts", os.path.join(d, f"{shape}.texts")] if tier.modes else []
-            # (a) the reference bytes: the host path
-            legs["a"] = scale_child(f"{shape} (a) host path", ["encode", bed, arc["a"]], deadline, 300, forker)
+            # (a) the reference bytes: the host path, the CLI asked for it (--platform=host)
+            legs["a"] = scale_child(f"{shape} (a) host path, cli --platform=host", ["encode", bed, arc["a"], "--cli"],
+                                    deadline, 300, forker)
             if fast:
-                # (b) the hybrid through the file entry, half then whole; (e) decode
+                # (b) the hybrid, the CLI's default (no flag), half then whole; (e) decode
                 if tier.half:
-                    legs["b_half"] = scale_child(f"{shape} (b) hybrid, half corpus",
-                                                 ["encode", src["half"], arc["b_half"], "--jax"], deadline, 200, forker)
+                    legs["b_half"] = scale_child(f"{shape} (b) hybrid, the default cli, half corpus", [
+                        "encode", src["half"], arc["b_half"], "--jax", "--cli"], deadline, 200, forker)
                     legs["b_half"]["prefix_of_a"] = is_prefix_archive(arc["b_half"], arc["a"])
-                legs["b"] = scale_child(f"{shape} (b) hybrid + (e) decode",
-                                        ["encode", bed, arc["b"], "--jax", "--decode"], deadline, 300, forker)
+                legs["b"] = scale_child(f"{shape} (b) hybrid, the default cli + (e) decode",
+                                        ["encode", bed, arc["b"], "--jax", "--cli", "--decode"], deadline, 300, forker)
                 if tier.pipe:  # (c) the CLI through a real pipe, its processes started anew, on the half corpus
-                    legs["c"] = scale_child(f"{shape} (c) cat | cli --jax", ["pipe", src["half"], arc["c"]],
+                    legs["c"] = scale_child(f"{shape} (c) cat | cli", ["pipe", src["half"], arc["c"]],
                                             deadline, 300, forker)
                 # (d) device only, every stream against (a)'s; it leaves its
                 # texts to the tier's phase-15 (d) legs
@@ -1813,6 +1878,12 @@ def phase_scale(smi: str, deadlines: dict, fast: bool = True, forker=None) -> di
             faults += scale_faults(shape, legs)
             launches[shape] = tier_launches(legs)
             log_scale(shape, smi, legs)
+            for key in ("b_half", "b"):
+                if key in legs:
+                    b = legs[key]
+                    log_default(f"{shape} (b) cli {'half' if key == 'b_half' else 'whole'} corpus", b["device"],
+                                b["device_stats"].get("blocks", 0), b["blocks"], b["mb_per_s_bed"],
+                                legs["a"]["mb_per_s_bed"], smi)
             if "d" in legs:
                 transforms[shape] = (legs["a"]["transform_seconds"], legs["d"]["transform_seconds"],
                                      legs["gen"]["bytes"] / 1e9)
@@ -1930,7 +2001,7 @@ def log_fast(shape: str, smi: str, legs: dict) -> None:
     full, a, b, dv = legs["gen"], legs["a"], legs["b"], legs.get("d")
     bh, text = legs.get("b_half"), a["text_bytes"]
     _log_hybrids(shape, "fast", smi, legs)
-    pipe = (f"(c) cat | cli --jax {legs['c']['mb_per_s_bed']:.3f} MB/s of BED ({legs['c']['bytes_in']} bytes); "
+    pipe = (f"(c) cat | cli {legs['c']['mb_per_s_bed']:.3f} MB/s of BED ({legs['c']['bytes_in']} bytes); "
             if "c" in legs else "")
     device = "(d) not run (PERF.md §4)"
     if dv:
@@ -2040,8 +2111,8 @@ def main() -> int:
             raise AssertionError(f"{name}: no launch in the device-only encodes")
     if exact8 == 0:
         raise AssertionError("no bits==8 block was tie-free on the device")
-    phase_entry_points(device, "config2", bed2)
-    phase_entry_points(device, "config3", bed3)
+    phase_entry_points("config2", bed2, smi)
+    phase_entry_points("config3", bed3, smi)
     huff_launches = {128: 0, 256: 0}
     for label in ("config2", "config3", "wide8"):
         for w, n in phase_fast_huff(device, label, by_label[label]).items():
@@ -2051,7 +2122,7 @@ def main() -> int:
     for w, n in huff_launches.items():
         wide_by_width[w] += n
         launches["mtf_wide"] += n
-    phase_entry_points(device, "config2 fast_huff", bed2, device_huffman=True)
+    phase_entry_points("config2 fast_huff", bed2, smi, device_huffman=True)
     phase_faults(device, texts_of(bed2), smi)
     streams = {label: [bz2.compress(t, 9) for t in texts] for label, texts, _ in runs}
     phase_decode_step(device, decode_batch(streams, ("config2", "wide8", "config3")), smi)

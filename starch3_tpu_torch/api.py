@@ -8,6 +8,18 @@ branches differ: ``use_jax=True`` selects the port's device path, which
 runs on the explicit ``device`` (``"cuda"`` by default, ``"cpu"`` for the
 plain PyTorch versions), in encode and in decode
 (``decompress_starch_bytes(use_jax=True)``).
+
+The device path is the default: ``EncodeConfig().use_jax`` is True and
+``decompress_starch_bytes`` decodes on the device unless told otherwise,
+on ``"cuda"``.  The caller asks for the CPU in one of two ways:
+``use_jax=False`` (``EncodeConfig(use_jax=False)``,
+``decompress_starch_bytes(..., use_jax=False)``) for the native host
+codec, or ``device="cpu"`` for the device path's plain PyTorch versions.
+Without a card a default call raises (``parallel.pipeline.resolve_device``);
+there is no fallback.  A gzip archive has no device path and is encoded
+and decoded on the host whatever the flags; so are
+``decompress_starch_file``, ``extract_chromosome`` and
+``list_chromosomes``.
 """
 
 from __future__ import annotations
@@ -89,7 +101,9 @@ def _gzip_members(
 
 
 def _on_device(config: EncodeConfig) -> bool:
-    """True when ``config`` selects the device path."""
+    """True when ``config`` selects the device path: a bzip2 encode with
+    ``use_jax`` (the default).  gzip has no device path in either
+    package, so a gzip encode stays on the host and needs no card."""
     return config.use_jax and config.method is CompressionMethod.BZIP2
 
 
@@ -411,6 +425,8 @@ def compress_bed_bytes(
     timer = timer if timer is not None else StageTimer()
     config = config or EncodeConfig()
     on_device = _on_device(config)
+    if on_device:
+        _pipe.resolve_device(device)  # no card: raise before any work, also on empty input
     writer = StarchWriter(
         note=config.note,
         compression=config.method.value,
@@ -595,6 +611,8 @@ def compress_bed_stream(
     from starch3_tpu_torch.runtime import bed_transform_native, get_lib
 
     config = config or EncodeConfig()
+    if _on_device(config):
+        _pipe.resolve_device(device)
     if get_lib() is None:
         out_fh.write(compress_bed_bytes(in_fh.read(), config, device=device))
         return
@@ -843,7 +861,7 @@ def _join_stream_blocks(meta, stream: bytes, sf) -> bytes | None:
 
 
 def decompress_starch_bytes(
-    data: bytes, workers: int | None = None, use_jax: bool = False, mesh=None, device="cuda"
+    data: bytes, workers: int | None = None, use_jax: bool = True, mesh=None, device="cuda"
 ) -> bytes:
     """.starch archive bytes -> BED text (byte-exact round trip).
 
@@ -852,15 +870,19 @@ def decompress_starch_bytes(
     metadata order regardless of completion order.  Multi-block streams
     additionally decode block-parallel via the metadata block index.
 
-    ``use_jax`` routes the vectorizable decode stages of a bzip2 archive
-    (inverse RLE2 -> MTF -> BWT) through the device path on ``device``
-    (``"cuda"`` needs a card; ``"cpu"`` runs the same torch ops there),
-    batched over all streams' blocks (parallel/pipeline.decode_streams),
-    or over the entries of ``mesh`` (parallel/mesh.py), which then
-    replaces ``device``.  A gzip archive decodes on the host either way.
+    ``use_jax`` (the default) routes the vectorizable decode stages of a
+    bzip2 archive (inverse RLE2 -> MTF -> BWT) through the device path on
+    ``device`` (``"cuda"`` needs a card; ``"cpu"`` runs the same torch ops
+    there), batched over all streams' blocks
+    (parallel/pipeline.decode_streams), or over the entries of ``mesh``
+    (parallel/mesh.py), which then replaces ``device``.
+    ``use_jax=False`` is the native block-parallel host decode.  A gzip
+    archive decodes on the host either way.
     """
     reader = StarchReader.from_bytes(data)
     fmt = reader.metadata.compression_format
+    if use_jax and fmt == "bzip2" and mesh is None:
+        _pipe.resolve_device(device)  # no card: raise, also for an archive of no stream
 
     items = list(reader.iter_streams())
     if workers is None:
@@ -922,7 +944,7 @@ def decompress_starch_file(in_path: str, out_fh, workers: int | None = None) -> 
         # few streams: the in-memory path's block-level fan-out beats
         # stream-level parallelism (e.g. one multi-block chromosome),
         # and its memory ceiling is the same at this scale
-        out_fh.write(decompress_starch_bytes(data, workers=workers))
+        out_fh.write(decompress_starch_bytes(data, workers=workers, use_jax=False))
         return
     del data
     strip_last = not reader.metadata.final_newline

@@ -1,22 +1,26 @@
 """Command-line interface of the port: the options of ``starch3-tpu``,
 with the device path on a torch device.
 
-    python -m starch3_tpu_torch.cli [--platform=cuda|cpu] [--jax] [options] [input]
+    python -m starch3_tpu_torch.cli [--platform=cuda|cpu|host] [options] [input]
 
-``--jax`` keeps its name, so scripts run unchanged, and selects the
-device path.  ``--platform`` names its torch device: ``cuda`` (the
-default) or ``cpu`` (the plain PyTorch versions).  A ``--jax`` encode
-without a card and without ``--platform=cpu`` exits non-zero; it never
-falls back to the CPU.  Decode, ``--list`` and ``--chrom`` run on the
-host.  The option parser and the host paths are the port's own copies of
+A bzip2 encode runs the device path (BWT and MTF on the device) unless
+asked otherwise.  ``--platform`` names where: ``cuda`` (the default, the
+card), ``cpu`` (the device path's plain PyTorch versions) or ``host`` (the
+native host codec, the reference's default path).  An encode on ``cuda``
+without a card exits non-zero before it writes an archive; it never
+falls back to the CPU.  ``--jax`` is accepted and changes nothing, so
+scripts run unchanged.  A gzip encode has no device path and runs on the
+host, as do decode, ``--list`` and ``--chrom``, whatever the platform.
+The option parser and the host paths are the port's own copies of
 ``starch3_tpu/cli.py``'s.
 
 Multi-host encode (``--num-hosts=N --host-id=I``): every process runs the
 same command with its own ``--host-id`` and encodes its round-robin share
 of the chromosomes; the streams meet over a gloo process group at
 ``--coordinator=HOST:PORT``, or through ``--manifest-dir=DIR``, a shared
-directory; host 0 writes the archive and the others write nothing.  On a
-host with several cards, give each process its card with
+directory; host 0 writes the archive and the others write nothing.  Each
+host encodes its share on its card unless ``--platform`` says otherwise.
+On a host with several cards, give each process its card with
 ``CUDA_VISIBLE_DEVICES``.
 """
 
@@ -31,7 +35,7 @@ from starch3_tpu_torch.config import CompressionMethod, EncodeConfig
 from starch3_tpu_torch.errors import InputUnavailableError, OptionError, StarchError
 
 PROG = "starch3-tpu-torch"
-PLATFORMS = ("cuda", "cpu")
+PLATFORMS = ("cuda", "cpu", "host")
 
 USAGE = f"""\
 {PROG}
@@ -39,16 +43,21 @@ USAGE = f"""\
 
   Usage:
 
-  $ {PROG} [--platform=cuda|cpu] [--jax] [--note="foo bar baz"] [--bzip2 | --gzip] [input] > output
+  $ {PROG} [--platform=cuda|cpu|host] [--note="foo bar baz"] [--bzip2 | --gzip] [input] > output
 
-  The options of starch3-tpu, with the device path on a torch device:
+  The options of starch3-tpu, with the device path on a torch device.
+  A bzip2 encode runs the device path (BWT and MTF on the device) by
+  default, on the card; it never falls back to the CPU:
 
-  --jax                   Run the device path (BWT and MTF on the device)
-  --device-huffman        With --jax: Huffman costing and bit packing on
-                          the device too (mode fast_huff; same bytes)
-  --platform=cuda|cpu     Device of the device path (default cuda; cpu
-                          runs the plain PyTorch versions).  A --jax
-                          encode without a card needs --platform=cpu.
+  --platform=cuda|cpu|host
+                          Where a bzip2 encode runs: cuda (default, the
+                          card), cpu (the device path's plain PyTorch
+                          versions) or host (the native host codec).
+                          Without a card, ask for cpu or host.
+  --jax                   Accepted, changes nothing (the device path is
+                          the default)
+  --device-huffman        Huffman costing and bit packing on the device
+                          too (mode fast_huff; same bytes)
   --decode | -d           decompress an archive back to BED (host)
   --decode --chrom=NAME   extract one chromosome (host)
   --list                  print the per-chromosome metadata table
@@ -75,7 +84,6 @@ def _parse_args(argv: list[str]) -> dict:
         "decode": False,
         "list": False,
         "output": None,
-        "jax": False,
         "device_huffman": False,
         "chrom": None,
         "input": None,
@@ -108,7 +116,7 @@ def _parse_args(argv: list[str]) -> dict:
         elif a == "--list":
             opts["list"] = True
         elif a == "--jax":
-            opts["jax"] = True
+            pass  # the device path is the default; kept so that scripts run unchanged
         elif a == "--device-huffman":
             opts["device_huffman"] = True
         elif a.startswith("--platform="):
@@ -158,6 +166,8 @@ def _parse_args(argv: list[str]) -> dict:
                 raise OptionError("multiple input files given")
             opts["input"] = a
         i += 1
+    # the device path (EncodeConfig.use_jax) runs on every platform but the host's
+    opts["jax"] = opts["platform"] != "host"
     return opts
 
 
@@ -228,9 +238,16 @@ def _encode_config(opts: dict) -> EncodeConfig:
     )
 
 
+def _device(opts: dict) -> str:
+    """The torch device of the device path: ``--platform``'s, or the CPU
+    on the host platform, where the device path does not run."""
+    return opts["platform"] if opts["jax"] else "cpu"
+
+
 def _check_device(opts: dict) -> None:
-    """A ``--jax`` encode needs its ``--platform``'s device."""
-    if opts["jax"]:
+    """A bzip2 encode off the host platform needs its ``--platform``'s
+    device, before anything is read or written."""
+    if opts["jax"] and (opts["method"] or CompressionMethod.default()) is CompressionMethod.BZIP2:
         from starch3_tpu_torch.parallel.pipeline import resolve_device
 
         try:
@@ -259,7 +276,7 @@ def _encode_multihost(opts: dict) -> int:
             num_hosts=opts["num_hosts"],
             host_id=opts["host_id"] or 0,
             manifest_dir=opts["manifest_dir"],
-            device=opts["platform"],
+            device=_device(opts),
         )
     finally:
         shutdown_distributed()
@@ -282,7 +299,7 @@ def main(argv: list[str] | None = None) -> int:
         if encode and (opts["num_hosts"] or 0) > 1:
             return _encode_multihost(opts)
         if encode:
-            platform = opts["platform"]
+            platform = _device(opts)
             config = _encode_config(opts)
             _check_device(opts)
             from starch3_tpu_torch.api import compress_bed_file, compress_bed_stream
@@ -301,16 +318,9 @@ def main(argv: list[str] | None = None) -> int:
                 lambda f: compress_bed_file(opts["input"], f, config, device=platform),
             )
             return 0
-        if opts["decode"] and opts["jax"]:
-            # the reference's behaviour: decode runs on the host; the device
-            # decode is decompress_starch_bytes(use_jax=True), whose on-card
-            # figures beside the native decoder's are in PERF.md
-            print(
-                "starch3: note: --jax applies to encode; decode uses the "
-                "native block-parallel path",
-                file=sys.stderr,
-            )
-            opts["jax"] = False
+        # decode, --list and --chrom run on the host, as in the reference's
+        # CLI; the device decode is the API's decompress_starch_bytes, whose
+        # on-card figures beside the native decoder's are in PERF.md
         if (
             opts["decode"]
             and not opts["chrom"]
@@ -348,7 +358,7 @@ def main(argv: list[str] | None = None) -> int:
         else:
             from starch3_tpu_torch.api import decompress_starch_bytes
 
-            out = decompress_starch_bytes(data)
+            out = decompress_starch_bytes(data, use_jax=False)
         if opts["output"]:
             with open(opts["output"], "wb") as f:
                 f.write(out)

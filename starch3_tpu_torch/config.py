@@ -61,9 +61,13 @@ class EncodeConfig:
     #: block-parallel decode, and block-granular resume properties as the
     #: bzip2 tier.  <= 0 disables segmentation (one member per stream)
     gzip_segment_bytes: int = 4 << 20
-    #: run the heavy per-block codec stages on the JAX backend when True,
-    #: on the NumPy oracle when False
-    use_jax: bool = False
+    #: run the heavy per-block codec stages of a bzip2 encode on the device
+    #: path when True (the default: on the entry point's ``device``,
+    #: ``"cuda"`` unless the caller names ``"cpu"``, and no fallback
+    #: without a card); False asks for the native host codec.  The
+    #: reference's default is the host codec: this default is the one
+    #: difference between the two packages' configurations
+    use_jax: bool = True
     #: number of 900 kB blocks batched per device dispatch on the JAX
     #: path.  3 balances dispatch amortization against the hybrid
     #: scheduler's claim granularity (swept on the bench corpus with

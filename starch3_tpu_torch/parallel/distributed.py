@@ -101,7 +101,8 @@ def encode_corpus_multihost(
     """Encode this host's chromosome share; returns {chrom: (stream, stats)}.
 
     The share goes through ``parallel.pipeline.encode_streams`` as ONE
-    call (``config.use_jax``), on ``device`` or on the local ``mesh``, so
+    call (``config.use_jax``, the default: ``EncodeConfig(use_jax=False)``
+    asks for the host tier), on ``device`` or on the local ``mesh``, so
     every chromosome's blocks share device batches; the host tier uses the
     shared native thread pool.  With a ``manifest_dir``, streams already
     recorded for this corpus are skipped (idempotent resume;

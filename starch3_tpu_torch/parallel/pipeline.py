@@ -141,14 +141,19 @@ def _count(**deltas) -> None:
 
 
 def resolve_device(device) -> torch.device:
-    """The explicit device for the device path: ``cuda`` needs a card
-    (there is no silent CPU fallback), ``cpu`` runs the plain versions."""
+    """The explicit device for the device path: ``cuda`` (the entry
+    points' default) needs a card (there is no silent CPU fallback),
+    ``cpu`` runs the plain versions.  Without a card the error names both
+    ways of asking for the CPU."""
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "device 'cuda' requested but torch.cuda.is_available() is "
-                "false; pass device='cpu' to run the device path on the CPU"
+                "false; ask for the CPU: use_jax=False (EncodeConfig(use_jax=False), "
+                "decompress_starch_bytes(..., use_jax=False), --platform=host) for the "
+                "native host codec, or device='cpu' (--platform=cpu) for the device "
+                "path's plain PyTorch versions"
             )
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev} (use 'cuda' or 'cpu')")

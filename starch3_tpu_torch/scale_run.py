@@ -7,7 +7,7 @@ encode in several processes; configs 4 and 3 at their stated scale; and
 config 1's one block device only.
 
     python -m starch3_tpu_torch.scale_run gen OUT TARGET [--shape S] [--n-per N | --n-total N]
-    python -m starch3_tpu_torch.scale_run encode IN OUT [--jax [--mode M] [--warm-up]] [--decode]
+    python -m starch3_tpu_torch.scale_run encode IN OUT [--jax [--mode M] [--warm-up]] [--cli] [--decode]
     python -m starch3_tpu_torch.scale_run pipe IN OUT
     python -m starch3_tpu_torch.scale_run device IN REF TRACE_DIR MISMATCH_DIR [--shape S] [--mode M]
         [--untraced | --traced-only] [--host-rate] [--bz2] [--texts FILE] [--streams K]
@@ -22,17 +22,22 @@ config 1's one block device only.
 ``corpus.gigabyte_bed``; ``config3``, ``bits6`` and ``wide8`` the BED6
 tiers; ``config4`` ``corpus.config4_scale_bed`` and ``reads``
 ``corpus.reads_scale_bed``, sized by ``--n-total``).  ``encode`` is
-``api.compress_bed_file`` with
-``EncodeConfig()`` (the host path) or, with ``--jax``, the device path
-beside the host stealers on ``--device``, in the encode mode M
+``api.compress_bed_file`` with ``EncodeConfig(use_jax=False)`` (the host
+path) or, with ``--jax``, the device path beside the host stealers on
+``--device``, in the encode mode M
 (``MODES``: ``fast``, the default, ``fast_huff``, ``ranks`` or
 ``rle2``), after a warm-up on the card with ``--warm-up``
-(``warm_up``); ``--decode`` then decodes the archive with
+(``warm_up``); with ``--cli`` the same encode is a user's command,
+the CLI's ``main`` with ``--output=OUT IN`` and the flags of
+``cli_flags``: none for the device path on the card (the CLI's default),
+``--platform=host`` for the host path, ``--platform=cpu`` for the plain
+versions.  ``--decode`` then decodes the archive with
 ``api.decompress_starch_file`` and hashes what comes out.  It also gives
 the archive's blocks and the feed's transform seconds.
-``pipe`` runs ``cat IN | python -m starch3_tpu_torch.cli --jax > OUT``, a
-real pipe into the CLI's stdin.  ``device`` transforms each chromosome of
-IN whole with the native transform (on every core, while the profiler
+``pipe`` runs ``cat IN | python -m starch3_tpu_torch.cli > OUT`` (with
+``--platform=D`` off the card), a real pipe into the CLI's stdin.
+``device`` transforms each chromosome of IN whole with the native
+transform (on every core, while the profiler
 starts; or reads them from ``--texts``, where an earlier leg wrote
 them), feeds the texts in order to
 ``pipeline.encode_streams_iter(host_assist=False)`` and holds every
@@ -56,7 +61,8 @@ must be the bytes of CORPUS (of its first K chromosomes), with
 host's share per block (the Huffman walk, ``rle1_decode``, the CRCs)
 around the functions ``decode_streams`` calls.
 ``multihost`` starts two ``host`` legs together, each the port's CLI
-with a user's argv, ``--jax --platform=D --num-hosts=2 --host-id=I`` over a
+with a user's argv, ``--num-hosts=2 --host-id=I`` (and ``--platform=D``
+off the card) over a
 gloo process group on a free localhost port or a manifest directory:
 host 0's archive must be REF's bytes and the others write nothing
 (``multihost_faults``).  ``host`` runs ``cli.main(CLI_ARGS)`` timed
@@ -265,9 +271,8 @@ class PeakRss:
     def _run(self) -> None:
         t0 = next_point = time.perf_counter()
         while not self._stop.wait(self.every_s):
-            rss = rss_mb()
-            with self._lock:
-                self.mb = max(self.mb, rss)
+            with self._lock:  # read under the lock: a sample from before a reset never lands after it
+                self.mb = max(self.mb, rss_mb())
             if time.perf_counter() >= next_point:
                 self._point(t0)
                 next_point += self.series_s
@@ -282,16 +287,14 @@ class PeakRss:
         self._thread.join()
 
     def peak_mb(self) -> float:
-        rss = rss_mb()
         with self._lock:
-            self.mb = max(self.mb, rss)
+            self.mb = max(self.mb, rss_mb())
             return self.mb
 
     def reset(self) -> None:
         """Forget the peak so far: the peak from here on (the series goes on)."""
-        rss = rss_mb()
         with self._lock:
-            self.mb = rss
+            self.mb = rss_mb()
 
 
 def _zero_counters() -> None:
@@ -468,24 +471,40 @@ def warm_up(args, bed_bytes: int = 8 << 20) -> dict:
     return {"text_bytes": len(text), "seconds": time.perf_counter() - t0}
 
 
+def cli_flags(device: str | None, mode: str = "fast") -> list[str]:
+    """The CLI's flags for an encode on ``device``, None for the host path:
+    none on the card, the CLI's default; ``--platform=...`` otherwise; and
+    ``--device-huffman`` in mode ``fast_huff``."""
+    flags = [] if device == "cuda" else [f"--platform={device or 'host'}"]
+    return flags + (["--device-huffman"] if mode == "fast_huff" else [])
+
+
 def leg_encode(args, peak: PeakRss) -> dict:
-    from starch3_tpu_torch import api, runtime
+    from starch3_tpu_torch import api, cli, runtime
     from starch3_tpu_torch.config import EncodeConfig
 
     cfg = EncodeConfig(use_jax=args.jax, block_size_100k=args.level, **MODES[args.mode])
+    argv = [*cli_flags(args.device if args.jax else None, args.mode), f"--output={args.out}", args.inp]
     warm = warm_up(args) if args.warm_up else None
     peak.reset()
     _zero_counters()
     n_in = os.path.getsize(args.inp)
     rss0 = rss_mb()
     t0 = time.perf_counter()
-    with open(args.out, "wb") as fh, timed_calls(runtime, "bed_transform_native") as spent:
-        api.compress_bed_file(args.inp, fh, cfg, chunk_bytes=args.chunk_bytes, device=args.device)
+    with timed_calls(runtime, "bed_transform_native") as spent:
+        if args.cli:
+            rc = cli.main(argv)
+            if rc:
+                raise SystemExit(f"encode: the CLI exited {rc} on {argv}")
+        else:
+            with open(args.out, "wb") as fh:
+                api.compress_bed_file(args.inp, fh, cfg, chunk_bytes=args.chunk_bytes, device=args.device)
     dt = time.perf_counter() - t0
     streams = archive_metadata(args.out).streams
     text = sum(s.uncompressed_size for s in streams)
     res = {
         "leg": "encode", "jax": args.jax, "mode": args.mode, "device": args.device if args.jax else None,
+        "cli": argv if args.cli else None,
         "bytes_in": n_in, "seconds": dt, "mb_per_s_bed": n_in / dt / 1e6, "text_bytes": text,
         "mb_per_s_text": text / dt / 1e6, "transform_seconds": spent["bed_transform_native"],
         "archive_digest": file_digest(args.out), "archive_bytes": os.path.getsize(args.out),
@@ -505,10 +524,11 @@ def leg_encode(args, peak: PeakRss) -> dict:
 
 
 def leg_pipe(args, peak: PeakRss) -> dict:
-    """``cat IN | python -m starch3_tpu_torch.cli --jax > OUT``; the CLI's
-    ``ru_maxrss`` is read from this process's waited-for children."""
+    """``cat IN | python -m starch3_tpu_torch.cli > OUT``, the device path
+    on ``args.device`` (``cli_flags``); the CLI's ``ru_maxrss`` is read
+    from this process's waited-for children."""
     n_in = os.path.getsize(args.inp)
-    cli = [sys.executable, "-m", "starch3_tpu_torch.cli", "--jax", f"--platform={args.device}"]
+    cli = [sys.executable, "-m", "starch3_tpu_torch.cli", *cli_flags(args.device)]
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, [root, os.environ.get("PYTHONPATH")])))
     t0 = time.perf_counter()
@@ -1109,15 +1129,16 @@ HOSTS = 2  # config 5's N >= 2 hosts, as processes on one machine
 
 def _run_hosts(args, how: str, d: str, attempt: int) -> dict:
     """``HOSTS`` host legs started together, each
-    ``scale_run host -- --jax --platform=D --num-hosts=2 --host-id=I HOW
-    --output=FILE BED``, in this leg's process group; when one fails or the
+    ``scale_run host -- [--platform=D] --num-hosts=2 --host-id=I HOW
+    --output=FILE BED`` (``cli_flags``: no flag on the card), in this
+    leg's process group; when one fails or the
     limit passes, every host still running is killed.  Returns the wall
     time for all and each host's record: its exit, its JSON line, the
     bytes it wrote besides its line, and the end of its standard error."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, [root, os.environ.get("PYTHONPATH")])))
     base = [os.path.join(d, f"host{h}-{attempt}") for h in range(HOSTS)]
-    cmds = [[sys.executable, "-m", "starch3_tpu_torch.scale_run", "host", "--", "--jax", f"--platform={args.device}",
+    cmds = [[sys.executable, "-m", "starch3_tpu_torch.scale_run", "host", "--", *cli_flags(args.device),
              f"--num-hosts={HOSTS}", f"--host-id={h}", how, f"--output={base[h]}.starch", args.inp]
             for h in range(HOSTS)]
     procs = []
@@ -1479,6 +1500,15 @@ def _card_of(args) -> str | None:
     return device if device and device.startswith("cuda") else None
 
 
+def _disk_bytes(*paths: str) -> int:
+    """The bytes of the files at ``paths`` that exist now."""
+    n = 0
+    for path in paths:
+        with contextlib.suppress(OSError):
+            n += os.path.getsize(path)
+    return n
+
+
 def cuda_init(device: str) -> float:
     """Seconds to initialise CUDA and make the card's context."""
     import torch
@@ -1513,6 +1543,8 @@ def main(argv=None) -> int:
     enc = sub.choices["encode"]
     enc.add_argument("--jax", action="store_true")
     enc.add_argument("--decode", action="store_true")
+    enc.add_argument("--cli", action="store_true", help="encode through the CLI's main with a user's flags "
+                     "(cli_flags)")
     enc.add_argument("--warm-up", action="store_true", help="warm the card first with a device-only encode of a "
                      "few blocks of the input (warm_up)")
     dev = sub.choices["device"]
@@ -1554,6 +1586,9 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if args.leg == "encode" and (args.mode != "fast" or args.warm_up) and not args.jax:
         ap.error("--mode and --warm-up are for the device path: give --jax")
+    if args.leg == "encode" and args.cli and ((args.level, args.chunk_bytes) != (9, 64 << 20)
+                                              or args.mode not in ("fast", "fast_huff")):
+        ap.error("--cli encodes as the CLI does: level 9, 64 MB chunks, mode fast or fast_huff")
     # the start a leg pays before its work: its imports, then CUDA's
     t0 = time.perf_counter()
     if args.leg != "gen":
@@ -1563,9 +1598,10 @@ def main(argv=None) -> int:
     card = _card_of(args)
     cuda_init_s = cuda_init(card) if card else 0.0
     t_work = time.perf_counter()
-    # progress: the archive's bytes on disk, in the legs that write one
+    # progress: the archive's bytes on disk, in the legs that write one (the
+    # CLI writes OUT.tmp, renamed to OUT at its end)
     out = getattr(args, "out", None)
-    peak = PeakRss(progress=lambda: os.path.getsize(out) if out and os.path.exists(out) else 0).start()
+    peak = PeakRss(progress=lambda: _disk_bytes(out, out + ".tmp") if out else 0).start()
     legs = {"gen": leg_gen, "encode": leg_encode, "pipe": leg_pipe, "device": leg_device, "decode": leg_decode,
             "multihost": leg_multihost, "host": leg_host, "config5": leg_config5, "oneblock": leg_oneblock}
     legs.update(dict.fromkeys(STATED, leg_stated))

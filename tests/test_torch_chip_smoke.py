@@ -165,6 +165,17 @@ def test_scale_demotion_fails_where_the_card_must_be_kept(shape, device_mb_s, fa
         assert faults[-1].startswith(f"{shape} (b) benched the device")
 
 
+@pytest.mark.parametrize("shape, fails", [("bed3", True), ("bits6", False)])
+def test_scale_gates_want_the_default_on_the_card(shape, fails):
+    """Where the tier keeps the card (bits 4), the hybrid (b), the CLI's
+    default, must put a block on it; elsewhere a benched card may take
+    none."""
+    legs = _scale_legs(shape)
+    legs["b"]["device_stats"]["blocks"] = 0
+    faults = chip_smoke.scale_faults(shape, legs)
+    assert faults == ([f"{shape} (b) the default CLI put no block on the card, of its None"] if fails else [])
+
+
 def test_scale_gates_hold_archives_decode_abandons_trace_and_memory():
     """A differing archive of (b) and of (c), a half archive not a prefix,
     a wrong decode, an abandoned batch, a short traced window and memory
@@ -357,7 +368,7 @@ def test_scale_gates_of_config4(change, fault):
 
 def _config1_legs() -> dict:
     """Phase 16's legs as ``phase_config1`` reads them on a card: the CLI's
-    --jax encode put its one block on the card, and three device-only
+    default encode put its one block on the card, and three device-only
     runs of the block, warm-up, capture and replay."""
     def run():
         return {"equal": True, "blocks": 1, "width_launches": {"16": 1, "32": 0, "64": 0, "128": 0, "256": 0},
@@ -370,7 +381,7 @@ def _config1_legs() -> dict:
 
 
 @pytest.mark.parametrize("change, fault", [
-    (lambda l: l["cli"].update(archive_digest="y"), "config1 (i) the CLI's --jax archive y != the host path's x"),
+    (lambda l: l["cli"].update(archive_digest="y"), "config1 (i) the CLI's default archive y != the host path's x"),
     (lambda l: l["decode"].update(digest="z"), "config1 (i) the archive decodes to z"),
     (lambda l: l["cli"]["scheduler_stats"].update(abandoned_batches=1), "config1 (i) abandoned batches"),
     (lambda l: l["cli"]["width_launches"].update({"16": 0}), "config1 (i) fast: MTF launches by width"),
@@ -381,7 +392,7 @@ def _config1_legs() -> dict:
     (lambda l: l["oneblock"]["runs"].pop(), "config1 (ii) 2 device-only runs"),
 ], ids=["archive", "decode", "abandoned", "launches", "stream", "off_the_card", "runs"])
 def test_config1_gates(change, fault):
-    """Phase 16: a differing archive or decode of the CLI's --jax encode,
+    """Phase 16: a differing archive or decode of the CLI's default encode,
     or a device-only run whose stream differs or whose block was not on
     the card, fails the phase with one message."""
     legs = _config1_legs()
@@ -392,8 +403,9 @@ def test_config1_gates(change, fault):
 
 
 def test_phase_config1_on_the_cpu(tmp_path):
-    """Phase 16 run on the CPU: the CLI's --jax encode of chr21 in a
-    process started anew equals the host path's CLI and decodes back, and
+    """Phase 16 run on the CPU: the CLI's ``--platform=cpu`` encode of
+    chr21 in a process started anew equals the host path's CLI
+    (``--platform=host``) and decodes back, and
     the forked device-only leg's runs equal ``bz2.compress``; on the CPU
     no kernel launches."""
     from starch3_tpu_torch import leg_fork

@@ -4,11 +4,16 @@ modules, which load no JAX) and nothing of JAX.  The port's host tier is
 a copy of the JAX package's, and it must write the same bytes: the
 copies are held to their originals, and the two host paths to each
 other on seeded BED of each alphabet tier and on the golden archives,
-with zero tolerance."""
+with zero tolerance.  The port's ``config.py`` is held to the original's
+in every name, field, type and default but one: ``use_jax`` defaults to
+the device path."""
 
 import ast
+import dataclasses
+import enum
 import fcntl
 import io
+import re
 import subprocess
 import sys
 import time
@@ -27,13 +32,14 @@ PORT = ROOT / "starch3_tpu_torch"
 JAX_PKG = ROOT / "starch3_tpu"
 
 # the JAX package's modules the port keeps copies of, with the package
-# prefix of their imports rewritten and nothing else changed
+# prefix of their imports rewritten and nothing else changed (config.py
+# differs in use_jax's default: test_config_*)
 COPIED = sorted(
     str(p.relative_to(JAX_PKG))
     for d in ("codec", "bed", "format", "transform")
     for p in (JAX_PKG / d).iterdir()
     if p.suffix in (".py", ".md")
-) + ["config.py", "errors.py", "_version.py", "runtime/runtime.cpp", "parallel/assemble.py"]
+) + ["errors.py", "_version.py", "runtime/runtime.cpp", "parallel/assemble.py"]
 
 
 def _is_jax_package(name: str) -> bool:
@@ -93,6 +99,68 @@ def test_copy_equals_its_original(rel):
     assert (PORT / rel).read_text() == want
 
 
+def _config_names(mod) -> list[str]:
+    """The module's own public names: its enums, constants and dataclasses."""
+    return sorted(
+        n for n, v in vars(mod).items()
+        if not n.startswith("_") and n != "annotations" and not isinstance(v, type(ast))
+    )
+
+
+def _plain(value):
+    """An enum member as its class's name and its value (each package has
+    its own enum class); anything else as it is."""
+    return (type(value).__name__, value.value) if isinstance(value, enum.Enum) else value
+
+
+def test_config_has_the_originals_names():
+    assert _config_names(config) == _config_names(jax_config)
+    assert len(_config_names(config)) == 7
+
+
+@pytest.mark.parametrize("name", _config_names(jax_config))
+def test_config_name_equals_the_original(name):
+    """Each enum by its members and default, each constant by type and
+    value, each dataclass by its parameters and its fields' names, types
+    and defaults; the one difference is ``EncodeConfig.use_jax``'s default,
+    the device path in the port and the host codec in the reference."""
+    ours, theirs = getattr(config, name), getattr(jax_config, name)
+    if isinstance(theirs, type) and issubclass(theirs, enum.Enum):
+        assert [(m.name, m.value) for m in ours] == [(m.name, m.value) for m in theirs]
+        assert ours.default().value == theirs.default().value
+    elif dataclasses.is_dataclass(theirs):
+        assert repr(ours.__dataclass_params__) == repr(theirs.__dataclass_params__)
+        fields, want = ([(f.name, f.type, _plain(f.default), f.default_factory, f.init) for f in dataclasses.fields(c)]
+                        for c in (ours, theirs))
+        if name == "EncodeConfig":
+            i = [f[0] for f in want].index("use_jax")
+            assert (want[i][2], fields[i][2]) == (False, True)
+            fields[i] = want[i]
+        assert fields == want
+        assert set(vars(ours)) - {"__module__", "__doc__"} == set(vars(theirs)) - {"__module__", "__doc__"}
+    else:
+        assert (type(ours), ours) == (type(theirs), theirs)
+
+
+def test_config_rejects_what_the_original_rejects():
+    for bad in (0, 10):
+        with pytest.raises(ValueError, match="block_size_100k"):
+            config.EncodeConfig(block_size_100k=bad)
+        with pytest.raises(ValueError, match="block_size_100k"):
+            jax_config.EncodeConfig(block_size_100k=bad)
+    assert config.EncodeConfig().use_jax is True and jax_config.EncodeConfig().use_jax is False
+
+
+def test_config_source_differs_only_in_use_jax():
+    """The port's source is the original's, but for ``use_jax``'s comment
+    and default."""
+    use_jax = re.compile(r"(?:    #:[^\n]*\n)*    use_jax: bool = (?:True|False)\n")
+    ours, theirs = (PORT / "config.py").read_text(), (JAX_PKG / "config.py").read_text()
+    assert len(use_jax.findall(ours)) == len(use_jax.findall(theirs)) == 1
+    assert use_jax.sub("", ours) == use_jax.sub("", theirs)
+    assert "use_jax: bool = True" in ours
+
+
 def test_runtime_builds_into_build_dir():
     """The port's native runtime loads, from its own build, never the JAX
     package's library."""
@@ -106,21 +174,24 @@ def _beds():
     return {
         "config2": corpus.make_bed(corpus.GENOME_CHROMS[:3], 900, seed=2),
         "config3": corpus.config3_bed(seed=3, n_per=300),
+        "bits6": corpus.bits6_bed(seed=5, n_per=300),
         "wide8": corpus.wide8_bed(seed=4, chroms=("chr1", "chr2"), n_per=300),
     }
 
 
-@pytest.mark.parametrize("name", ["config2", "config3", "wide8"])
+@pytest.mark.parametrize("name", ["config2", "config3", "bits6", "wide8"])
 @pytest.mark.parametrize("method", ["bzip2", "gzip"])
 def test_host_path_equals_jax_package(name, method):
+    """The port's host path, asked for with ``use_jax=False``, against the
+    JAX package's default (its host path)."""
     bed = _beds()[name]
-    cfg = config.EncodeConfig(method=config.CompressionMethod(method))
+    cfg = config.EncodeConfig(method=config.CompressionMethod(method), use_jax=False)
     got = api.compress_bed_bytes(bed, cfg)
     want = jax_api.compress_bed_bytes(
         bed, jax_config.EncodeConfig(method=jax_config.CompressionMethod(method))
     )
     assert got == want
-    assert api.decompress_starch_bytes(got) == jax_api.decompress_starch_bytes(want) == bed
+    assert api.decompress_starch_bytes(got, use_jax=False) == jax_api.decompress_starch_bytes(want) == bed
     assert api.list_chromosomes(got) == jax_api.list_chromosomes(want)
     chrom = api.list_chromosomes(got)[-1]["chromosome"]
     assert api.extract_chromosome(got, chrom) == jax_api.extract_chromosome(want, chrom)
@@ -132,7 +203,7 @@ def test_host_path_equals_jax_package(name, method):
 @pytest.mark.parametrize("path", sorted((ROOT / "tests").glob("golden*.starch")), ids=lambda p: p.name)
 def test_golden_archives_decode_alike(path):
     data = path.read_bytes()
-    assert api.decompress_starch_bytes(data) == jax_api.decompress_starch_bytes(data)
+    assert api.decompress_starch_bytes(data, use_jax=False) == jax_api.decompress_starch_bytes(data)
     rows = api.list_chromosomes(data)
     assert rows == jax_api.list_chromosomes(data)
     for row in rows:

@@ -54,6 +54,8 @@ sys.meta_path.insert(0, Refuse())
 sys.path.insert(0, {repo!r})
 """
 
+HOST = EncodeConfig(use_jax=False)  # the native host codec, the reference's default path
+
 
 def _free_port() -> int:
     with socket.socket() as s:
@@ -119,8 +121,8 @@ class TestMultihostSharding:
                 results.update(encode_corpus_multihost(blocks, cfg, num_hosts=n_hosts, host_id=h, mesh=mesh))
             archives.append(assemble_ordered(order, results))
         assert archives[0] == archives[1] == archives[2]
-        assert archives[0] == api.compress_bed_bytes(bed) == jax_api.compress_bed_bytes(bed)
-        assert api.decompress_starch_bytes(archives[0]) == bed
+        assert archives[0] == api.compress_bed_bytes(bed, HOST) == jax_api.compress_bed_bytes(bed)
+        assert api.decompress_starch_bytes(archives[0], use_jax=False) == bed
 
     def test_host_count_invariance_gzip_segmented(self, rng):
         cfg = EncodeConfig(method=CompressionMethod.GZIP, gzip_segment_bytes=1024)
@@ -135,7 +137,7 @@ class TestMultihostSharding:
             archives.append(assemble_ordered(order, results, compression="gzip"))
         assert archives[0] == archives[1]
         assert archives[0] == api.compress_bed_bytes(bed, cfg)
-        assert api.decompress_starch_bytes(archives[0]) == bed
+        assert api.decompress_starch_bytes(archives[0], use_jax=False) == bed
 
     def test_fingerprint_stable(self, rng):
         from starch3_tpu.parallel.distributed import corpus_fingerprint as jax_fingerprint
@@ -175,18 +177,18 @@ def test_device_huffman_and_mesh_forwarded(rng, monkeypatch):
         device="cpu",
     )
     order = [b.chrom for b in blocks]
-    assert assemble_ordered(order, {c: results[c] for c in order}) == api.compress_bed_bytes(bed)
+    assert assemble_ordered(order, {c: results[c] for c in order}) == api.compress_bed_bytes(bed, HOST)
     assert len(seen) == 1
     assert seen[0]["device_huffman"] is True and seen[0]["mesh"] is mesh and seen[0]["device"] == "cpu"
 
 
 def test_multihost_needs_a_transport(rng):
     """Two hosts with neither a process group nor a manifest directory:
-    the reference's refusal."""
+    the reference's refusal, on the reference's default (host) path."""
     from starch3_tpu_torch.parallel.distributed import compress_bed_bytes_multihost
 
     with pytest.raises(ValueError, match="needs manifest_dir"):
-        compress_bed_bytes_multihost(make_bed_text(rng, n=60), num_hosts=2, host_id=0)
+        compress_bed_bytes_multihost(make_bed_text(rng, n=60), HOST, num_hosts=2, host_id=0)
 
 
 # ------------------------------------------------------------- processes
@@ -225,8 +227,8 @@ def test_two_process_encode_matches_single(tmp_path, rng):
             results[chrom] = (Path(entry["path"]).read_bytes(), entry["stats"])
     assert set(results) == set(order)
     archive = assemble_ordered(order, results)
-    assert archive == api.compress_bed_bytes(bed) == jax_api.compress_bed_bytes(bed)
-    assert api.decompress_starch_bytes(archive) == bed
+    assert archive == api.compress_bed_bytes(bed, HOST) == jax_api.compress_bed_bytes(bed)
+    assert api.decompress_starch_bytes(archive, use_jax=False) == bed
 
 
 DIST_WORKER = r"""
@@ -260,7 +262,7 @@ def test_two_process_gloo_gather(tmp_path, rng):
     worker = _worker(tmp_path, "dworker.py", DIST_WORKER)
     port = str(_free_port())
     _ok(_run_all([[sys.executable, worker, str(h), "2", port, str(bed_path), str(tmp_path)] for h in range(2)]))
-    single = api.compress_bed_bytes(bed)
+    single = api.compress_bed_bytes(bed, HOST)
     assert single == jax_api.compress_bed_bytes(bed)
     for h in range(2):
         assert (tmp_path / f"archive{h}.starch").read_bytes() == single, f"host {h} archive differs"
@@ -270,7 +272,8 @@ def test_two_process_gloo_gather(tmp_path, rng):
 def test_cli_multihost(tmp_path, rng, transport):
     """One CLI process per host (``--jax --platform=cpu``), through a
     manifest directory or a gloo process group: host 0's stdout is the
-    single-process CLI's archive and host 1 writes nothing."""
+    single-process CLI's host-path archive (``--platform=host``) and host
+    1 writes nothing."""
     bed = make_bed_text(rng, n=700, chroms=("chr1", "chr2", "chr3", "chr9", "chrM"))
     bed_path = tmp_path / "in.bed"
     bed_path.write_bytes(bed)
@@ -278,13 +281,13 @@ def test_cli_multihost(tmp_path, rng, transport):
     cli = [sys.executable, "-m", "starch3_tpu_torch.cli"]
     runs = _run_all(
         [cli + ["--jax", "--platform=cpu", "--num-hosts=2", f"--host-id={h}", how, str(bed_path)] for h in range(2)]
-        + [cli + [str(bed_path)]]
+        + [cli + ["--platform=host", str(bed_path)]]
     )
     _ok(runs)
     (_, out0, _), (_, out1, _), (_, single, _) = runs
     assert out0 == single == jax_api.compress_bed_bytes(bed)
     assert out1 == b""
-    assert api.decompress_starch_bytes(out0) == bed
+    assert api.decompress_starch_bytes(out0, use_jax=False) == bed
 
 
 CRASH_WORKER = r"""
@@ -302,8 +305,11 @@ def counting(text, config, workers=None, device="cuda"):
 api._compress_stream_ex = counting  # distributed.py imports it at call time
 import starch3_tpu_torch.parallel.distributed as D
 from starch3_tpu_torch.bed.parser import parse_bed
+from starch3_tpu_torch.config import EncodeConfig
 blocks = parse_bed(open(bed_path, "rb").read())
-D.encode_corpus_multihost(blocks, num_hosts=n_hosts, host_id=host_id, manifest_dir=mdir)
+# the host tier: a stream at a time, each recorded in the manifest as it lands
+D.encode_corpus_multihost(blocks, EncodeConfig(use_jax=False), num_hosts=n_hosts, host_id=host_id,
+                          manifest_dir=mdir)
 sys.stdout.write(str(calls["n"]))
 """
 
@@ -325,8 +331,8 @@ def test_interrupted_encode_resumes_from_manifest(tmp_path, rng):
     assert out.decode() == str(len(chroms) - 2), out
     order = [b.chrom for b in parse_bed(bed)]
     archive = assemble_ordered(order, gather_results_manifest(mdir, order, num_hosts=1, timeout_s=5))
-    assert archive == api.compress_bed_bytes(bed)
-    assert api.decompress_starch_bytes(archive) == bed
+    assert archive == api.compress_bed_bytes(bed, HOST)
+    assert api.decompress_starch_bytes(archive, use_jax=False) == bed
 
 
 SKEW_WORKER = r"""
@@ -334,6 +340,7 @@ import json, os, tracemalloc
 host_id, n_hosts, port, bed_path, out_dir = (
     int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4], sys.argv[5])
 from starch3_tpu_torch.bed.parser import parse_bed
+from starch3_tpu_torch.config import EncodeConfig
 from starch3_tpu_torch.parallel.assemble import assemble_ordered
 from starch3_tpu_torch.parallel.distributed import (
     encode_corpus_multihost, gather_results_dist, initialize_distributed, shutdown_distributed)
@@ -341,7 +348,7 @@ initialize_distributed(f"127.0.0.1:{port}", n_hosts, host_id)
 try:
     blocks = parse_bed(open(bed_path, "rb").read())
     order = [b.chrom for b in blocks]
-    results = encode_corpus_multihost(blocks, num_hosts=n_hosts, host_id=host_id)
+    results = encode_corpus_multihost(blocks, EncodeConfig(use_jax=False), num_hosts=n_hosts, host_id=host_id)
     gather_results_dist(results, order)  # warm-up
     tracemalloc.start()
     gathered = gather_results_dist(results, order)
@@ -367,7 +374,7 @@ def test_gather_memory_bounded_with_skewed_streams(tmp_path, rng):
     worker = _worker(tmp_path, "sworker.py", SKEW_WORKER)
     port = str(_free_port())
     _ok(_run_all([[sys.executable, worker, str(h), "2", port, str(bed_path), str(tmp_path)] for h in range(2)]))
-    single = api.compress_bed_bytes(bed)
+    single = api.compress_bed_bytes(bed, HOST)
     for h in range(2):
         assert (tmp_path / f"skew{h}.starch").read_bytes() == single
         st = json.loads((tmp_path / f"skew{h}.json").read_text())
@@ -390,7 +397,7 @@ def _leg(args, timeout=TIMEOUT_S) -> tuple[int, dict, bytes]:
 @pytest.mark.parametrize("transport", ["gloo", "manifest"])
 def test_multihost_leg_equals_jax_package(tmp_path, transport):
     """``scale_run multihost`` on the CPU: two host processes of the CLI
-    (``scale_run host -- --jax --platform=cpu --num-hosts=2 ...``) on a
+    (``scale_run host -- --platform=cpu --num-hosts=2 ...``) on a
     small scale corpus of 4 chromosomes.  Host 0's archive is the JAX
     package's ``compress_bed_bytes`` archive of the BED, host 1 writes
     nothing, and each host's line carries its share, counters, memory and

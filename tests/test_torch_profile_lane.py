@@ -5,11 +5,12 @@ to, and the torch operations of one batch on the thread that runs the
 step, and leaves the driver's names and no thread of its own behind."""
 
 import threading
+import time
 
 import pytest
 
 from starch3_tpu_torch import corpus, profile_lane
-from starch3_tpu_torch.parallel import pipeline
+from starch3_tpu_torch.parallel import host, pipeline
 
 
 @pytest.fixture(scope="module")
@@ -19,12 +20,33 @@ def bed(tmp_path_factory):
     return str(path)
 
 
+@pytest.fixture
+def held_feed(monkeypatch):
+    """The feed held open until the device has claimed a batch: while
+    blocks may still arrive, the stealers leave a batch in each bucket to
+    the device, so it takes one for certain (without the hold, fast
+    stealers under load may take every block once the feed ends)."""
+
+    class Queue(host._BlockQueue):
+        def finish_feeding(self):
+            deadline = time.monotonic() + 60
+            with self.cond:
+                while not (self.device_claimed or self.cancelled) and time.monotonic() < deadline:
+                    self.cond.wait(0.01)
+            super().finish_feeding()
+
+    monkeypatch.setattr(pipeline, "_BlockQueue", Queue)
+    monkeypatch.setattr(host, "_class_rate_cache", {})  # no class gated by an earlier encode's rate
+
+
 @pytest.mark.parametrize("feed", ["file", "paced"])
-def test_one_sample_per_drained_batch(bed, feed):
+def test_one_sample_per_drained_batch(bed, feed, held_feed):
     real = (pipeline.pack_batch, pipeline._after_all, pipeline._start_host_stealers)
+    before = set(threading.enumerate())
     res = profile_lane.run(bed, feed, rate_mb_s=1.0, device="cpu", level=1)
     assert (pipeline.pack_batch, pipeline._after_all, pipeline._start_host_stealers) == real
-    assert not [t for t in threading.enumerate() if t.name == "gil-probe"]
+    left = [t.name for t in threading.enumerate() if t not in before and not t.name.startswith("s3tail")]
+    assert left == []
     assert res["scheduler_stats"]["abandoned_batches"] == 0
     assert len(res["samples"]) == res["device_batches"] >= 1
     assert res["samples"][0]["kind"] == "first"
@@ -87,7 +109,7 @@ def test_gil_holders_are_the_threads_that_ran():
 
 
 @pytest.mark.parametrize("mode", ["fast_huff", "rle2"])
-def test_samples_in_another_mode(bed, mode):
+def test_samples_in_another_mode(bed, mode, held_feed):
     """``--mode``: the encode runs in that mode (the exact modes pack
     nothing on the driver: ``raw_batch``), with one rate sample for each
     drained batch, each with the line below which the rule benches the

@@ -85,7 +85,7 @@ def small(tmp_path_factory):
     assert r.returncode == 0, r.stderr.decode()[-2000:]
     gen = json.loads(r.stdout.decode().splitlines()[-1])
     out = io.BytesIO()
-    api.compress_bed_file(str(d / "in.bed"), out, EncodeConfig(block_size_100k=1))
+    api.compress_bed_file(str(d / "in.bed"), out, EncodeConfig(use_jax=False, block_size_100k=1))
     (d / "host.starch").write_bytes(out.getvalue())
     return d, gen, hashlib.sha256(out.getvalue()).hexdigest()
 
@@ -138,7 +138,7 @@ def test_encode_leg_hybrid_puts_a_batch_on_the_device(small, tmp_path, monkeypat
     d, _gen, host_digest = small
     before = set(threading.enumerate())
     args = SimpleNamespace(inp=str(d / "in.bed"), out=str(tmp_path / "b.starch"), jax=True, device="cpu",
-                           level=1, chunk_bytes=4096, decode=False, mode="fast", warm_up=False)
+                           level=1, chunk_bytes=4096, decode=False, mode="fast", warm_up=False, cli=False)
     peak = scale_run.PeakRss().start()
     try:
         res = scale_run.leg_encode(args, peak)
@@ -173,7 +173,7 @@ def test_pipe_leg_equals_host_path(small, tmp_path):
     """Phase 13 (c) on the CPU: ``cat | cli --jax --platform=cpu``."""
     d, _gen, _ = small
     want = io.BytesIO()
-    api.compress_bed_file(str(d / "in.bed"), want, EncodeConfig())
+    api.compress_bed_file(str(d / "in.bed"), want, EncodeConfig(use_jax=False))
     r = _run(["-m", "starch3_tpu_torch.scale_run", "pipe", d / "in.bed", tmp_path / "c.starch", "--device", "cpu"])
     assert r.returncode == 0, r.stderr.decode()[-2000:]
     res = json.loads(r.stdout.decode().splitlines()[-1])
@@ -224,7 +224,7 @@ def test_file_entry_equals_jax_package_across_chunks_and_blocks(tmp_path):
     meta = StarchReader.from_bytes(got.getvalue()).metadata
     assert len(meta.streams) == 1 and len(meta.streams[0].block_bit_offsets) >= 3
     assert not meta.final_newline
-    assert api.decompress_starch_bytes(got.getvalue()) == bed
+    assert api.decompress_starch_bytes(got.getvalue(), use_jax=False) == bed
 
 
 @pytest.fixture
@@ -724,7 +724,7 @@ def test_bed6_file_entry_equals_jax_package(tmp_path, shape):
 
     meta = StarchReader.from_bytes(got.getvalue()).metadata
     assert len(meta.streams) == 1 and len(meta.streams[0].block_bit_offsets) >= 2
-    assert api.decompress_starch_bytes(got.getvalue()) == (tmp_path / "in.bed").read_bytes()
+    assert api.decompress_starch_bytes(got.getvalue(), use_jax=False) == (tmp_path / "in.bed").read_bytes()
 
 
 @pytest.mark.parametrize("shape", sorted(SHAPES))
@@ -745,7 +745,7 @@ def test_bed6_gen_and_device_legs(tmp_path, shape):
     assert gen["shape"] == shape and gen["tier"] == corpus.SCALE_TIERS[shape]
     assert gen["digest"] == corpus.SCALE_SHAPES[shape](tmp_path / "w.bed", target, **size)[0]
     out = io.BytesIO()
-    api.compress_bed_file(str(tmp_path / "in.bed"), out, EncodeConfig(block_size_100k=1))
+    api.compress_bed_file(str(tmp_path / "in.bed"), out, EncodeConfig(use_jax=False, block_size_100k=1))
     (tmp_path / "host.starch").write_bytes(out.getvalue())
     r = _run(["-m", "starch3_tpu_torch.scale_run", "device", tmp_path / "in.bed", tmp_path / "host.starch",
               tmp_path / "trace", tmp_path / "mismatch", "--device", "cpu", "--level", 1, "--shape", shape],
@@ -888,7 +888,7 @@ def test_streams_are_a_prefix(small, tmp_path, level, change, prefix):
     bed = (d / "in.bed").read_bytes()
     (tmp_path / "h.bed").write_bytes(bed[: bed.index(b"\nchr3\t") + 1])
     out = io.BytesIO()
-    api.compress_bed_file(str(tmp_path / "h.bed"), out, EncodeConfig(block_size_100k=level))
+    api.compress_bed_file(str(tmp_path / "h.bed"), out, EncodeConfig(use_jax=False, block_size_100k=level))
     (tmp_path / "half.starch").write_bytes(change(out.getvalue()) if change else out.getvalue())
     assert scale_run.is_prefix_archive(str(tmp_path / "half.starch"), str(d / "host.starch")) == prefix
 
@@ -925,7 +925,7 @@ def test_file_entry_in_each_mode_equals_jax_package(tmp_path, mode, chunk_bytes)
 
     meta = StarchReader.from_bytes(got.getvalue()).metadata
     assert len(meta.streams) == 2 and all(len(m.block_bit_offsets) == 2 for m in meta.streams)
-    assert api.decompress_starch_bytes(got.getvalue()) == (tmp_path / "in.bed").read_bytes()
+    assert api.decompress_starch_bytes(got.getvalue(), use_jax=False) == (tmp_path / "in.bed").read_bytes()
 
 
 @pytest.mark.parametrize("mode", OTHER_MODES)
@@ -966,6 +966,41 @@ def test_encode_leg_wants_jax_for_a_mode(small, tmp_path):
     d, _gen, _ = small
     r = _run(["-m", "starch3_tpu_torch.scale_run", "encode", d / "in.bed", tmp_path / "a.starch", "--mode", "ranks"])
     assert r.returncode == 2 and b"give --jax" in r.stderr
+
+
+@pytest.mark.parametrize("device, mode, flags", [
+    (None, "fast", ["--platform=host"]),
+    ("cpu", "fast", ["--platform=cpu"]),
+    ("cuda", "fast", []),
+    ("cuda", "fast_huff", ["--device-huffman"]),
+])
+def test_cli_flags_ask_for_all_but_the_card(device, mode, flags):
+    """A user's CLI command for an encode: no flag on the card, the CLI's
+    default; the host path and the plain versions are asked for."""
+    assert scale_run.cli_flags(device, mode) == flags
+
+
+def test_encode_leg_through_the_cli(small, tmp_path):
+    """``encode --cli``: the host path as ``--platform=host`` and the
+    device path on the CPU as ``--platform=cpu``, each the CLI's ``main``
+    at level 9 with the leg's counters; both archives equal the JAX
+    package's host path, and a level the CLI has no flag for is refused."""
+    d, _gen, _ = small
+    want = hashlib.sha256(jax_api.compress_bed_bytes((d / "in.bed").read_bytes(), JaxEncodeConfig())).hexdigest()
+    for name, flags, argv in (("host", [], ["--platform=host"]), ("cpu", ["--jax", "--device", "cpu"],
+                                                                   ["--platform=cpu"])):
+        out = tmp_path / f"{name}.starch"
+        r = _run(["-m", "starch3_tpu_torch.scale_run", "encode", d / "in.bed", out, "--cli", *flags])
+        assert r.returncode == 0, r.stderr.decode()[-2000:]
+        res = json.loads(r.stdout.decode().splitlines()[-1])
+        assert res["cli"] == [*argv, f"--output={out}", str(d / "in.bed")]
+        assert res["archive_digest"] == want and res["faults"] == []
+        assert 0 < res["transform_seconds"] < res["seconds"]
+        if name == "host":  # (the hybrid's share of the device is not certain: its stealers may take all)
+            assert res["device_stats"].get("batches", 0) == 0
+    r = _run(["-m", "starch3_tpu_torch.scale_run", "encode", d / "in.bed", tmp_path / "x.starch", "--cli",
+              "--level", 1])
+    assert r.returncode == 2 and b"--cli encodes as the CLI does" in r.stderr
 
 
 # a device-only run's batches by class: 2 of bits 4, 3 of bits 5, 1 of bits 6, 3 of bits 8
@@ -1305,9 +1340,9 @@ def test_config4_decode_in_both_packages_gives_back_the_unsorted_input(tmp_path)
     bed = _config4_chromosomes(tmp_path, target=600_000)
     first = [int(line.split(b"\t")[1]) for line in bed.splitlines()[:5000]]
     assert first != sorted(first)
-    archive = api.compress_bed_bytes(bed, EncodeConfig(block_size_100k=1))
+    archive = api.compress_bed_bytes(bed, EncodeConfig(use_jax=False, block_size_100k=1))
     assert jax_api.decompress_starch_bytes(archive) == bed
-    assert api.decompress_starch_bytes(archive) == bed
+    assert api.decompress_starch_bytes(archive, use_jax=False) == bed
     assert api.decompress_starch_bytes(archive, use_jax=True, device="cpu") == bed
 
 

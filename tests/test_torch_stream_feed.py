@@ -66,7 +66,7 @@ def test_stream_equals_jax_package(case, chunk_bytes, reader, use_jax):
     assert out.getvalue() == want.getvalue()
     assert out.getvalue() == jax_api.compress_bed_bytes(bed, JaxEncodeConfig(block_size_100k=1))
     # an archive keeps no blank line
-    assert api.decompress_starch_bytes(out.getvalue()) == re.sub(rb"\n+", b"\n", bed)
+    assert api.decompress_starch_bytes(out.getvalue(), use_jax=False) == re.sub(rb"\n+", b"\n", bed)
 
 
 @pytest.mark.parametrize("kind", ["bytes", "bytearray", "memoryview", "numpy_view"])
