@@ -220,7 +220,9 @@ def _jax_runtime_lib(deadline_s: float = 60.0):
     ROADMAP C).  Here one waiter at a time, under a lock in ``build/``,
     polls until the stamp is current and the library loads, then asks the
     loader again; past the deadline the test fails with that message and
-    never compares against None."""
+    never compares against None.  Every port test that reads the JAX
+    package's native entry points calls it first
+    (``test_port_tests_reach_jax_runtime_only_through_helper``)."""
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     end = time.monotonic() + deadline_s
     with open(_build.BUILD_DIR / "jax-runtime-wait.lock", "w") as lock:
@@ -261,3 +263,107 @@ def test_native_entry_points_equal_jax_package():
     want = jax_runtime.dense_pack4_native(arr, want_row)
     assert got is not None and got[0] == want[0] and (got[1] == want[1]).all()
     assert (got_row == want_row).all()
+
+
+# A port test reaches the JAX package's native loader and entry points
+# only after _jax_runtime_lib: called first, they return None in a worker
+# that lost the reference's build race.
+JAX_RUNTIME = "starch3_tpu.runtime"
+
+
+def _import_aliases(nodes) -> dict:
+    """Each name the imports among ``nodes`` bind, mapped to the dotted
+    name it stands for."""
+    aliases = {}
+    for node in nodes:
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                name = a.name if a.asname else a.name.split(".")[0]
+                aliases[a.asname or name] = name
+        elif isinstance(node, ast.ImportFrom) and node.module and not node.level:
+            for a in node.names:
+                aliases[a.asname or a.name] = f"{node.module}.{a.name}"
+    return aliases
+
+
+def _dotted(node, aliases: dict):
+    parts = []
+    while isinstance(node, ast.Attribute):
+        parts.append(node.attr)
+        node = node.value
+    if not isinstance(node, ast.Name) or node.id not in aliases:
+        return None
+    return ".".join([aliases[node.id], *reversed(parts)])
+
+
+def _jax_runtime_uses(source: str) -> list:
+    """(line, name, guarded) for each use in ``source`` of the JAX
+    package's ``get_lib`` or of an entry point of its runtime that ends in
+    ``_native``; guarded when the function (or the module's top level)
+    that makes it has called ``_jax_runtime_lib`` before it."""
+    tree = ast.parse(source)
+    defs = (ast.FunctionDef, ast.AsyncFunctionDef)
+    units = [s for s in tree.body if isinstance(s, defs)]
+    units += [f for c in tree.body if isinstance(c, ast.ClassDef) for f in c.body if isinstance(f, defs)]
+    top = [s for s in tree.body if not isinstance(s, (*defs, ast.ClassDef))]
+    module_aliases = _import_aliases(n for s in top for n in ast.walk(s))
+    uses = []
+    for unit in [*units, ast.Module(body=top, type_ignores=[])]:
+        if getattr(unit, "name", None) == "_jax_runtime_lib":
+            continue
+        nodes = list(ast.walk(unit))
+        aliases = {**module_aliases, **_import_aliases(nodes)}
+        guards = [
+            (n.lineno, n.col_offset)
+            for n in nodes
+            if isinstance(n, ast.Call)
+            and "_jax_runtime_lib" in (getattr(n.func, "id", None), getattr(n.func, "attr", None))
+        ]
+        for n in nodes:
+            name = _dotted(n, aliases) if isinstance(n, (ast.Name, ast.Attribute)) else None
+            module, _, attr = (name or "").rpartition(".")
+            if module == JAX_RUNTIME and (attr.endswith("_native") or attr == "get_lib"):
+                uses.append((n.lineno, name, any(g < (n.lineno, n.col_offset) for g in guards)))
+    return sorted(uses)
+
+
+IMPORT_R = "from starch3_tpu import runtime as r\n"
+GUARD_CASES = {  # source, the lines of its unguarded uses
+    "unguarded": (IMPORT_R + "def test_a():\n    r.bed_transform_native(b'')\n", [3]),
+    "guarded": (IMPORT_R + "def test_a():\n    _jax_runtime_lib()\n    r.bed_transform_native(b'')\n", []),
+    "guard_after": (IMPORT_R + "def test_a():\n    r.dense_pack4_native(a, b)\n    _jax_runtime_lib()\n", [3]),
+    "get_lib": ("import starch3_tpu.runtime as rt\ndef test_a():\n    assert rt.get_lib()\n", [3]),
+    "full_path": ("import starch3_tpu.runtime\ndef test_a():\n    starch3_tpu.runtime.get_lib()\n", [3]),
+    "from_import": (
+        "from starch3_tpu.runtime import dense_pack_words_native as p\ndef test_a():\n    p(a, 5, b)\n", [3]),
+    "local_import": (
+        "from starch3_tpu_torch import runtime\ndef test_a():\n    from starch3_tpu import runtime\n"
+        "    runtime.bed_transform_native(b'')\n", [4]),
+    "method": (IMPORT_R + "class T:\n    def test_a(self):\n        f = r.bed_transform_native\n", [4]),
+    "module_level": (IMPORT_R + "LIB = r.get_lib()\n", [2]),
+    "other_guarded_test": (
+        IMPORT_R + "def test_a():\n    _jax_runtime_lib()\ndef test_b():\n    r.bed_transform_native(b'')\n", [5]),
+    "port_runtime": (
+        "from starch3_tpu_torch import runtime\ndef test_a():\n"
+        "    runtime.get_lib(); runtime.bed_transform_native(b'')\n", []),
+    "not_an_entry_point": (IMPORT_R + "def test_a():\n    r._is_stale(); r.lib_path\n", []),
+}
+
+
+@pytest.mark.parametrize("case", sorted(GUARD_CASES))
+def test_jax_runtime_guard_finds_unguarded_uses(case):
+    source, lines = GUARD_CASES[case]
+    assert [line for line, _, guarded in _jax_runtime_uses(source) if not guarded] == lines
+
+
+def test_port_tests_reach_jax_runtime_only_through_helper():
+    """No port test calls the JAX package's native loader or entry points
+    before ``_jax_runtime_lib``, and the guard sees the tests that do."""
+    unguarded, users = [], set()
+    for path in sorted((ROOT / "tests").glob("test_torch_*.py")):
+        for line, name, guarded in _jax_runtime_uses(path.read_text()):
+            users.add(path.name)
+            if not guarded:
+                unguarded.append(f"{path.relative_to(ROOT)}:{line}: {name} before _jax_runtime_lib()")
+    assert not unguarded, "\n".join(unguarded)
+    assert {"test_torch_isolation.py", "test_torch_step.py", "test_torch_stream_feed.py"} <= users

@@ -53,6 +53,7 @@ from starch3_tpu_torch.parallel.pipeline import (
 )
 
 from tests.conftest import make_bed_text
+from tests.test_torch_isolation import _jax_runtime_lib
 
 torch.set_num_threads(2)
 
@@ -133,6 +134,7 @@ def test_pack_batch_rows_equal_jax_runtime(rng, monkeypatch, bits, native):
     from starch3_tpu import runtime as jax_runtime
     from starch3_tpu_torch import runtime
 
+    _jax_runtime_lib()
     n_max = 4096
     if bits == 4:
         text = b"".join(_parse_transform_text(make_bed_text(rng, n=1500)))

@@ -18,6 +18,8 @@ from starch3_tpu.config import EncodeConfig as JaxEncodeConfig
 from starch3_tpu_torch import api, corpus, runtime
 from starch3_tpu_torch.config import EncodeConfig
 
+from tests.test_torch_isolation import _jax_runtime_lib
+
 
 class _ReadOnly:
     """A binary file object with ``read`` and no ``readinto``."""
@@ -69,10 +71,15 @@ def test_stream_equals_jax_package(case, chunk_bytes, reader, use_jax):
     assert api.decompress_starch_bytes(out.getvalue(), use_jax=False) == re.sub(rb"\n+", b"\n", bed)
 
 
+def _transform_bed() -> bytes:
+    bed = corpus.make_bed(("chr1", "chr2"), 2_000, 9) + corpus.config3_bed(n_per=300)[:20_000]
+    return bed[: bed.rfind(b"\n") + 1]
+
+
 @pytest.mark.parametrize("kind", ["bytes", "bytearray", "memoryview", "numpy_view"])
 def test_transform_takes_any_buffer(kind):
-    bed = corpus.make_bed(("chr1", "chr2"), 2_000, 9) + corpus.config3_bed(n_per=300)[:20_000]
-    bed = bed[: bed.rfind(b"\n") + 1]
+    _jax_runtime_lib()
+    bed = _transform_bed()
     data = {
         "bytes": lambda: bed,
         "bytearray": lambda: bytearray(bed),
@@ -85,3 +92,20 @@ def test_transform_takes_any_buffer(kind):
     assert got == want and len(got) == 5  # chr1, chr2, then BED6 lines of chr1-chr3
     for g, w in zip(got, want):
         assert bytes(g[1]) == w[1] and g[1].readonly
+
+
+def test_lost_jax_runtime_load_is_retried():
+    """A worker whose first load of the JAX package's runtime lost the
+    build race keeps None for good (``_lib`` None, ``_tried`` True);
+    ``_jax_runtime_lib`` loads it again, the reference's transform then
+    equals the port's, and the loaded library is back afterwards."""
+    lib = _jax_runtime_lib()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_runtime, "_lib", None)
+        mp.setattr(jax_runtime, "_tried", True)
+        assert jax_runtime.get_lib() is None
+        assert _jax_runtime_lib() is not None and jax_runtime.get_lib() is jax_runtime._lib
+        bed = _transform_bed()
+        want = jax_runtime.bed_transform_native(bed)
+        assert want is not None and runtime.bed_transform_native(bed) == want
+    assert jax_runtime._lib is lib and jax_runtime.get_lib() is lib
