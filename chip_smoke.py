@@ -2011,8 +2011,7 @@ def log_fast(shape: str, smi: str, legs: dict) -> None:
             f"(d) device only, timed {dv['mb_per_s_text']:.3f} MB/s of text ({dv['blocks']} blocks, "
             f"{dv['device_stats'].get('batches', 0)} batches in {dv['seconds']:.3f} s, per class "
             f"{_classes_run(dv['per_class'])}; the tied blocks' host re-encodes {dv['reencode']['calls']} in "
-            f"{dv['reencode']['seconds']:.3f} s, by thread {dv['reencode']['by_thread']}), busy share "
-            f"{dv['busy_share_derived']} derived for it; traced run "
+            f"{dv['reencode']['seconds']:.3f} s, by thread {dv['reencode']['by_thread']}); traced run "
             f"{traced['mb_per_s_text']:.3f} MB/s of text, busy share {trace.get('busy_share')} over "
             f"{trace.get('batches')} steady batches ({trace.get('batches_per_s')} batches/s, "
             f"{trace.get('device_ms_per_batch')} device ms a batch); max_memory_reserved "

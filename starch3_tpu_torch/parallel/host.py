@@ -1,9 +1,11 @@
 """The host tier of the block-encode pipeline: the port's own copy.
 
 Copied from ``starch3_tpu/parallel/pipeline.py`` with the package prefix
-rewritten, and nothing else changed, so the two packages schedule and
-encode alike (the known faults of these pieces, listed in ROADMAP.md C,
-are kept):
+rewritten, so the two packages schedule and encode alike (the known
+faults of these pieces, listed in ROADMAP.md C, are kept).  The port's
+only change is what it counts: ``scheduler_stats`` is a locked
+``observability.Stats``, and the stealers' encodes and the tail's tasks
+(``_submit_tail``) are spans in it.
 
   - classing and geometry: ``_split_classify``, ``_bits_class``,
     ``_bucket_for``;
@@ -33,6 +35,7 @@ from starch3_tpu_torch.codec.encoder import (
     write_block_from_ranks,
 )
 from starch3_tpu_torch.codec.rle1 import rle1_split_blocks
+from starch3_tpu_torch.observability import Stats, span, span_keys
 
 # padded device block size: fits any level-9 block (nblockMAX 899_981 + 4
 # overshoot), multiple of the MTF tile (512)
@@ -224,13 +227,21 @@ _CLASS_MIN_SAMPLES = 2
 _ABANDON_S = 30.0
 
 # observability: cumulative scheduler events for this process (tests and
-# the bench read these; encode results never depend on them)
-scheduler_stats = {
-    "demotions": 0,
-    "repromotions": 0,
-    "abandoned_batches": 0,
-    "class_skips": 0,
-}
+# the bench read these; encode results never depend on them), and the
+# host tier's spans (``observability.span``): the stealers' block encodes
+# (``steal``, with their blocks' bytes) and the tail pool's tasks
+# (``tail``) with their waits in its queue (``tail_wait_s``)
+scheduler_stats = Stats(
+    {
+        "demotions": 0,
+        "repromotions": 0,
+        "abandoned_batches": 0,
+        "class_skips": 0,
+        "tail_wait_s": 0.0,
+    }
+    | span_keys("steal", nbytes=True)
+    | span_keys("tail")
+)
 
 # process-lifetime per-class device tier rates (bits -> EMA bytes/s):
 # a fresh encode's queue is seeded from the last encode's measurements,
@@ -469,9 +480,9 @@ def _start_host_stealers(q: _BlockQueue, results, errors, host_assist):
                     return
                 si, bi = claim
                 blk = q.per_stream_blocks[si][bi]
-                t0 = time.monotonic()
-                results[(si, bi)] = encode_block_fragment(blk)
-                dt = time.monotonic() - t0
+                with span(scheduler_stats, "steal", len(blk.data)) as timed:
+                    results[(si, bi)] = encode_block_fragment(blk)
+                dt = timed.dt
                 with q.cond:  # wake the incremental assembler
                     if dt > 0:
                         r = len(blk.data) / dt
@@ -509,10 +520,9 @@ _TAIL_POOL = None
 def _tail_pool():
     """Shared executor for per-block tail encodes (the native entry
     releases the GIL, so these overlap device transfers).  Width
-    defaults to 2 (right for this 2-core box); STARCH3_TPU_TAIL_WORKERS
-    overrides it — both to scale up on big hosts and to throttle to 1
-    for the chips-outnumber-cores crossover experiment
-    (benchmarks/profile_device.py, docs/PERF.md)."""
+    defaults to 2; STARCH3_TPU_TAIL_WORKERS overrides it — both to scale
+    up on big hosts and to throttle to 1 for the chips-outnumber-cores
+    crossover experiment (benchmarks/profile_device.py, docs/PERF.md)."""
     global _TAIL_POOL
     if _TAIL_POOL is None:
         import os
@@ -521,6 +531,19 @@ def _tail_pool():
         width = max(1, int(os.environ.get("STARCH3_TPU_TAIL_WORKERS", "2") or 2))
         _TAIL_POOL = ThreadPoolExecutor(width, thread_name_prefix="s3tail")
     return _TAIL_POOL
+
+
+def _submit_tail(fn, *args):
+    """``fn(*args)`` on the tail pool; its future.  ``scheduler_stats``
+    adds the task's wait from the submit to its start to ``tail_wait_s``
+    and times its work as the span ``tail``."""
+    return _tail_pool().submit(_tail_task, time.perf_counter(), fn, args)
+
+
+def _tail_task(submitted: float, fn, args):
+    scheduler_stats.add(tail_wait_s=time.perf_counter() - submitted)
+    with span(scheduler_stats, "tail"):
+        return fn(*args)
 
 def _fragment_from_ranks_row(row, used, crc, n, bits=4):
     """One block's bitstream fragment from a packed-ranks result row:

@@ -88,6 +88,7 @@ from starch3_tpu_torch.codec.encoder import BLOCK_MAGIC, STREAM_END_MAGIC
 from starch3_tpu_torch.codec.randtable import derandomize
 from starch3_tpu_torch.codec.rle1 import rle1_decode
 from starch3_tpu_torch.errors import FormatError
+from starch3_tpu_torch.observability import Stats, span, span_keys
 from starch3_tpu_torch.ops.bitpack import emit_coded_padded
 from starch3_tpu_torch.ops.huff import ALPHA_MAX, GROUP_SIZE, N_TABLES, cost_and_select, group_hist_padded
 from starch3_tpu_torch.parallel import host
@@ -101,7 +102,7 @@ from starch3_tpu_torch.parallel.host import (
     _fragment_from_row,
     _split_classify,
     _start_host_stealers,
-    _tail_pool,
+    _submit_tail,
     scheduler_stats,
 )
 from starch3_tpu_torch.ops.bwt import bwt_encode_padded
@@ -124,20 +125,25 @@ CLASSES = (4, 5, 6, 8)  # the alphabet classes of _bits_class
 # host reads back from the device; the decode batches and blocks; and the
 # fast step's CUDA graphs captured and replayed (``_StepGraph``); and, per
 # class, the driver's skips of a class-gated bucket (their total is
-# ``scheduler_stats["class_skips"]``)
-device_stats = {
-    f"{k}{c}": 0
-    for k in ("batches", "blocks", "tie_reencodes", "huff_host_reencodes", "d2h_bytes", "graph_captures",
-              "graph_replays")
-    for c in ("",) + tuple(f"_bits{c}" for c in CLASSES)
-} | {"decode_batches": 0, "decode_blocks": 0} | {f"class_skips_bits{c}": 0 for c in CLASSES}
-_stats_lock = threading.Lock()
-
-
-def _count(**deltas) -> None:
-    with _stats_lock:
-        for k, d in deltas.items():
-            device_stats[k] += d
+# ``scheduler_stats["class_skips"]``).  The device lane's spans
+# (``observability.span``): the feed's waits on its source
+# (``feed_source``), ``pack_batch`` (``pack``), the launcher's work on a
+# batch (``launch``) and its queue before it (``launch_wait_s``), and the
+# driver's tie re-encodes (``tie_reencode``, in fast mode); ``encodes``
+# counts the streaming encodes and ``first_block_s`` sums each one's
+# seconds from its start to its first block in the queue
+device_stats = Stats(
+    {
+        f"{k}{c}": 0
+        for k in ("batches", "blocks", "tie_reencodes", "huff_host_reencodes", "d2h_bytes", "graph_captures",
+                  "graph_replays")
+        for c in ("",) + tuple(f"_bits{c}" for c in CLASSES)
+    }
+    | {"decode_batches": 0, "decode_blocks": 0}
+    | {f"class_skips_bits{c}": 0 for c in CLASSES}
+    | span_keys("feed_source") | span_keys("pack") | span_keys("launch") | span_keys("tie_reencode")
+    | {"launch_wait_s": 0.0, "encodes": 0, "first_block_s": 0.0}
+)
 
 
 def resolve_device(device) -> torch.device:
@@ -499,35 +505,37 @@ def pack_batch(block_datas, n_max: int, bits: int, b_pad: int | None = None):
     (uint8[B, n_max]) at bits 8, in pageable memory.  Returns (tensor,
     lens int32[B], nsyms int32[B], the blocks' ``used`` bool[256]
     tables).  The rows are NumPy's zeros (a torch call would let the GIL
-    go and wait to win it back), and the native packs keep the GIL."""
-    if bits not in CLASSES:
-        raise ValueError(f"unknown alphabet class bits=={bits}")
-    b_pad = max(len(block_datas), b_pad or 0)
-    lens = np.ones(b_pad, dtype=np.int32)
-    nsyms = np.ones(b_pad, dtype=np.int32)
-    if bits == 4:
-        rows_np = np.zeros((b_pad, n_max // 2), dtype=np.uint8)
-        buf = torch.from_numpy(rows_np)
-        pack = _dense_pack4
-    elif bits in (5, 6):
-        rows_np = np.zeros((b_pad, -(-n_max // (30 // bits))), dtype=np.uint32)
-        buf = torch.from_numpy(rows_np.view(np.int32))
-        pack = functools.partial(_dense_pack_words, bits=bits)
-    else:
-        rows_np = np.zeros((b_pad, n_max), dtype=np.uint8)
-        buf = torch.from_numpy(rows_np)
-        pack = _dense_remap
-    useds = []
-    for i, data in enumerate(block_datas):
-        arr = np.frombuffer(data, dtype=np.uint8)
-        if arr.size > n_max:
-            raise ValueError(f"block {i} exceeds n_max ({arr.size} > {n_max})")
-        lens[i] = arr.size
-        nsyms[i], used = pack(arr, rows_np[i])
-        if bits != 8 and nsyms[i] > 1 << bits:  # the queue classed this block
-            raise RuntimeError(f"block {i} has {nsyms[i]} distinct bytes in the bits=={bits} tier")
-        useds.append(used)
-    return buf, lens, nsyms, useds
+    go and wait to win it back), and the native packs keep the GIL.
+    ``device_stats`` times it as the span ``pack``."""
+    with span(device_stats, "pack"):
+        if bits not in CLASSES:
+            raise ValueError(f"unknown alphabet class bits=={bits}")
+        b_pad = max(len(block_datas), b_pad or 0)
+        lens = np.ones(b_pad, dtype=np.int32)
+        nsyms = np.ones(b_pad, dtype=np.int32)
+        if bits == 4:
+            rows_np = np.zeros((b_pad, n_max // 2), dtype=np.uint8)
+            buf = torch.from_numpy(rows_np)
+            pack = _dense_pack4
+        elif bits in (5, 6):
+            rows_np = np.zeros((b_pad, -(-n_max // (30 // bits))), dtype=np.uint32)
+            buf = torch.from_numpy(rows_np.view(np.int32))
+            pack = functools.partial(_dense_pack_words, bits=bits)
+        else:
+            rows_np = np.zeros((b_pad, n_max), dtype=np.uint8)
+            buf = torch.from_numpy(rows_np)
+            pack = _dense_remap
+        useds = []
+        for i, data in enumerate(block_datas):
+            arr = np.frombuffer(data, dtype=np.uint8)
+            if arr.size > n_max:
+                raise ValueError(f"block {i} exceeds n_max ({arr.size} > {n_max})")
+            lens[i] = arr.size
+            nsyms[i], used = pack(arr, rows_np[i])
+            if bits != 8 and nsyms[i] > 1 << bits:  # the queue classed this block
+                raise RuntimeError(f"block {i} has {nsyms[i]} distinct bytes in the bits=={bits} tier")
+            useds.append(used)
+        return buf, lens, nsyms, useds
 
 
 def step_for_class(seqs, lens, nsyms, bits: int, n_max: int) -> torch.Tensor:
@@ -674,7 +682,7 @@ def _count_batch(b: int, bits: int, d2h_bytes: int) -> None:
     counts = {"batches": 1, "blocks": b, f"batches_bits{bits}": 1, f"blocks_bits{bits}": b}
     if d2h_bytes:
         counts.update({"d2h_bytes": d2h_bytes, f"d2h_bytes_bits{bits}": d2h_bytes})
-    _count(**counts)
+    device_stats.add(**counts)
 
 
 class _Launched:
@@ -796,7 +804,7 @@ class _StepGraph:
             self.graph.capture_end()
         self.launches = tuple(tally)
         self.done = None  # the event after the latest replay's rows were copied out
-        _count(**{"graph_captures": 1, f"graph_captures_bits{bits}": 1})
+        device_stats.add(**{"graph_captures": 1, f"graph_captures_bits{bits}": 1})
 
     def stage(self, inputs) -> torch.Tensor:
         """A batch's inputs copied into one pinned buffer laid out as the
@@ -819,7 +827,7 @@ class _StepGraph:
     def counted(self) -> None:
         """Count one replay and the kernel launches its capture recorded."""
         mtf_wide.count_replayed(self.launches)
-        _count(**{"graph_replays": 1, f"graph_replays_bits{self.bits}": 1})
+        device_stats.add(**{"graph_replays": 1, f"graph_replays_bits{self.bits}": 1})
 
 
 def _step_graph(stream, graph_key, inputs, step):
@@ -856,7 +864,11 @@ def _launch(device: torch.device, inputs, step, graph_key=None) -> _Launched:
     the rows into pinned memory and record an event, on the stream that is
     current here (the device's or a mesh entry's).  With a ``graph_key``
     (``(bits, n_max)``, the fast step's) the step runs as a replay of its
-    ``_StepGraph``, captured at the key's second batch (``_step_graph``)."""
+    ``_StepGraph``, captured at the key's second batch (``_step_graph``).
+    ``device_stats`` times the launcher's work on the batch as the span
+    ``launch``, and adds its wait from the submit to that work's start
+    (the launcher's queue and the hand-over of the GIL) to
+    ``launch_wait_s``."""
     if device.index is None:
         # resolving "cuda" to its index asks torch.cuda.is_available(),
         # which may query NVML: once here, not on every call below
@@ -865,7 +877,8 @@ def _launch(device: torch.device, inputs, step, graph_key=None) -> _Launched:
     launched = _Launched()
 
     def launch():
-        with torch.cuda.device(device), torch.cuda.stream(stream):
+        device_stats.add(launch_wait_s=time.perf_counter() - submitted)
+        with span(device_stats, "launch"), torch.cuda.device(device), torch.cuda.stream(stream):
             graph, launched.first_of_key = (None, False) if graph_key is None else _step_graph(
                 stream, graph_key, inputs, step)
             # pinned, so that the uploads never wait on a stalled stream;
@@ -891,6 +904,7 @@ def _launch(device: torch.device, inputs, step, graph_key=None) -> _Launched:
         launched.start = start
         return (out, event) + on_device
 
+    submitted = time.perf_counter()
     launched.future = _launcher().submit(launch)
     return launched
 
@@ -1005,15 +1019,16 @@ def _drain_into(results, per_stream_blocks, item, on_done=None, huff=None):
         if int(out[i, tie_col]) != 0:
             from starch3_tpu_torch.codec.encoder import encode_block_fragment
 
-            results[(si, bi)] = encode_block_fragment(blk)
+            with span(device_stats, "tie_reencode"):
+                results[(si, bi)] = encode_block_fragment(blk)
             ties += 1
         elif bits == 8:
-            results[(si, bi)] = _tail_pool().submit(_fragment_from_row, out[i], 8, used, blk.crc)
+            results[(si, bi)] = _submit_tail(_fragment_from_row, out[i], 8, used, blk.crc)
         else:
-            results[(si, bi)] = _tail_pool().submit(
+            results[(si, bi)] = _submit_tail(
                 _fragment_from_ranks_row, out[i], used, blk.crc, int(aux["lens"][i]), bits
             )
-    _count(**{"tie_reencodes": ties, f"tie_reencodes_bits{bits}": ties})
+    device_stats.add(**{"tie_reencodes": ties, f"tie_reencodes_bits{bits}": ties})
     if on_done is not None:
         on_done(time.monotonic() - t_work, _device_seconds(handle, aux))
 
@@ -1209,7 +1224,7 @@ def _drain_fast_huff(results, per_stream_blocks, chunk, handle, aux) -> None:
             coded._nbits = tail_bits
         frag.append_writer(coded)
         results[(si, bi)] = frag
-    _count(**{
+    device_stats.add(**{
         "tie_reencodes": ties_n, f"tie_reencodes_bits{bits}": ties_n,
         "huff_host_reencodes": overflows, f"huff_host_reencodes_bits{bits}": overflows,
         "d2h_bytes": d2h, f"d2h_bytes_bits{bits}": d2h,
@@ -1260,8 +1275,7 @@ def _abandon_batch(q: _BlockQueue, results, entry) -> None:
     with q.cond:
         q.device_demoted = True
         q.device_probe_at = time.monotonic() + host._DEMOTE_PROBE_S
-        scheduler_stats["demotions"] += 1
-        scheduler_stats["abandoned_batches"] += 1
+        scheduler_stats.add(demotions=1, abandoned_batches=1)
         inline = q.live_stealers == 0
         if not inline:
             dq = q.buckets.setdefault(nm, q._deque())
@@ -1353,7 +1367,7 @@ def _device_driver(q: _BlockQueue, results, errors, device, batch_size, reserve,
             ):
                 q.device_demoted = True
                 q.device_probe_at = now + host._DEMOTE_PROBE_S
-                scheduler_stats["demotions"] += 1
+                scheduler_stats.add(demotions=1)
                 q.cond.notify_all()
 
     def keep_orphan(handle) -> None:
@@ -1420,7 +1434,7 @@ def _device_driver(q: _BlockQueue, results, errors, device, batch_size, reserve,
                 q.device_demoted = False
                 q.device_rate = rate
                 q.device_rate_samples = 1
-                scheduler_stats["repromotions"] += 1
+                scheduler_stats.add(repromotions=1)
             else:
                 q.device_probe_at = time.monotonic() + host._DEMOTE_PROBE_S
             q.cond.notify_all()
@@ -1454,8 +1468,8 @@ def _device_driver(q: _BlockQueue, results, errors, device, batch_size, reserve,
                         if remaining <= 0:
                             continue
                         if q.class_gated(nm[1], time.monotonic()):
-                            scheduler_stats["class_skips"] += 1
-                            _count(**{f"class_skips_bits{nm[1]}": 1})
+                            scheduler_stats.add(class_skips=1)
+                            device_stats.add(**{f"class_skips_bits{nm[1]}": 1})
                             continue
                         if q.active_feeding() and remaining < batch_size:
                             continue  # wait for a full batch while blocks arrive
@@ -1633,7 +1647,15 @@ def encode_streams_iter(
     (or the mesh, which then replaces ``device``).  ``device_huffman`` runs
     ``mode="fast_huff"``, the Huffman stage on the device too;
     ``fast_bwt=False`` the exact modes, ``"ranks"``, or ``"rle2"`` with
-    ``device_rle2`` (``encode_mode``).  Bytes are the same either way."""
+    ``device_rle2`` (``encode_mode``).  Bytes are the same either way.
+
+    ``device_stats`` counts the encode (``encodes``), its seconds from its
+    start to its first block in the queue (``first_block_s``; an encode
+    that feeds no block adds none) and the feed's waits on ``text_iter``
+    (the span ``feed_source``: in ``api.compress_bed_stream`` the read,
+    the native transform and the carry)."""
+    started = time.perf_counter()
+    device_stats.add(encodes=1)
     mode = encode_mode(fast_bwt, device_rle2, device_huffman)
     dev = mesh if mesh is not None else resolve_device(device)
     if host_assist is None:
@@ -1677,6 +1699,15 @@ def encode_streams_iter(
         from concurrent.futures import ThreadPoolExecutor
 
         width = split_width
+        first = True  # no block fed yet
+
+        def feed(split) -> None:
+            nonlocal first
+            q.feed_blocks(*split)
+            if first and split[0]:
+                first = False
+                device_stats.add(first_block_s=time.perf_counter() - started)
+
         try:
             with ThreadPoolExecutor(width, thread_name_prefix="s3tsplit") as ex:
                 futs: collections.deque = collections.deque()
@@ -1685,16 +1716,17 @@ def encode_streams_iter(
                 while True:
                     while not exhausted and len(futs) < width + 2 and not (errors or q.cancelled):
                         while futs and futs[0].done():
-                            q.feed_blocks(*futs.popleft().result())
+                            feed(futs.popleft().result())
                         try:
-                            text = next(it)
+                            with span(device_stats, "feed_source"):
+                                text = next(it)
                         except StopIteration:
                             exhausted = True
                             break
                         futs.append(ex.submit(_split_classify, text, level))
                     if not futs or errors or q.cancelled:
                         break
-                    q.feed_blocks(*futs.popleft().result())
+                    feed(futs.popleft().result())
         except BaseException as e:  # surfaced by the generator below
             errors.append(e)
         finally:
@@ -1923,7 +1955,7 @@ def _dispatch_decode_chunk(block_metas, n_max: int, device):
     """Upload and launch one decode batch without waiting for it, on
     ``device`` or, when it is a ``BlockMesh``, split over its entries
     (``_Meshed`` parts).  Counts one batch in ``device_stats``."""
-    _count(decode_batches=1, decode_blocks=len(block_metas))
+    device_stats.add(decode_batches=1, decode_blocks=len(block_metas))
     if isinstance(device, BlockMesh):
         return _dispatch_meshed(
             device, len(block_metas),

@@ -883,16 +883,12 @@ def leg_device(args, peak: PeakRss) -> dict:
            # the chromosomes whose starts go back (the transform's unsorted branch) and their lines that do
            "starts_back": back and {"chroms": sum(map(bool, back)), "of": len(back), "lines": sum(back)}}
     if args.traced_only:  # the one run, traced, is the leg's
-        res.update(traced, busy_share_derived=traced["trace"].get("busy_share"))
+        res.update(traced)
     else:
         if traced is not None:
             res["traced"] = traced
         res.update(_device_run(texts, chroms, want, args))
         if traced is not None:
-            # the timed run is not traced (the profiler slows it): its busy share
-            # is the traced device time a batch times its batches, over its seconds
-            ms = traced["trace"].get("device_ms_per_batch")
-            res["busy_share_derived"] = ms and ms * res["device_stats"].get("batches", 0) / (res["seconds"] * 1e3)
             res["faults"] = res["faults"] + [f"traced: {f}" for f in traced["faults"]]
     res.update(_memory(args.device, peak))
     if args.host_rate:
@@ -1345,10 +1341,11 @@ def stated_target(shape: str, target: int, mem: int, free: int, margin: float = 
 def _leg_summary(line: dict) -> dict:
     """A stated-scale leg's figures: MB/s of BED and of text, device blocks
     of all blocks, blocks and tie re-encodes by class and the seconds of
-    those re-encodes by thread, the transform's seconds, (d)'s busy share
-    and its hold to ``bz2.compress``, and the starts that go back."""
+    those re-encodes by thread, the transform's seconds, the busy share of
+    (d)'s traced run and its hold to ``bz2.compress``, and the starts that
+    go back."""
     out = {k: line[k] for k in ("seconds", "mb_per_s_bed", "mb_per_s_text", "text_bytes", "blocks",
-                                "transform_seconds", "busy_share_derived", "starts_back", "bytes", "digest",
+                                "transform_seconds", "starts_back", "bytes", "digest",
                                 "reencode", "bz2")
            if k in line}
     st = line.get("device_stats")
@@ -1359,9 +1356,10 @@ def _leg_summary(line: dict) -> dict:
         out["tie_reencodes"] = {c: v["tie_reencodes"] for c, v in ran.items()}
         out["scheduler_stats"] = line["scheduler_stats"]
         out["width_launches"] = line["width_launches"]
-    if "traced" in line:
-        out["traced_busy_share"] = line["traced"]["trace"].get("busy_share")
-        out["traced_batches"] = line["traced"]["trace"].get("batches")
+    traced = line.get("traced", line)  # a traced-only leg's one run is the leg
+    if "trace" in traced:
+        out["traced_busy_share"] = traced["trace"].get("busy_share")
+        out["traced_batches"] = traced["trace"].get("batches")
     if "decode" in line:
         out["decode"] = {k: line["decode"][k] for k in ("seconds", "mb_per_s_bed", "digest", "bytes")}
     for k in ("max_memory_reserved", "peak_rss_mb", "rss_start_mb"):

@@ -96,6 +96,10 @@ PORT_EXTRAS = {
                         "the windowed kernel's launch, shared with mtf_narrow at widths 32/64, and the "
                         "launch counts of both wrappers, which a CUDA graph's replay counts as its capture "
                         "recorded them"),
+    "observability.py": (("Stats", "span", "span_keys"),
+                         "the port's counters and spans: a counter dict with its lock, the span that times work "
+                         "into it and opens a torch.profiler range only while a profiler runs (the JAX package "
+                         "has StageTimer's named scopes alone), and the keys a span declares"),
     "parallel/distributed.py": (("shutdown_distributed",), "ends the gloo process group"),
     "parallel/mesh.py": (("BlockMesh", "on_entry"),
                          "a mesh of torch devices, each with its stream, in place of a jax.sharding.Mesh"),

@@ -165,7 +165,6 @@ def test_device_leg_matches_every_stream(small):
     assert res["device_stats"]["blocks"] == res["blocks"] == 6
     assert res["traced"]["faults"] == [] and res["traced"]["blocks"] == 6
     assert res["traced"]["trace"]["batches"] == 0  # no kernel on the CPU
-    assert res["busy_share_derived"] is None
     assert not (d / "mismatch").exists()
 
 
@@ -796,7 +795,7 @@ def test_counters_split_by_class(monkeypatch):
 
     scale_run._zero_counters()
     try:
-        pipeline._count(**{"blocks": 3, "blocks_bits8": 3, "graph_captures": 1, "graph_captures_bits8": 1,
+        pipeline.device_stats.add(**{"blocks": 3, "blocks_bits8": 3, "graph_captures": 1, "graph_captures_bits8": 1,
                            "class_skips_bits5": 4})
         got = scale_run._counters()["per_class"]
     finally:
